@@ -1,0 +1,154 @@
+"""Build, load and call the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, loaded with ``ctypes``.  Builds happen at first
+use, from the sources in the package only, into ``build/repro_torch_kernels``
+at the root of the checkout (listed in ``.gitignore``).  A library's file
+name carries a hash of its sources and flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is.  ``build()`` starts one
+``nvcc`` per missing source, all at once.
+
+Nothing here runs at import time: this module imports on machines with no
+``nvcc`` and no card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Sequence
+
+import torch
+
+SOURCES = ("lease_probe", "tier_pass")
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where ``name``'s library lives: keyed by a hash of its source, the
+    shared headers and the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every missing library in ``names`` with one ``nvcc`` each,
+    all started together.  Returns seconds per library built (0.0 for one
+    already present); raises with the compiler's output on failure.  The
+    ptxas report (registers, spills) lands beside each library as
+    ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    out: Dict[str, float] = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            out[name] = 0.0
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, so, time.perf_counter())
+    for name, (proc, tmp, so, t0) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp, so)            # atomic: concurrent builders agree
+        out[name] = time.perf_counter() - t0
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
+
+
+P = ctypes.c_void_p
+LD = ctypes.c_longlong
+I = ctypes.c_int
+
+
+def function(lib_name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """A C entry point with its argument types declared (pointers and the
+    stream as ``c_void_p`` so no pointer is cut to 32 bits)."""
+    fn = getattr(library(lib_name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# ----------------------------------------------------------- argument checks
+def _check_cuda_i32(name: str, t: torch.Tensor, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got "
+                         f"one on {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, other inputs on {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+
+
+def check_rows(name: str, t: torch.Tensor, n: int, device) -> int:
+    """Validate an ``[n, W]`` int32 row matrix on ``device`` whose ways are
+    contiguous; returns its row stride (rows may be strided views, e.g. a
+    gathered set row with its trash way sliced off)."""
+    _check_cuda_i32(name, t, device)
+    if t.dim() != 2 or t.shape[0] != n or t.shape[1] < 1:
+        raise ValueError(f"{name}: expected shape [{n}, W>=1], got "
+                         f"{tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: ways must be contiguous (stride 1), got "
+                         f"strides {t.stride()}")
+    return t.stride(0)
+
+
+def check_vec(name: str, t: torch.Tensor, n: int, device) -> None:
+    """Validate a contiguous ``[n]`` int32 vector on ``device``."""
+    _check_cuda_i32(name, t, device)
+    if t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{name}: expected shape [{n}], got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous vector")
+
+
+def launch(fn, args, device) -> None:
+    """Call a C launcher on ``device``'s current stream; raise on a launch
+    error (``cudaGetLastError``).  Never synchronises."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA launch failed with cudaError {rc}")

@@ -1,0 +1,205 @@
+"""The port's coherence kernels against the reference's Pallas kernels.
+
+The plain PyTorch versions (``repro_torch.kernels.ref``) must equal
+``repro``'s Pallas kernels run in interpret mode, output for output and
+bit for bit (int32 lattice math: no tolerance), on the reference suite's
+own inputs (``tests/test_kernels.py``).  The CUDA kernels are held to the
+plain versions on the card in ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import protocol as rprotocol
+from repro.core import state as RS
+from repro.kernels.lease_probe import lease_probe as pallas_lease_probe
+from repro.kernels.tier_pass import miss_round as pallas_miss_round
+from repro.kernels.tier_pass import write_grant as pallas_write_grant
+from repro_torch.core import protocol as tprotocol
+from repro_torch.core import state as TS
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.lease_probe import lease_probe as cuda_lease_probe
+from repro_torch.kernels.tier_pass import miss_round as cuda_miss_round
+from repro_torch.kernels.tier_pass import write_grant as cuda_write_grant
+
+from test_kernels import _lease_probe_inputs, _miss_round_inputs
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _assert_outs_equal(got, want, names):
+    assert len(got) == len(want)
+    for g, w, name in zip(got, want, names):
+        g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = w.cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+        assert g.dtype == w.dtype, (name, g.dtype, w.dtype)
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+_PROBE_OUTS = ["tag_hit", "hit", "way", "row_rts", "nwts", "nrts", "ncts"]
+_MISS_OUTS = ["th1", "h1", "way1", "th2", "h2", "way2", "fnd", "tway",
+              "mwts", "mrts", "nmem", "ovf", "nwa", "nra", "nw1", "nr1"]
+_GRANT_OUTS = ["th", "way", "full", "wts", "rts", "nmem", "ovf"]
+
+
+def _write_grant_inputs(N, C, seed):
+    rng = np.random.default_rng(seed)
+    ts_tag = rng.integers(-1, 20, (N, C)).astype(np.int32)
+    ts_tag[::7] = -1                          # all-invalid TSU rows
+    ts_mem = rng.integers(0, 70000, (N, C)).astype(np.int32)
+    ts_mem[1::5] = rng.integers(65530, 65536, (len(ts_mem[1::5]), C))
+    ts_seq = rng.integers(0, 50, (N, C)).astype(np.int32)
+    addr = rng.integers(0, 20, N).astype(np.int32)
+    wl = rng.integers(1, 10, N).astype(np.int32)
+    return ts_tag, ts_mem, ts_seq, addr, wl
+
+
+# ------------------------------------------------------------ lease_probe
+@pytest.mark.parametrize("N,W", [(64, 4), (256, 16), (100, 8), (1, 2)])
+def test_lease_probe_ref_matches_pallas(N, W):
+    ins = _lease_probe_inputs(N, W)
+    got = ref.lease_probe_ref(*map(_t, ins))
+    want = pallas_lease_probe(*map(jnp.asarray, ins), interpret=True)
+    _assert_outs_equal(got, want, _PROBE_OUTS)
+
+
+def test_lease_probe_duplicate_tags_use_first_way():
+    tag_rows = np.array([[7, 7, -1, -1], [7, -1, 7, -1], [3, 7, 7, 7]],
+                        np.int32)
+    rts_rows = np.array([[5, 20, 0, 0], [20, 0, 5, 0], [9, 2, 30, 40]],
+                        np.int32)
+    ins = (tag_rows, rts_rows, np.array([10, 10, 10], np.int32),
+           np.array([7, 7, 7], np.int32), np.zeros(3, np.int32),
+           np.full(3, 12, np.int32))
+    got = ref.lease_probe_ref(*map(_t, ins))
+    want = pallas_lease_probe(*map(jnp.asarray, ins), interpret=True)
+    _assert_outs_equal(got, want, _PROBE_OUTS)
+    np.testing.assert_array_equal(got[1].numpy(), [False, True, False])
+    np.testing.assert_array_equal(got[2].numpy(), [0, 0, 1])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lease_probe_matches_protocol(seed):
+    """The plain version's install math is the port's protocol, which is
+    the reference's protocol."""
+    tag_rows, rts_rows, cts, addr, mwts, mrts = _lease_probe_inputs(192, 8,
+                                                                    seed)
+    _, _, _, _, nwts, nrts, ncts = ref.lease_probe_ref(
+        *map(_t, (tag_rows, rts_rows, cts, addr, mwts, mrts)))
+    lease = tprotocol.install(_t(cts), _t(mwts), _t(mrts))
+    rlease = rprotocol.install(jnp.asarray(cts), jnp.asarray(mwts),
+                               jnp.asarray(mrts))
+    for a, b, c in ((nwts, lease.wts, rlease.wts), (nrts, lease.rts,
+                                                   rlease.rts)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+    np.testing.assert_array_equal(
+        ncts.numpy(), np.asarray(rprotocol.cts_after_write(
+            jnp.asarray(cts), rlease.wts)))
+
+
+# ------------------------------------------------------------- miss_round
+@pytest.mark.parametrize("N,W1,W2,C,seed", [
+    (64, 4, 8, 16, 0), (256, 2, 4, 64, 1), (96, 8, 2, 8, 2)])
+def test_miss_round_ref_matches_pallas(N, W1, W2, C, seed):
+    ins = _miss_round_inputs(N, W1, W2, C, seed)
+    got = ref.miss_round_ref(*map(_t, ins))
+    want = pallas_miss_round(*map(jnp.asarray, ins), interpret=True)
+    _assert_outs_equal(got, want, _MISS_OUTS)
+
+
+def test_miss_round_near_ts_max_grants():
+    """Entry clocks within rd of TS_MAX: the strict ``>`` reinit fires
+    exactly where the reference's does."""
+    N, C = 64, 8
+    ins = list(_miss_round_inputs(N, 2, 2, C, 3))
+    rng = np.random.default_rng(3)
+    ins[5][:, 0] = ins[9]                       # every lane finds its entry
+    ins[6][:] = rng.integers(tprotocol.TS_MAX - 12, tprotocol.TS_MAX + 1,
+                             (N, C))
+    ins[10][:] = 1                              # all lanes active
+    got = ref.miss_round_ref(*map(_t, ins))
+    want = pallas_miss_round(*map(jnp.asarray, ins), interpret=True)
+    _assert_outs_equal(got, want, _MISS_OUTS)
+    assert got[11].any() and not got[11].all()  # some, not all, reinit
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_miss_round_matches_state_rules(seed):
+    """The grant equals ``state.tsu_lease`` and the two install levels
+    equal chained ``state.install_lease`` calls, in both packages."""
+    ins = _miss_round_inputs(128, 4, 4, 32, seed)
+    (th1, h1, way1, th2, h2, way2, fnd, tway, mwts, mrts, nmem, ovf, nwa,
+     nra, nw1, nr1) = ref.miss_round_ref(*map(_t, ins))
+    addr, rd = _t(ins[9]), _t(ins[11])
+    eqt = _t(ins[5]) == addr[:, None]
+    memts = torch.where(eqt.any(-1), ref._first_match_ref(eqt, _t(ins[6])), 0)
+    gr = TS.tsu_lease(memts, torch.zeros(memts.shape, dtype=torch.bool), rd,
+                      rd)
+    rgr = RS.tsu_lease(jnp.asarray(memts.numpy()),
+                       jnp.zeros(memts.shape, bool), jnp.asarray(ins[11]),
+                       jnp.asarray(ins[11]))
+    for a, b, c in ((mwts, gr.wts, rgr.wts), (mrts, gr.rts, rgr.rts),
+                    (nmem, gr.new_memts, rgr.new_memts)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
+    wA, rA, _ = TS.install_lease(_t(ins[8]), mwts, mrts)
+    np.testing.assert_array_equal(nwa.numpy(), wA.numpy())
+    np.testing.assert_array_equal(nra.numpy(), rA.numpy())
+    eq2 = _t(ins[2]) == addr[:, None]
+    w1, r1, _ = TS.install_lease(
+        _t(ins[7]), torch.where(h2, ref._first_match_ref(eq2, _t(ins[4])), nwa),
+        torch.where(h2, ref._first_match_ref(eq2, _t(ins[3])), nra))
+    np.testing.assert_array_equal(nw1.numpy(), w1.numpy())
+    np.testing.assert_array_equal(nr1.numpy(), r1.numpy())
+    act = ins[10].astype(bool)
+    assert not (h1 & ~th1).any() and not (h2 & ~th2).any()
+    assert not (th1.numpy() & ~act).any()
+    assert not (th2 & h1).any() and not (fnd & h2).any()
+
+
+# ------------------------------------------------------------ write_grant
+@pytest.mark.parametrize("N,C,seed", [(64, 16, 0), (256, 64, 1), (40, 8, 2)])
+def test_write_grant_ref_matches_pallas(N, C, seed):
+    ins = _write_grant_inputs(N, C, seed)
+    got = ref.write_grant_ref(*map(_t, ins))
+    want = pallas_write_grant(*map(jnp.asarray, ins), interpret=True)
+    _assert_outs_equal(got, want, _GRANT_OUTS)
+    # the victim rule is state.victim_lex on the miss lanes, both packages
+    th, way = got[0].numpy(), got[1].numpy()
+    pad = lambda a: np.concatenate([a[:, None, :], np.zeros((N, 1, 1),
+                                                            np.int32)], -1)
+    vic = TS.victim_lex(*(_t(pad(a)) for a in ins[:3]),
+                        torch.arange(N), torch.zeros(N, dtype=torch.long))
+    rvic = RS.victim_lex(*(jnp.asarray(pad(a)) for a in ins[:3]),
+                         jnp.arange(N), jnp.zeros(N, jnp.int32))
+    np.testing.assert_array_equal(way[~th], vic.numpy()[~th])
+    np.testing.assert_array_equal(vic.numpy(), np.asarray(rvic))
+    assert got[2].numpy()[::7].sum() == 0       # empty rows are not full
+
+
+# ------------------------------------------------------------ dispatcher
+def test_dispatcher_sends_cpu_tensors_to_plain_versions():
+    ins = tuple(map(_t, _lease_probe_inputs(16, 4)))
+    _assert_outs_equal(ops.lease_probe(*ins), ref.lease_probe_ref(*ins),
+                       _PROBE_OUTS)
+    mins = tuple(map(_t, _miss_round_inputs(16, 2, 2, 8)))
+    _assert_outs_equal(ops.miss_round(*mins), ref.miss_round_ref(*mins),
+                       _MISS_OUTS)
+    gins = tuple(map(_t, _write_grant_inputs(16, 8, 0)))
+    _assert_outs_equal(ops.write_grant(*gins), ref.write_grant_ref(*gins),
+                       _GRANT_OUTS)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers launch on CUDA tensors or raise — never a
+    silent fallback."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_lease_probe(*map(_t, _lease_probe_inputs(8, 2)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_miss_round(*map(_t, _miss_round_inputs(8, 2, 2, 4)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_write_grant(*map(_t, _write_grant_inputs(8, 4, 0)))
