@@ -6,13 +6,17 @@ NVIDIA H100.
 
 Phases (any failure raises and the script exits non-zero):
 
-  1. card and build: the card's name and power limit, then the three CUDA
+  1. card and build: the card's name and power limit, then the CUDA
      kernels built from ``src/repro_torch/kernels/csrc`` for ``sm_90a``;
-  2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, on seeded inputs with duplicate tags, empty ways,
-     full and partly-full TSU rows and clocks near ``TS_MAX`` — exact
-     equality on every output — with CUDA-event timings and each
-     kernel's bound;
+  2. each kernel against its plain PyTorch version on the card, with
+     CUDA-event timings and each kernel's bound.  The coherence kernels
+     at the main path's shapes, on seeded inputs with duplicate tags,
+     empty ways, full and partly-full TSU rows and clocks near ``TS_MAX``
+     — exact equality on every output.  The float kernels (rmsnorm,
+     flash attention, decode attention) at the LLM serving path's shapes
+     and at odd ones, in bf16 and in f32, within stated tolerances, with
+     the time of one PyTorch library call of the same function beside
+     them (timed only: the port never calls it);
   3. the main path at the serving bench's geometry (8 TSU shards x 1024
      entries, 1024x8 replica sets, 2048x8 shared sets, 2 nodes x 2
      replicas) over 8192 keys, so the TSU table fills: warm the fabric
@@ -25,11 +29,26 @@ Phases (any failure raises and the script exits non-zero):
      the whole fabric state; the kernels' launch counts of the card run
      must all be > 0; then a closed-loop and an open-loop replay on the
      card with the wall clock (requests/s, p50/p99);
-  4. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
+  4. the LLM serving path at full width: ``runtime.server.Server`` with
+     smollm-360m (32 layers, d_model 960, vocab 49152, seeded weights on
+     the card), batch 8, 512-token prompts, 64 new tokens, four waves of
+     8 requests whose group prompt repeats, so waves 2-4 are served from
+     live leases; the float kernels' launch counts of this run must all
+     be > 0, a prefix payload must be unchanged after decoding from it,
+     ``serve_stream`` must equal sequential ``serve``, the card's lease
+     and fabric counters and grant log must equal a CPU server's on the
+     same stream (1 layer deep: the fabric sees only keys), and at 4
+     layers the card's final hidden state and first-token logits must
+     equal the port on the CPU within a relative L2 of 2e-2; then
+     prefill and decode times, generated tokens/s and host time per
+     decode step;
+  5. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
-by kernel and the host's top operators (in ``chip_smoke.json``).
+by kernel and the host's top operators (in ``chip_smoke.json``).  Phase
+4 always profiles two prefills and eight decode steps the same way; the
+tables go to ``chip_smoke.json``.
 
 It needs a CUDA card, and the repository's ``src/`` beside it.  Details go
 to ``chiprun_out/chip_smoke.json``.
@@ -57,12 +76,37 @@ MAX_BATCH = 64
 REPUBLISH_EVERY = 4 * MAX_BATCH
 REPUBLISH_N = 16
 WARM_CHUNK = MAX_BATCH
+# tensor-core peak in bf16 (data sheet, dense); f32 math runs on the
+# CUDA cores at the 67 TFLOP/s above
+BF16_FLOPS_PER_S = 989e12
 KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
             "src/repro/kernels/lease_probe.py:81"),
            ("miss_round", "src/repro_torch/kernels/csrc/tier_pass.cu",
             "src/repro/kernels/tier_pass.py:204"),
            ("write_grant", "src/repro_torch/kernels/csrc/tier_pass.cu",
-            "src/repro/kernels/tier_pass.py:241"))
+            "src/repro/kernels/tier_pass.py:241"),
+           ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+            "src/repro/kernels/rmsnorm.py:31"),
+           ("flash_attention",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:79"),
+           ("decode_attention",
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:63"))
+# phase 4: the LLM serving path
+ARCH = "smollm-360m"
+SERVE_B, PROMPT_LEN, MAX_NEW = 8, 512, 64
+MAX_LEN = PROMPT_LEN + MAX_NEW + 8
+N_WAVES = 4
+# depth (and batch) cut on the CPU side only, to keep the run short
+CPU_FABRIC_LAYERS = 1        # the CPU server that checks the fabric
+CPU_MODEL_LAYERS = 4         # card vs CPU model comparison, full width
+CPU_MODEL_BATCH = 2
+WEIGHT_SEED = 0
+# kernel vs plain version: f32 is the same math summed in another order;
+# bf16 rounds the f32 result once on both sides (2^-8 relative steps)
+FLOAT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MODEL_REL_L2 = 2e-2          # card vs CPU model in bf16
 
 
 def log(*a) -> None:
@@ -226,6 +270,103 @@ def check_kernels(torch, np, dev, report):
     compare("write_grant", write_grant, ref.write_grant_ref,
             [T(a)[:, :-1] for a in rows] + [T(v) for v in vecs],
             grant_bound(rows, vecs), [256, 1024])
+
+
+# ------------------------------------------------ phase 2, float kernels
+def _visible_pairs(Sq, Sk, causal):
+    """(query, key) pairs the causal mask leaves visible."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(i + 1, Sk) for i in range(Sq))
+
+
+def check_float_kernels(torch, np, dev, report):
+    """rmsnorm, flash and decode attention against their plain versions on
+    the card at the serving path's shapes and odd ones, bf16 and f32;
+    each row with kernel, plain and library times and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    def randn(shape, dtype, seed):
+        a = np.random.default_rng(seed).standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    def compare(name, kern, plain, library, nbytes, flops, dtype, shape):
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        tol = FLOAT_TOL[str(dtype).split(".")[-1]]
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name}{shape}: dtype/shape differ")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}{shape}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"{name}{shape} {dtype}: max |err| {err} "
+                                 f"beyond rtol=atol={tol}")
+        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
+        bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
+               "max_abs_err": err, "tol": tol, "ms": device_ms(torch, kern),
+               "plain_ms": device_ms(torch, plain),
+               "library_ms": device_ms(torch, library),
+               "bound_ms": max(bt, ot),
+               "bound_by": "bytes" if bt >= ot else "operations",
+               "bytes": nbytes, "flops": flops}
+        report.setdefault(name, []).append(row)
+        log(f"  {name}{shape} {row['dtype']}: max |err| {err:.3g} <= {tol}; "
+            f"kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, library "
+            f"{row['library_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+
+    log(f"  float tolerances (rtol = atol): {FLOAT_TOL}; f32 is the same "
+        "math summed in another order, bf16 rounds the f32 result once")
+    eps = 1e-6
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.finfo(dtype).bits // 8
+        for R, D in ((SERVE_B * PROMPT_LEN, 960), (7, 80)):
+            x = randn((R, D), dtype, R + D)
+            w = randn((D,), torch.float32, D) * 0.1
+            w1 = (1.0 + w).to(dtype)
+            compare("rmsnorm", lambda: rmsnorm(x, w, eps=eps),
+                    lambda: ref.rmsnorm_ref(x, w, eps),
+                    lambda: F.rms_norm(x, (D,), weight=w1, eps=eps),
+                    2 * R * D * el + 4 * D, 4 * R * D, dtype, [R, D])
+        for S in (PROMPT_LEN, 100):
+            B, Hq, Hkv, D = SERVE_B, 15, 5, 64
+            q = randn((B, S, Hq, D), dtype, 1)
+            k = randn((B, S, Hkv, D), dtype, 2)
+            v = randn((B, S, Hkv, D), dtype, 3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            compare("flash_attention",
+                    lambda: flash_attention(q, k, v, causal=True),
+                    lambda: ref.attention_ref(q, k, v, causal=True),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True),
+                    (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * el,
+                    4 * D * B * Hq * _visible_pairs(S, S, True), dtype,
+                    [B, S, Hq, Hkv, D])
+        B, Sk, Hq, Hkv, D = SERVE_B, MAX_LEN, 15, 5, 64
+        q = randn((B, 1, Hq, D), dtype, 4)
+        k = randn((B, Sk, Hkv * D), dtype, 5).view(B, Sk, Hkv, D)
+        v = randn((B, Sk, Hkv * D), dtype, 6).view(B, Sk, Hkv, D)
+        for kv_len in (1, PROMPT_LEN + 1, MAX_LEN):
+            qt = q.transpose(1, 2)
+            kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+            compare("decode_attention",
+                    lambda: decode_attention(q, k, v, kv_len),
+                    lambda: ref.attention_ref(q, k, v, causal=False,
+                                              kv_len=kv_len),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, enable_gqa=True),
+                    (2 * B * Hq * D + 2 * B * kv_len * Hkv * D) * el,
+                    4 * D * B * Hq * kv_len, dtype,
+                    [B, Sk, Hq, Hkv, D, kv_len])
 
 
 # ------------------------------------------------------------- phase 3
@@ -406,7 +547,6 @@ def profile_replay(torch, fab, trace):
     Returns the device's busy time (the union of its kernel and copy
     intervals) against the wall clock, device time by kernel name and the
     host's top operators by self time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime import scheduler
@@ -422,6 +562,30 @@ def profile_replay(torch, fab, trace):
                                republish_n=REPUBLISH_N)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_breakdown(prof, wall_us)
+    waves = len(res.batch_sizes)
+    out.update({"requests": res.n_requests, "waves": waves,
+                "device_events_per_wave": out["device_events"]
+                / max(waves, 1)})
+    return out
+
+
+# device symbol of each kernel, as the profiler names it
+KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
+                  "miss_round": ("miss_round_kernel",),
+                  "write_grant": ("write_grant_kernel",),
+                  "rmsnorm": ("rmsnorm_kernel",),
+                  "flash_attention": ("flash_kernel",),
+                  "decode_attention": ("decode_split_kernel",
+                                       "decode_combine_kernel")}
+
+
+def device_breakdown(prof, wall_us):
+    """From a ``torch.profiler`` run over ``wall_us`` of wall clock: the
+    device's busy time (the union of its kernel and copy intervals) and
+    idle share, device time by kernel name, the ported kernels' share and
+    the host's top operators by self time."""
+    from torch.autograd import DeviceType
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         raise AssertionError("the profiler recorded no device activity")
@@ -440,24 +604,261 @@ def profile_replay(torch, fab, trace):
         by_name[e.name][1] += e.time_range.elapsed_us()
     top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     ported = {name: [sum(v[i] for n, v in by_name.items()
-                         if f"{name}_kernel" in n) for i in (0, 1)]
-              for name, _, _ in KERNELS}
+                         if any(sym in n for sym in syms)) for i in (0, 1)]
+              for name, syms in KERNEL_SYMBOLS.items()}
     top_host = sorted(((a.key, a.count, a.self_cpu_time_total)
                        for a in prof.key_averages()
                        if a.self_cpu_time_total > 0),
                       key=lambda r: -r[2])[:15]
-    waves = len(res.batch_sizes)
-    return {"requests": res.n_requests, "waves": waves, "wall_us": wall_us,
-            "device_busy_us": busy_us,
+    return {"wall_us": wall_us, "device_busy_us": busy_us,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "device_events": len(dev),
-            "device_events_per_wave": len(dev) / max(waves, 1),
             "device_by_name": [{"name": n[:120], "count": c, "us": us}
                                for n, (c, us) in top_dev],
             "ported_kernels": {n: {"count": c, "us": us}
                                for n, (c, us) in ported.items()},
             "host_by_op": [{"op": k[:120], "count": c, "self_us": us}
                            for k, c, us in top_host]}
+
+
+def profile_calls(torch, fn, calls):
+    """``calls`` calls of ``fn`` (each ending in a host sync, as the
+    serving loop's steps do) under ``torch.profiler``: the device's busy
+    time per call and ``device_breakdown``'s tables."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = device_breakdown(prof, wall_us)
+    out.update({"calls": calls,
+                "device_ms_per_call": out["device_busy_us"] / calls / 1e3})
+    return out
+
+
+# ------------------------------------------------------------- phase 4
+def serve_waves(np, vocab):
+    """``N_WAVES`` waves of ``SERVE_B`` requests; request i's prompt is
+    drawn with seed i % SERVE_B (``launch/serve.py``'s rule), so every
+    wave is one decode group with wave 1's group prompt."""
+    from repro_torch.runtime.server import Request
+    prompts = [np.random.default_rng(seed).integers(
+        2, vocab, PROMPT_LEN).astype(np.int32) for seed in range(SERVE_B)]
+    reqs = [Request(rid=i, prompt=prompts[i % SERVE_B], max_new=MAX_NEW)
+            for i in range(N_WAVES * SERVE_B)]
+    return [reqs[w * SERVE_B:(w + 1) * SERVE_B] for w in range(N_WAVES)]
+
+
+def leaves(tree):
+    """The tensors of a payload ``(cache tree, first ids)``, in order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in leaves(x)]
+    return [tree]
+
+
+def compare_servers(a, b, what) -> None:
+    """Lease-cache counters, fabric counters and grant log: exact."""
+    if a.cache_stats != b.cache_stats:
+        raise AssertionError(f"{what}: lease-cache counters differ: "
+                             f"{a.cache_stats} vs {b.cache_stats}")
+    if a.fabric_stats != b.fabric_stats:
+        raise AssertionError(f"{what}: fabric counters differ")
+    if list(a.fabric.grant_log) != list(b.fabric.grant_log):
+        raise AssertionError(f"{what}: grant logs differ")
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def serve_timings(torch, np, cfg, srv, tokens):
+    """Prefill and decode-step times at the serving shapes: wall clock
+    with the server's per-step host sync and the host's enqueue time per
+    step, then the device's busy time per prefill and per decode step
+    from ``torch.profiler`` (the union of its kernel and copy
+    intervals)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+
+    def run_prefill():
+        return prefill(cfg, srv.params, tokens,
+                       init_cache(cfg, SERVE_B, MAX_LEN, tokens.device))
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, cache = run_prefill()
+        nxt.cpu()
+        walls.append(time.perf_counter() - t0)
+    host, steps = [], []
+    ids0, cache0 = nxt, cache
+    for t in range(MAX_NEW - 1):
+        t0 = time.perf_counter()
+        nxt, cache = decode_step(cfg, srv.params, cache, nxt[:, None],
+                                 PROMPT_LEN + t)
+        t1 = time.perf_counter()
+        nxt.cpu()
+        host.append(t1 - t0)
+        steps.append(time.perf_counter() - t0)
+    prof_prefill = profile_calls(torch, lambda: run_prefill()[0].cpu(), 2)
+    prof_decode = profile_calls(
+        torch, lambda: decode_step(cfg, srv.params, cache0, ids0[:, None],
+                                   PROMPT_LEN)[0].cpu(), 8)
+    return {"prefill_ms": statistics.median(walls) * 1e3,
+            "prefill_device_ms": prof_prefill["device_ms_per_call"],
+            "decode_step_ms": statistics.mean(steps) * 1e3,
+            "decode_host_ms": statistics.mean(host) * 1e3,
+            "decode_device_ms": prof_decode["device_ms_per_call"],
+            "profile_prefill": prof_prefill, "profile_decode": prof_decode}
+
+
+def check_serving(torch, np, dev, report):
+    """The LLM serving path at full width on the card (phase 4)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lease_probe import lease_probe
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.tier_pass import miss_round, write_grant
+    from repro_torch.models import cast_params, forward, init_model
+    from repro_torch.models.model import tree_map, unembed_matrix
+    from repro_torch.runtime.server import Server
+
+    cfg = configs.get(ARCH)
+    waves = serve_waves(np, cfg.vocab)
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED))
+    srv = Server(cfg, params, batch_size=SERVE_B, max_len=MAX_LEN,
+                 device=dev)
+    torch.cuda.synchronize()
+    log(f"  {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}; weights "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    posted = []
+    put = srv.kv.put_batch
+    srv.kv.put_batch = lambda items: (posted.extend(items), put(items))
+
+    counters = (rmsnorm, flash_attention, decode_attention, lease_probe,
+                miss_round, write_grant)
+    for fn in counters:
+        fn.launches = 0
+    out, walls, hits, snap = {}, [], [], None
+    t_all = time.perf_counter()
+    for w, wave in enumerate(waves):
+        t0 = time.perf_counter()
+        out.update(srv.serve(wave))
+        walls.append(time.perf_counter() - t0)
+        hits.append(srv.cache_stats["hits"])
+        if w == 0:
+            snap = [t.clone() for t in leaves(posted[0][1])]
+    serve_s = time.perf_counter() - t_all
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"  card: {N_WAVES} waves x {SERVE_B} requests, prompts "
+        f"{PROMPT_LEN}, {MAX_NEW} new tokens: "
+        f"{', '.join(f'{x:.2f}' for x in walls)} s per wave; lease hits "
+        f"after each wave {hits}; launches {launches}")
+    if hits[1] < 1:
+        raise AssertionError("wave 2 was not served from a lease")
+    if min(launches[fn.__name__] for fn in counters[:3]) < 1:
+        raise AssertionError(f"a float kernel was not launched: {launches}")
+    if len(posted) != 1 or not all(
+            torch.equal(a, b) for a, b in zip(snap, leaves(posted[0][1]))):
+        raise AssertionError("the prefix payload changed while decoding "
+                             "from it")
+    want = {i: out[i % SERVE_B] for i in range(N_WAVES * SERVE_B)}
+    for rid, toks in out.items():
+        if toks.shape != (MAX_NEW,) or toks.dtype != np.int32 or \
+                toks.min() < 0 or toks.max() >= cfg.vocab:
+            raise AssertionError(f"request {rid}: bad tokens {toks}")
+        if not np.array_equal(toks, want[rid]):
+            raise AssertionError(f"request {rid}: a lease hit decoded "
+                                 "other tokens than the prefill wave")
+    log("  wave 2 served from a lease; the prefix payload is bit-identical "
+        "after decoding from it; waves 2-4 give wave 1's tokens")
+
+    srv_s = Server(cfg, params, batch_size=SERVE_B, max_len=MAX_LEN,
+                   device=dev)
+    t0 = time.perf_counter()
+    out_s = srv_s.serve_stream(iter(waves))
+    stream_s = time.perf_counter() - t0
+    if out_s.keys() != out.keys() or any(
+            not np.array_equal(out_s[r], out[r]) for r in out):
+        raise AssertionError("serve_stream tokens differ from serve")
+    compare_servers(srv_s, srv, "serve_stream vs serve")
+    log(f"  serve_stream == sequential serve (tokens, counters, grant "
+        f"log): {stream_s:.2f} s vs {serve_s:.2f} s")
+
+    cfg2 = dataclasses.replace(cfg, n_layers=CPU_FABRIC_LAYERS)
+    srv_h = Server(cfg2, init_model(cfg2, torch.Generator().manual_seed(
+        WEIGHT_SEED)), batch_size=SERVE_B, max_len=MAX_LEN, device="cpu")
+    t0 = time.perf_counter()
+    for wave in waves:
+        srv_h.serve(wave)
+    cpu_s = time.perf_counter() - t0
+    compare_servers(srv, srv_h, "card vs CPU")
+    log(f"  card == CPU ({CPU_FABRIC_LAYERS} layers, {cpu_s:.1f} s): "
+        f"lease-cache counters {srv.cache_stats}, fabric counters, grant "
+        f"log ({len(srv.fabric.grant_log)} grants)")
+
+    cfg4 = dataclasses.replace(cfg, n_layers=CPU_MODEL_LAYERS)
+    p4 = cast_params(cfg4, init_model(
+        cfg4, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
+    p4h = tree_map(lambda t: t.cpu(), p4)
+    tok = torch.from_numpy(np.stack([r.prompt for r in waves[0]]))
+    tok4 = tok[:CPU_MODEL_BATCH]
+    h_c, _ = forward(cfg4, p4, tok4.to(dev))
+    h_h, _ = forward(cfg4, p4h, tok4)
+    lg_c = h_c[:, -1] @ unembed_matrix(cfg4, p4)
+    lg_h = h_h[:, -1] @ unembed_matrix(cfg4, p4h)
+    errs = {"hidden_rel_l2": rel_l2(h_c, h_h),
+            "logits_rel_l2": rel_l2(lg_c, lg_h)}
+    if not all(torch.isfinite(t).all() for t in (h_c, lg_c)) or \
+            max(errs.values()) > MODEL_REL_L2:
+        raise AssertionError(f"card vs CPU model at {CPU_MODEL_LAYERS} "
+                             f"layers: {errs} (limit {MODEL_REL_L2})")
+    log(f"  card == CPU model at {CPU_MODEL_LAYERS} layers, full width, "
+        f"batch {CPU_MODEL_BATCH}, bf16: relative L2 {errs} <= "
+        f"{MODEL_REL_L2}")
+
+    tm = serve_timings(torch, np, cfg, srv, tok.to(dev))
+    tokens_out = N_WAVES * SERVE_B * MAX_NEW
+    tm.update({"serve_s": serve_s, "wave_s": walls,
+               "tokens_per_s": tokens_out / serve_s,
+               "hit_wave_tokens_per_s": SERVE_B * MAX_NEW
+               / statistics.mean(walls[1:]),
+               "decode_device_idle_share":
+               1.0 - tm["decode_device_ms"] / tm["decode_step_ms"]})
+    log(f"  prefill (B={SERVE_B}, S={PROMPT_LEN}) {tm['prefill_ms']:.1f} ms "
+        f"wall, {tm['prefill_device_ms']:.1f} ms device; decode step "
+        f"{tm['decode_step_ms']:.2f} ms wall (host enqueue "
+        f"{tm['decode_host_ms']:.2f} ms, device "
+        f"{tm['decode_device_ms']:.2f} ms, idle share "
+        f"{tm['decode_device_idle_share']:.2f}); {tm['tokens_per_s']:.0f} "
+        f"generated tokens/s over the 4 waves, "
+        f"{tm['hit_wave_tokens_per_s']:.0f} in a lease-hit wave")
+    report["serving"] = {"launches": launches, "lease_hits": hits,
+                         "model_errs": errs, "stream_s": stream_s,
+                         "cpu_fabric_check_s": cpu_s,
+                         "cache_stats": srv.cache_stats,
+                         "fabric_stats": srv.fabric_stats, **tm}
+    prof = tm["profile_decode"]
+    top = ", ".join(f"{r['name'][:40]} {r['us'] / prof['calls']:.0f} us"
+                    for r in prof["device_by_name"][:4])
+    host = ", ".join(f"{r['op']} {r['self_us'] / prof['calls'] / 1e3:.2f} ms"
+                     for r in prof["host_by_op"][:4])
+    log(f"  a profiled decode step: {prof['device_events'] / prof['calls']:.0f}"
+        f" device events; device by kernel: {top}; host by op (self): "
+        f"{host}")
+    return launches
 
 
 # ------------------------------------------------------------------ main
@@ -477,6 +878,8 @@ def main() -> None:
     from repro_torch.runtime import loadgen
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
     report = {}
 
     # ---- 1. card and build
@@ -507,9 +910,11 @@ def main() -> None:
         log(f"  {name}.cu ptxas: {'; '.join(regs)}")
 
     # ---- 2. kernels against their plain versions
-    log("phase 2: kernels vs plain versions on the card (exact)")
+    log("phase 2: kernels vs plain versions on the card (coherence exact, "
+        "float within tolerance)")
     kreport = {}
     check_kernels(torch, np, dev, kreport)
+    check_float_kernels(torch, np, dev, kreport)
     report["kernels"] = kreport
     check_no_sync(torch, np)
     log("  miss-path dispatch enqueues with no host sync (sync debug mode)")
@@ -556,23 +961,36 @@ def main() -> None:
             f"{prof['device_events_per_wave']:.0f} device events per wave; "
             f"ported kernels {prof['ported_kernels']}")
 
+    # ---- 4. the LLM serving path
+    log(f"phase 4: LLM serving path, {ARCH} at full width")
+    served = check_serving(torch, np, dev, report)
+    launches.update({k: v for k, v in served.items() if k not in launches})
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # ---- 4. summary lines
+    # ---- 5. summary lines: each kernel's row at the main path's shapes
+    main_shape = {"lease_probe": [64, 8],
+                  "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
+                  "flash_attention": [SERVE_B, PROMPT_LEN, 15, 5, 64],
+                  "decode_attention": [SERVE_B, MAX_LEN, 15, 5, 64,
+                                       PROMPT_LEN + 1]}
     line = []
     for name, source, replaces in KERNELS:
         row = max(kreport[name], key=lambda r: r["shape"][0])
-        if name == "lease_probe":
-            row = next(r for r in kreport[name] if r["shape"] == [64, 8])
+        if name in main_shape:
+            row = next(r for r in kreport[name]
+                       if r["shape"] == main_shape[name]
+                       and r.get("dtype", "bfloat16") == "bfloat16")
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": max(r["max_abs_err"]
                                         for r in kreport[name]),
                      "ms": row["ms"], "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"], "library_ms": None})
+                     "bound_by": row["bound_by"],
+                     "library_ms": row.get("library_ms")})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-SOURCES = ("lease_probe", "tier_pass")
+SOURCES = ("lease_probe", "tier_pass", "rmsnorm", "flash_attention",
+           "decode_attention")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -57,9 +58,9 @@ def library_path(name: str) -> pathlib.Path:
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     """Compile every missing library in ``names`` with one ``nvcc`` each,
     all started together.  Returns seconds per library built (0.0 for one
-    already present); raises with the compiler's output on failure.  The
-    ptxas report (registers, spills) lands beside each library as
-    ``.log``."""
+    already present), each from its own start to its own end; raises
+    with the compiler's output on failure.  The ptxas report (registers,
+    spills) lands beside each library as ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     out: Dict[str, float] = {}
@@ -69,17 +70,24 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             out[name] = 0.0
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        log = so.with_suffix(f".{os.getpid()}.log")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, so, time.perf_counter())
-    for name, (proc, tmp, so, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        so.with_suffix(".log").write_text(log)
-        os.replace(tmp, so)            # atomic: concurrent builders agree
-        out[name] = time.perf_counter() - t0
+        with open(log, "w") as fh:
+            procs[name] = (subprocess.Popen(cmd, stdout=fh,
+                                            stderr=subprocess.STDOUT),
+                           tmp, log, so, time.perf_counter())
+    while procs:
+        for name, (proc, tmp, log, so, t0) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[name]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {name}.cu:\n"
+                                   f"{log.read_text()}")
+            os.replace(log, so.with_suffix(".log"))
+            os.replace(tmp, so)        # atomic: concurrent builders agree
+            out[name] = time.perf_counter() - t0
+        time.sleep(0.05)
     return out
 
 
@@ -95,6 +103,10 @@ def library(name: str) -> ctypes.CDLL:
 P = ctypes.c_void_p
 LD = ctypes.c_longlong
 I = ctypes.c_int
+F = ctypes.c_float
+
+# storage type codes of the float kernels (csrc/float_io.cuh)
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def function(lib_name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
@@ -152,3 +164,23 @@ def launch(fn, args, device) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA launch failed with cudaError {rc}")
+
+
+def check_float(name: str, t: torch.Tensor, device, dtype=None) -> int:
+    """Validate a float tensor for the float kernels: a CUDA tensor on
+    ``device`` (if given) in f32 or bf16 (``dtype`` if given) whose last
+    dim is contiguous.  Returns the kernel's storage type code."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got "
+                         f"one on {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, other inputs on {device}")
+    if t.dtype not in FLOAT_CODES or (dtype is not None and t.dtype != dtype):
+        want = dtype if dtype is not None else "float32 or bfloat16"
+        raise TypeError(f"{name}: expected {want}, got {t.dtype}")
+    if t.dim() and t.shape[-1] > 1 and t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dim must be contiguous, got "
+                         f"strides {t.stride()}")
+    return FLOAT_CODES[t.dtype]

@@ -1,8 +1,13 @@
-"""Plain PyTorch versions of the coherence kernels: the ground truth the
-CUDA kernels are held to, and what the dispatcher runs on CPU tensors.
+"""Plain PyTorch versions of the kernels: the ground truth the CUDA
+kernels are held to, and what the dispatcher runs on CPU tensors.
 
-Each function is the line-for-line counterpart of the coherence half of
-``repro/kernels/ref.py`` and runs on any device.  Translation notes:
+Each function is the line-for-line counterpart of its namesake in
+``repro/kernels/ref.py`` and runs on any device.  The float half
+(``rmsnorm_ref``, ``attention_ref``) computes in f32 and casts the result
+to the input's dtype, as the Pallas kernels do; in particular the softmax
+probabilities stay f32 for the PV product, where the reference's jnp
+``layers.attention`` rounds them to v's dtype first.  Translation notes
+for the coherence half:
 ``argmax``/``argmin`` pick the FIRST index on ties (an all-false row gives
 0), bool masks are cast to int32 before ``argmax``, and every reduction
 is cast back to int32 (torch's ``sum``/``cumsum``/``argmax`` return
@@ -16,6 +21,7 @@ from repro_torch.core import protocol
 
 _i32 = torch.int32
 _NEG = -2 ** 30
+NEG_INF = -1e30              # the attention kernels' additive mask value
 
 
 def _first_index(eq):
@@ -111,3 +117,35 @@ def write_grant_ref(ts_tag, ts_mem, ts_seq, addr, wl, invalid=-1):
     memts = torch.where(th, _first_match_ref(eq, ts_mem), 0)
     wts, rts, nmem, ovf = _tsu_grant_ref(memts, True, wl)
     return th, w0, full, wts, rts, nmem, ovf
+
+
+# ------------------------------------------------------------ float kernels
+def rmsnorm_ref(x, w, eps=1e-6):
+    """x: [..., D]; w: [D].  ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in
+    f32, cast to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def attention_ref(q, k, v, *, causal=True, window=0, kv_len=None):
+    """q: [B,Sq,Hq,D]; k,v: [B,Sk,Hkv,D] — plain softmax attention in f32.
+    Query head h reads kv head ``h // (Hq // Hkv)``; masked scores get
+    ``NEG_INF`` added, as in the kernels."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qpk = Hq // Hkv
+    qr = q.reshape(B, Sq, Hkv, qpk, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) * D ** -0.5
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.zeros((Sq, Sk), dtype=torch.float32, device=q.device)
+    if causal:
+        mask = torch.where(kpos > qpos, NEG_INF, mask)
+    if window:
+        mask = torch.where(qpos - kpos >= window, NEG_INF, mask)
+    if kv_len is not None:
+        mask = torch.where(kpos >= kv_len, NEG_INF, mask)
+    p = torch.softmax(s + mask, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)

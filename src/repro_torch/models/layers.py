@@ -1,0 +1,78 @@
+"""Core layer primitives: RMSNorm, RoPE, attention, SwiGLU, the KV-cache
+update — the port of ``repro.models.layers``.
+
+``rmsnorm`` and ``attention`` go through the kernels' dispatcher
+(``kernels.ops``): on the card they launch the hand-written kernels
+(``rmsnorm``, ``flash_attention`` for prefill, ``decode_attention`` for a
+decode step), on the CPU their plain versions.  The reference's jnp
+``layers.attention`` rounds the softmax probabilities to v's dtype before
+the PV product; the kernels (Pallas and CUDA alike) keep them in f32, so
+in bf16 the port differs from the reference's jnp path by that rounding
+(equal up to rounding order under an f32 policy).  Everything else is
+plain torch.  ``chunked_xent`` belongs to training and is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def rmsnorm(x, w, eps: float = 1e-6):
+    return ops.rmsnorm(x, w, eps=eps)
+
+
+def rope_freqs(d_head: int, theta: float, device=None):
+    ar = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / d_head))
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: [..., S, H, D]; positions: [..., S] or [S] (any int dtype), split
+    halves (not interleaved), computed in f32 and cast back to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                     # [D/2]
+    ang = positions[..., None].to(torch.float32) * freqs       # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]                         # over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention(q, k, v, *, causal=True, window=0, kv_len=None):
+    """GQA attention.  q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D].
+
+    ``kv_len is None`` (train/prefill): flash attention over all of k/v,
+    causal and/or windowed.  ``kv_len`` set (decode): one query token over
+    the first ``kv_len`` cache rows, which needs ``Sq == 1``, no causal
+    mask and no window.  Other combinations raise.
+    """
+    if kv_len is None:
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if q.shape[1] != 1 or causal:
+        raise ValueError("decode attention takes one query token and no "
+                         f"causal mask, got Sq={q.shape[1]}, causal={causal}")
+    if window:
+        raise NotImplementedError(
+            "windowed decode attention is not ported (ROADMAP Queue 1 item "
+            "12e: windowed attention)")
+    return ops.decode_attention(q, k, v, kv_len)
+
+
+def swiglu(x, wg, wi, wo, compute_dtype):
+    g = x @ wg.to(compute_dtype)
+    u = x @ wi.to(compute_dtype)
+    return (F.silu(g.float()).to(compute_dtype) * u) @ wo.to(compute_dtype)
+
+
+def update_cache(cache_kv, new_kv, pos: int):
+    """cache_kv: [B, S_max, F]; new_kv: [B, s, F]; pos: start index.
+
+    Out of place, like the reference's ``dynamic_update_slice``: the
+    server keeps prefilled caches as fabric payloads that other decode
+    batches read, so a decode step must never write into them."""
+    out = cache_kv.clone()
+    out[:, pos:pos + new_kv.shape[1]] = new_kv.to(cache_kv.dtype)
+    return out

@@ -1,0 +1,264 @@
+"""Model assembly: the dense decoder's serving path — the port of
+``repro.models.model``.
+
+A config is compiled into the reference's *plan*: an optional prefix of
+looped layers plus a run of stacked pattern-repeats.  The parameter and
+cache trees keep the reference's names and layout (stacked ``[L, ...]``
+leaves under ``segments/seg0``), so the tests compare like with like;
+the reference's ``lax.scan`` over the stack becomes a Python loop over
+the layer index.  Only dense blocks with global attention are ported:
+MoE, SSM and shared-attention blocks, MLA, sliding windows and modality
+frontends raise ``NotImplementedError`` naming the ROADMAP item that will
+port them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+
+from repro_torch.coherence.fabric.backend import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rmsnorm, swiglu
+from repro_torch.models.params import (P, map_with_path, materialize,
+                                       stack_specs)
+
+_TODO = {
+    "ssm": "12b: the mamba2-130m serving path (ssd_chunk, models/ssm.py)",
+    "attn_shared": "12b: the mamba2-130m serving path (ssd_chunk, "
+                   "models/ssm.py) and then zamba2's shared block",
+    "moe": "12c: MoE blocks (models/moe.py)",
+    "mla": "12d: MLA attention",
+    "window": "12e: windowed attention and the modality frontends",
+    "frontend": "12e: windowed attention and the modality frontends",
+}
+
+
+def _unsupported(what: str, cfg: ModelConfig):
+    return NotImplementedError(
+        f"{cfg.name}: {what} is not ported yet (ROADMAP Queue 1 item "
+        f"{_TODO[what]})")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for a config the port cannot run yet."""
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind != "dense":
+            raise _unsupported(kind, cfg)
+    if cfg.is_mla:
+        raise _unsupported("mla", cfg)
+    if cfg.window:
+        raise _unsupported("window", cfg)
+    if cfg.frontend != "none":
+        raise _unsupported("frontend", cfg)
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDesc:
+    kind: str          # dense | moe | ssm | attn_shared
+    window: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    mode: str                      # "scan" | "loop"
+    pattern: Tuple[LayerDesc, ...]
+    repeats: int                   # scan: >=1; loop: always 1
+
+
+def build_plan(cfg: ModelConfig) -> List[Segment]:
+    descs = [LayerDesc(cfg.layer_kind(i), cfg.attn_window(i))
+             for i in range(cfg.n_layers)]
+    prefix = cfg.first_dense
+    segs: List[Segment] = []
+    if prefix:
+        segs.append(Segment("loop", tuple(descs[:prefix]), 1))
+    rest = descs[prefix:]
+    n = len(rest)
+    period = n
+    for p in range(1, min(16, n) + 1):
+        reps = n // p
+        if reps >= 2 and all(rest[i] == rest[i % p] for i in range(p * reps)):
+            period = p
+            break
+    reps = n // period
+    if reps >= 2:
+        segs.append(Segment("scan", tuple(rest[:period]), reps))
+        rem = rest[period * reps:]
+        if rem:
+            segs.append(Segment("loop", tuple(rem), 1))
+    elif n:
+        segs.append(Segment("loop", tuple(rest), 1))
+    return segs
+
+
+# ------------------------------------------------------------------ specs
+def block_spec(cfg: ModelConfig, desc: LayerDesc) -> dict:
+    if desc.kind != "dense":
+        raise _unsupported(desc.kind, cfg)
+    D = cfg.d_model
+    ln = lambda: P((D,), (None,), "zeros")
+    return {"ln1": ln(), "attn": attn_mod.gqa_spec(cfg), "ln2": ln(),
+            "mlp": {"wg": P((D, cfg.d_ff), ("embed", "mlp")),
+                    "wi": P((D, cfg.d_ff), ("embed", "mlp")),
+                    "wo": P((cfg.d_ff, D), ("mlp", "embed"))}}
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    check_supported(cfg)
+    D, V = cfg.d_model, cfg.vocab
+    spec: dict = {"embed": P((V, D), ("vocab", "embed"))}
+    seg_specs = {}
+    for si, seg in enumerate(build_plan(cfg)):
+        body = {str(j): block_spec(cfg, d) for j, d in enumerate(seg.pattern)}
+        if seg.mode == "scan":
+            body = stack_specs(body, seg.repeats)
+        seg_specs[f"seg{si}"] = body
+    spec["segments"] = seg_specs
+    spec["ln_f"] = P((D,), (None,), "zeros")
+    if not cfg.tie_embeddings:
+        spec["unembed"] = P((D, V), ("embed", "vocab"))
+    return spec
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    check_supported(cfg)
+    seq_axis = "kv_seq" if batch == 1 else "seq"
+    out = {}
+    for si, seg in enumerate(build_plan(cfg)):
+        body = {str(j): attn_mod.gqa_cache_spec(cfg, batch, max_len, seq_axis)
+                for j, _ in enumerate(seg.pattern)}
+        if seg.mode == "scan":
+            body = stack_specs(body, seg.repeats)
+        out[f"seg{si}"] = body
+    return out
+
+
+# ------------------------------------------------------------------ trees
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees: List[dict]) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def cast_params(cfg: ModelConfig, params: dict) -> dict:
+    """Float weights of two or more dims per layer in the compute dtype,
+    once.  The reference casts them on every use, per layer slice
+    (``model.py:158``, ``attention.py:39``); the values are identical, and
+    the model's ``.to(compute_dtype)`` calls become no-ops.  Norm weights
+    and biases (one dim per layer, two when stacked) stay in the param
+    dtype."""
+    cd = cfg.policy.compute_dtype
+
+    def walk(spec, tree):
+        if isinstance(spec, P):
+            per_layer = len(spec.shape) - (spec.axes[:1] == ("stack",))
+            cast = per_layer >= 2 and tree.is_floating_point()
+            return tree.to(cd) if cast else tree
+        return {k: walk(spec[k], tree[k]) for k in spec}
+
+    return walk(model_spec(cfg), params)
+
+
+# ------------------------------------------------------------------ forward
+def _apply_block(cfg: ModelConfig, desc: LayerDesc, p: dict, h, *,
+                 positions, cache, pos):
+    a, nc = attn_mod.gqa_apply(cfg, p["attn"], rmsnorm(h, p["ln1"],
+                                                       cfg.rms_eps),
+                               positions=positions, cache=cache, pos=pos,
+                               window=desc.window)
+    h = h + a
+    hn = rmsnorm(h, p["ln2"], cfg.rms_eps)
+    m = swiglu(hn, p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"], h.dtype)
+    return h + m, nc
+
+
+def forward(cfg: ModelConfig, params: dict, tokens, *, cache=None,
+            pos=None):
+    """tokens: [B, S] int; ``pos`` (host int) = cache fill level for a
+    decode step.  Returns (h_final [B, S, D], new_cache); the given cache
+    is never written."""
+    check_supported(cfg)
+    cd = cfg.policy.compute_dtype
+    B, S = tokens.shape
+    h = params["embed"].to(cd)[tokens]
+    positions = torch.arange(S, dtype=torch.int32, device=h.device)
+    if pos is not None:
+        positions = positions + pos
+    new_cache: Dict[str, dict] = {}
+    for si, seg in enumerate(build_plan(cfg)):
+        sp = params["segments"][f"seg{si}"]
+        sc = None if cache is None else cache[f"seg{si}"]
+        if seg.mode == "loop":
+            layers, views = [sp], [sc]
+        else:
+            layers = [tree_map(lambda x, r=r: x[r], sp)
+                      for r in range(seg.repeats)]
+            views = [None if sc is None else tree_map(lambda x, r=r: x[r], sc)
+                     for r in range(seg.repeats)]
+        outs = []
+        for bp, bc in zip(layers, views):
+            ncs = {}
+            for j, desc in enumerate(seg.pattern):
+                h, nc = _apply_block(cfg, desc, bp[str(j)], h,
+                                     positions=positions,
+                                     cache=None if bc is None else bc[str(j)],
+                                     pos=pos)
+                ncs[str(j)] = {} if nc is None else nc
+            outs.append(ncs)
+        if cache is not None:
+            new_cache[f"seg{si}"] = outs[0] if seg.mode == "loop" \
+                else _stack(outs)
+    h = rmsnorm(h, params["ln_f"], cfg.rms_eps)
+    return h, (new_cache if cache is not None else None)
+
+
+def unembed_matrix(cfg: ModelConfig, params: dict):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["unembed"]
+
+
+def _next_ids(cfg: ModelConfig, params: dict, h):
+    """Greedy ids from the last position: f32 argmax, first index on
+    ties, int32 as the reference's."""
+    logits = h[:, -1:] @ unembed_matrix(cfg, params).to(h.dtype)
+    return torch.argmax(logits.float(), dim=-1)[:, 0].to(torch.int32)
+
+
+# ------------------------------------------------------------------ serving
+def prefill(cfg: ModelConfig, params: dict, tokens, cache):
+    """Fill the cache from a prompt; returns (next_token_ids [B], cache)."""
+    h, new_cache = forward(cfg, params, tokens, cache=cache)
+    return _next_ids(cfg, params, h), new_cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache, tokens, pos: int):
+    """One decode step.  tokens: [B, 1]; pos: host int (cache fill
+    level).  Returns (next_token_ids [B], new_cache)."""
+    h, new_cache = forward(cfg, params, tokens, cache=cache, pos=pos)
+    return _next_ids(cfg, params, h), new_cache
+
+
+# ------------------------------------------------------------------ builders
+def init_model(cfg: ModelConfig, gen: torch.Generator):
+    """Seeded weights on ``gen``'s device, in the param dtype."""
+    return materialize(model_spec(cfg), gen, cfg.policy.param_dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """A zero KV cache on ``device`` (None = the CUDA card)."""
+    dev = resolve_device(device)
+    return map_with_path(cache_spec(cfg, batch, max_len),
+                         lambda _, p: torch.zeros(p.shape, device=dev,
+                                                  dtype=cfg.policy.cache_dtype))
