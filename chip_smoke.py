@@ -16,7 +16,11 @@ Phases (any failure raises and the script exits non-zero):
      flash attention, decode attention) at the LLM serving path's shapes
      and at odd ones, in bf16 and in f32, within stated tolerances, with
      the time of one PyTorch library call of the same function beside
-     them (timed only: the port never calls it);
+     them (timed only: the port never calls it).  ``ssd_chunk`` at the
+     mamba2-130m and zamba2-1.2b prefill shapes (B and C a stride-0
+     broadcast over the heads, as the model passes them) and at odd ones,
+     bf16 and f32, with dt drawn so that cum falls to about -50 over a
+     chunk of 256, and no NaN anywhere; no PyTorch call computes it;
   3. the main path at the serving bench's geometry (8 TSU shards x 1024
      entries, 1024x8 replica sets, 2048x8 shared sets, 2 nodes x 2
      replicas) over 8192 keys, so the TSU table fills: warm the fabric
@@ -42,13 +46,25 @@ Phases (any failure raises and the script exits non-zero):
      equal the port on the CPU within a relative L2 of 2e-2; then
      prefill and decode times, generated tokens/s and host time per
      decode step;
-  5. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
+  5. the SSM serving path at full width: ``Server`` with mamba2-130m (24
+     layers, d_model 768, seeded weights on the card, bf16) on phase 4's
+     stream (batch 8, 512-token prompts, 64 new tokens, four waves) with
+     phase 4's checks (``ssd_chunk`` and ``rmsnorm`` launched, payload
+     unchanged, ``serve_stream`` == ``serve``, counters and grant log ==
+     a 1-layer CPU server, card == CPU model at 4 layers within a
+     relative L2 of 2e-2) and timings, plus the device time of
+     ``ssd_chunk`` in a prefill; then zamba2-1.2b (38 layers, d_model
+     2048: five SSM layers and the shared attention block, six times,
+     then two SSM layers) for two waves of 16 new tokens (miss, then
+     hit), payload unchanged, card == CPU model at 6 layers (the first
+     depth with a shared-attention layer), and its timings;
+  6. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
 by kernel and the host's top operators (in ``chip_smoke.json``).  Phase
 4 always profiles two prefills and eight decode steps the same way; the
-tables go to ``chip_smoke.json``.
+tables go to ``chip_smoke.json``; phase 5 does the same for mamba2.
 
 It needs a CUDA card, and the repository's ``src/`` beside it.  Details go
 to ``chiprun_out/chip_smoke.json``.
@@ -92,7 +108,9 @@ KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
             "src/repro/kernels/flash_attention.py:79"),
            ("decode_attention",
             "src/repro_torch/kernels/csrc/decode_attention.cu",
-            "src/repro/kernels/decode_attention.py:63"))
+            "src/repro/kernels/decode_attention.py:63"),
+           ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "src/repro/kernels/ssd_chunk.py:45"))
 # phase 4: the LLM serving path
 ARCH = "smollm-360m"
 SERVE_B, PROMPT_LEN, MAX_NEW = 8, 512, 64
@@ -107,6 +125,15 @@ WEIGHT_SEED = 0
 # bf16 rounds the f32 result once on both sides (2^-8 relative steps)
 FLOAT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 MODEL_REL_L2 = 2e-2          # card vs CPU model in bf16
+# phase 5: the SSM serving path; zamba2 runs shorter traffic to hold the
+# run's time, and its CPU model check needs 6 layers to reach the first
+# shared-attention layer (index 5)
+SSM_ARCH, HYBRID_ARCH = "mamba2-130m", "zamba2-1.2b"
+HYBRID_WAVES, HYBRID_MAX_NEW, HYBRID_MODEL_LAYERS = 2, 16, 6
+# ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
+# A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
+# average head (to -100 on the steepest)
+SSD_DT_SCALE = 0.1
 
 
 def log(*a) -> None:
@@ -369,6 +396,93 @@ def check_float_kernels(torch, np, dev, report):
                     [B, Sk, Hq, Hkv, D, kv_len])
 
 
+def ssd_bound(B, nc, Q, H, P, N, el, stride0):
+    """Bytes (x and y in the storage type, B and C once per group when
+    they are a stride-0 broadcast, dt, cum and the f32 state) and flops
+    (2N + 2P per visible causal pair, 2NP per row for the state)."""
+    bc = B * nc * Q * N * (1 if stride0 else H)
+    nbytes = 2 * B * nc * Q * H * P * el + 2 * bc * el \
+        + 2 * 4 * B * nc * Q * H + 4 * B * nc * H * N * P + 4 * H
+    flops = B * nc * H * (Q * (Q + 1) // 2 * (2 * N + 2 * P)
+                          + 2 * Q * N * P)
+    return nbytes, flops
+
+
+def ssd_inputs(torch, np, dev, B, nc, Q, H, P, N, dtype, stride0, seed):
+    """x, dt, A, B, C for ``ssd_chunk``: dt = SSD_DT_SCALE * softplus of a
+    normal, A = -exp(U(0, 1.5)); B and C a group's [.., 1, N] broadcast to
+    the heads, as a stride-0 view (``stride0``) or a copy per head."""
+    rng = np.random.default_rng(seed)
+    T = lambda a, dt=torch.float32: torch.from_numpy(
+        a.astype(np.float32)).to(dev, dt)
+    x = T(rng.standard_normal((B, nc, Q, H, P)), dtype)
+    dt = T(np.log1p(np.exp(rng.standard_normal((B, nc, Q, H))))
+           * SSD_DT_SCALE)
+    A = T(-np.exp(rng.uniform(0.0, 1.5, H)))
+    bc = []
+    for _ in range(2):
+        g = T(rng.standard_normal((B, nc, Q, 1, N)), dtype).expand(
+            B, nc, Q, H, N)
+        bc.append(g if stride0 else g.contiguous())
+    return x, dt, A, bc[0], bc[1]
+
+
+def check_ssd_kernel(torch, np, dev, report):
+    """``ssd_chunk`` against its plain version on the card: y and state
+    within FLOAT_TOL, cum within 1e-5, no NaN; kernel and plain times and
+    the bound (no PyTorch call computes this function)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+
+    shapes = ((SERVE_B, 2, 256, 24, 64, 128, True),   # mamba2-130m prefill
+              (SERVE_B, 2, 256, 64, 64, 64, True),    # zamba2-1.2b prefill
+              (SERVE_B, 1, 16, 24, 64, 128, False),   # one chunk of 16
+              (2, 3, 64, 4, 32, 16, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = FLOAT_TOL[str(dtype).split(".")[-1]]
+        el = torch.finfo(dtype).bits // 8
+        for B, nc, Q, H, P, N, stride0 in shapes:
+            shape = [B, nc, Q, H, P, N]
+            args = ssd_inputs(torch, np, dev, B, nc, Q, H, P, N, dtype,
+                              stride0, Q + H + N)
+            got = ssd_chunk(*args)
+            want = ref.ssd_chunk_ref(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for name, g, w, t in zip(("y", "state", "cum"), got, want,
+                                     (tol, tol, 1e-5)):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"ssd_chunk{shape}: {name} "
+                                         "dtype/shape differ")
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"ssd_chunk{shape}: non-finite "
+                                         f"{name}")
+                e = float((g.float() - w.float()).abs().max())
+                if not torch.allclose(g.float(), w.float(), rtol=t, atol=t):
+                    raise AssertionError(f"ssd_chunk{shape} {dtype}: {name} "
+                                         f"max |err| {e} beyond {t}")
+                err = max(err, e)
+            nbytes, flops = ssd_bound(B, nc, Q, H, P, N, el, stride0)
+            rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
+            bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+            row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
+                   "stride0": stride0, "max_abs_err": err, "tol": tol,
+                   "ms": device_ms(torch, lambda: ssd_chunk(*args)),
+                   "plain_ms": device_ms(torch,
+                                         lambda: ref.ssd_chunk_ref(*args),
+                                         n=5, trials=3),
+                   "library_ms": None, "bound_ms": max(bt, ot),
+                   "bound_by": "bytes" if bt >= ot else "operations",
+                   "bytes": nbytes, "flops": flops}
+            report.setdefault("ssd_chunk", []).append(row)
+            log(f"  ssd_chunk{shape} {row['dtype']}"
+                f"{' stride-0 B/C' if stride0 else ''}: max |err| "
+                f"{err:.3g} <= {tol} (cum 1e-5), cum down to "
+                f"{float(got[2].min()):.1f}; kernel {row['ms'] * 1e3:.2f} "
+                f"us, plain {row['plain_ms'] * 1e3:.2f} us, bound "
+                f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+
+
 # ------------------------------------------------------------- phase 3
 class Serving:
     """``scheduler.replay``'s backend over two ``BatchedKVLease`` front
@@ -577,7 +691,8 @@ KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                   "rmsnorm": ("rmsnorm_kernel",),
                   "flash_attention": ("flash_kernel",),
                   "decode_attention": ("decode_split_kernel",
-                                       "decode_combine_kernel")}
+                                       "decode_combine_kernel"),
+                  "ssd_chunk": ("ssd_output_kernel", "ssd_state_kernel")}
 
 
 def device_breakdown(prof, wall_us):
@@ -640,16 +755,16 @@ def profile_calls(torch, fn, calls):
 
 
 # ------------------------------------------------------------- phase 4
-def serve_waves(np, vocab):
-    """``N_WAVES`` waves of ``SERVE_B`` requests; request i's prompt is
+def serve_waves(np, vocab, n_waves, max_new):
+    """``n_waves`` waves of ``SERVE_B`` requests; request i's prompt is
     drawn with seed i % SERVE_B (``launch/serve.py``'s rule), so every
     wave is one decode group with wave 1's group prompt."""
     from repro_torch.runtime.server import Request
     prompts = [np.random.default_rng(seed).integers(
         2, vocab, PROMPT_LEN).astype(np.int32) for seed in range(SERVE_B)]
-    reqs = [Request(rid=i, prompt=prompts[i % SERVE_B], max_new=MAX_NEW)
-            for i in range(N_WAVES * SERVE_B)]
-    return [reqs[w * SERVE_B:(w + 1) * SERVE_B] for w in range(N_WAVES)]
+    reqs = [Request(rid=i, prompt=prompts[i % SERVE_B], max_new=max_new)
+            for i in range(n_waves * SERVE_B)]
+    return [reqs[w * SERVE_B:(w + 1) * SERVE_B] for w in range(n_waves)]
 
 
 def leaves(tree):
@@ -677,7 +792,7 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def serve_timings(torch, np, cfg, srv, tokens):
+def serve_timings(torch, np, cfg, srv, tokens, max_new):
     """Prefill and decode-step times at the serving shapes: wall clock
     with the server's per-step host sync and the host's enqueue time per
     step, then the device's busy time per prefill and per decode step
@@ -698,7 +813,7 @@ def serve_timings(torch, np, cfg, srv, tokens):
         walls.append(time.perf_counter() - t0)
     host, steps = [], []
     ids0, cache0 = nxt, cache
-    for t in range(MAX_NEW - 1):
+    for t in range(max_new - 1):
         t0 = time.perf_counter()
         nxt, cache = decode_step(cfg, srv.params, cache, nxt[:, None],
                                  PROMPT_LEN + t)
@@ -718,36 +833,49 @@ def serve_timings(torch, np, cfg, srv, tokens):
             "profile_prefill": prof_prefill, "profile_decode": prof_decode}
 
 
-def check_serving(torch, np, dev, report):
-    """The LLM serving path at full width on the card (phase 4)."""
-    import dataclasses
-
-    from repro_torch import configs
+def kernel_wrappers():
+    """Every kernel wrapper, each with its launch count."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.lease_probe import lease_probe
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
     from repro_torch.kernels.tier_pass import miss_round, write_grant
+    return (rmsnorm, flash_attention, decode_attention, ssd_chunk,
+            lease_probe, miss_round, write_grant)
+
+
+def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
+                  max_new=MAX_NEW, model_layers=CPU_MODEL_LAYERS,
+                  full=True):
+    """A serving path at full width on the card (phases 4 and 5): every
+    launch count set to 0 just before the waves and read just after;
+    the kernels in ``need`` must have launched.  ``full`` adds the
+    ``serve_stream`` and CPU-server comparisons."""
+    import dataclasses
+
+    from repro_torch import configs
     from repro_torch.models import cast_params, forward, init_model
     from repro_torch.models.model import tree_map, unembed_matrix
     from repro_torch.runtime.server import Server
 
-    cfg = configs.get(ARCH)
-    waves = serve_waves(np, cfg.vocab)
+    cfg = configs.get(arch)
+    waves = serve_waves(np, cfg.vocab, n_waves, max_new)
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED))
     srv = Server(cfg, params, batch_size=SERVE_B, max_len=MAX_LEN,
                  device=dev)
     torch.cuda.synchronize()
-    log(f"  {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}; weights "
-        f"on the card in {time.perf_counter() - t0:.1f} s")
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, "
+        f"{n_params / 1e9:.3f} B parameters; weights on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
     posted = []
     put = srv.kv.put_batch
     srv.kv.put_batch = lambda items: (posted.extend(items), put(items))
 
-    counters = (rmsnorm, flash_attention, decode_attention, lease_probe,
-                miss_round, write_grant)
+    counters = kernel_wrappers()
     for fn in counters:
         fn.launches = 0
     out, walls, hits, snap = {}, [], [], None
@@ -762,59 +890,68 @@ def check_serving(torch, np, dev, report):
     serve_s = time.perf_counter() - t_all
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"  card: {N_WAVES} waves x {SERVE_B} requests, prompts "
-        f"{PROMPT_LEN}, {MAX_NEW} new tokens: "
+    log(f"  card: {n_waves} waves x {SERVE_B} requests, prompts "
+        f"{PROMPT_LEN}, {max_new} new tokens: "
         f"{', '.join(f'{x:.2f}' for x in walls)} s per wave; lease hits "
         f"after each wave {hits}; launches {launches}")
     if hits[1] < 1:
         raise AssertionError("wave 2 was not served from a lease")
-    if min(launches[fn.__name__] for fn in counters[:3]) < 1:
-        raise AssertionError(f"a float kernel was not launched: {launches}")
+    missing = [name for name in need if launches[name] < 1]
+    if missing:
+        raise AssertionError(f"{missing} not launched: {launches}")
     if len(posted) != 1 or not all(
             torch.equal(a, b) for a, b in zip(snap, leaves(posted[0][1]))):
         raise AssertionError("the prefix payload changed while decoding "
                              "from it")
-    want = {i: out[i % SERVE_B] for i in range(N_WAVES * SERVE_B)}
+    want = {i: out[i % SERVE_B] for i in range(n_waves * SERVE_B)}
     for rid, toks in out.items():
-        if toks.shape != (MAX_NEW,) or toks.dtype != np.int32 or \
+        if toks.shape != (max_new,) or toks.dtype != np.int32 or \
                 toks.min() < 0 or toks.max() >= cfg.vocab:
             raise AssertionError(f"request {rid}: bad tokens {toks}")
         if not np.array_equal(toks, want[rid]):
             raise AssertionError(f"request {rid}: a lease hit decoded "
                                  "other tokens than the prefill wave")
-    log("  wave 2 served from a lease; the prefix payload is bit-identical "
-        "after decoding from it; waves 2-4 give wave 1's tokens")
+    log(f"  wave 2 served from a lease; the prefix payload is bit-identical "
+        f"after decoding from it; waves 2-{n_waves} give wave 1's tokens")
+    rep = {"launches": launches, "lease_hits": hits, "wave_s": walls,
+           "serve_s": serve_s, "n_params": n_params,
+           "tokens_per_s": n_waves * SERVE_B * max_new / serve_s,
+           "hit_wave_tokens_per_s": SERVE_B * max_new
+           / statistics.mean(walls[1:])}
 
-    srv_s = Server(cfg, params, batch_size=SERVE_B, max_len=MAX_LEN,
-                   device=dev)
-    t0 = time.perf_counter()
-    out_s = srv_s.serve_stream(iter(waves))
-    stream_s = time.perf_counter() - t0
-    if out_s.keys() != out.keys() or any(
-            not np.array_equal(out_s[r], out[r]) for r in out):
-        raise AssertionError("serve_stream tokens differ from serve")
-    compare_servers(srv_s, srv, "serve_stream vs serve")
-    log(f"  serve_stream == sequential serve (tokens, counters, grant "
-        f"log): {stream_s:.2f} s vs {serve_s:.2f} s")
+    if full:
+        srv_s = Server(cfg, params, batch_size=SERVE_B, max_len=MAX_LEN,
+                       device=dev)
+        t0 = time.perf_counter()
+        out_s = srv_s.serve_stream(iter(waves))
+        stream_s = time.perf_counter() - t0
+        if out_s.keys() != out.keys() or any(
+                not np.array_equal(out_s[r], out[r]) for r in out):
+            raise AssertionError("serve_stream tokens differ from serve")
+        compare_servers(srv_s, srv, "serve_stream vs serve")
+        log(f"  serve_stream == sequential serve (tokens, counters, grant "
+            f"log): {stream_s:.2f} s vs {serve_s:.2f} s")
 
-    cfg2 = dataclasses.replace(cfg, n_layers=CPU_FABRIC_LAYERS)
-    srv_h = Server(cfg2, init_model(cfg2, torch.Generator().manual_seed(
-        WEIGHT_SEED)), batch_size=SERVE_B, max_len=MAX_LEN, device="cpu")
-    t0 = time.perf_counter()
-    for wave in waves:
-        srv_h.serve(wave)
-    cpu_s = time.perf_counter() - t0
-    compare_servers(srv, srv_h, "card vs CPU")
-    log(f"  card == CPU ({CPU_FABRIC_LAYERS} layers, {cpu_s:.1f} s): "
-        f"lease-cache counters {srv.cache_stats}, fabric counters, grant "
-        f"log ({len(srv.fabric.grant_log)} grants)")
+        cfg2 = dataclasses.replace(cfg, n_layers=CPU_FABRIC_LAYERS)
+        srv_h = Server(cfg2, init_model(cfg2, torch.Generator().manual_seed(
+            WEIGHT_SEED)), batch_size=SERVE_B, max_len=MAX_LEN, device="cpu")
+        t0 = time.perf_counter()
+        for wave in waves:
+            srv_h.serve(wave)
+        cpu_s = time.perf_counter() - t0
+        compare_servers(srv, srv_h, "card vs CPU")
+        log(f"  card == CPU ({CPU_FABRIC_LAYERS} layers, {cpu_s:.1f} s): "
+            f"lease-cache counters {srv.cache_stats}, fabric counters, "
+            f"grant log ({len(srv.fabric.grant_log)} grants)")
+        rep.update({"stream_s": stream_s, "cpu_fabric_check_s": cpu_s})
 
-    cfg4 = dataclasses.replace(cfg, n_layers=CPU_MODEL_LAYERS)
+    cfg4 = dataclasses.replace(cfg, n_layers=model_layers)
     p4 = cast_params(cfg4, init_model(
         cfg4, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
     p4h = tree_map(lambda t: t.cpu(), p4)
     tok = torch.from_numpy(np.stack([r.prompt for r in waves[0]]))
     tok4 = tok[:CPU_MODEL_BATCH]
+    t0 = time.perf_counter()
     h_c, _ = forward(cfg4, p4, tok4.to(dev))
     h_h, _ = forward(cfg4, p4h, tok4)
     lg_c = h_c[:, -1] @ unembed_matrix(cfg4, p4)
@@ -823,42 +960,40 @@ def check_serving(torch, np, dev, report):
             "logits_rel_l2": rel_l2(lg_c, lg_h)}
     if not all(torch.isfinite(t).all() for t in (h_c, lg_c)) or \
             max(errs.values()) > MODEL_REL_L2:
-        raise AssertionError(f"card vs CPU model at {CPU_MODEL_LAYERS} "
+        raise AssertionError(f"card vs CPU model at {model_layers} "
                              f"layers: {errs} (limit {MODEL_REL_L2})")
-    log(f"  card == CPU model at {CPU_MODEL_LAYERS} layers, full width, "
-        f"batch {CPU_MODEL_BATCH}, bf16: relative L2 {errs} <= "
+    log(f"  card == CPU model at {model_layers} layers "
+        f"({[cfg4.layer_kind(i) for i in range(model_layers)]}), full "
+        f"width, batch {CPU_MODEL_BATCH}, bf16, "
+        f"{time.perf_counter() - t0:.1f} s: relative L2 {errs} <= "
         f"{MODEL_REL_L2}")
+    rep.update({"model_errs": errs, "cache_stats": srv.cache_stats,
+                "fabric_stats": srv.fabric_stats})
 
-    tm = serve_timings(torch, np, cfg, srv, tok.to(dev))
-    tokens_out = N_WAVES * SERVE_B * MAX_NEW
-    tm.update({"serve_s": serve_s, "wave_s": walls,
-               "tokens_per_s": tokens_out / serve_s,
-               "hit_wave_tokens_per_s": SERVE_B * MAX_NEW
-               / statistics.mean(walls[1:]),
-               "decode_device_idle_share":
-               1.0 - tm["decode_device_ms"] / tm["decode_step_ms"]})
+    tm = serve_timings(torch, np, cfg, srv, tok.to(dev), max_new)
+    tm["decode_device_idle_share"] = \
+        1.0 - tm["decode_device_ms"] / tm["decode_step_ms"]
+    rep.update(tm)
     log(f"  prefill (B={SERVE_B}, S={PROMPT_LEN}) {tm['prefill_ms']:.1f} ms "
         f"wall, {tm['prefill_device_ms']:.1f} ms device; decode step "
         f"{tm['decode_step_ms']:.2f} ms wall (host enqueue "
         f"{tm['decode_host_ms']:.2f} ms, device "
         f"{tm['decode_device_ms']:.2f} ms, idle share "
-        f"{tm['decode_device_idle_share']:.2f}); {tm['tokens_per_s']:.0f} "
-        f"generated tokens/s over the 4 waves, "
-        f"{tm['hit_wave_tokens_per_s']:.0f} in a lease-hit wave")
-    report["serving"] = {"launches": launches, "lease_hits": hits,
-                         "model_errs": errs, "stream_s": stream_s,
-                         "cpu_fabric_check_s": cpu_s,
-                         "cache_stats": srv.cache_stats,
-                         "fabric_stats": srv.fabric_stats, **tm}
-    prof = tm["profile_decode"]
-    top = ", ".join(f"{r['name'][:40]} {r['us'] / prof['calls']:.0f} us"
-                    for r in prof["device_by_name"][:4])
-    host = ", ".join(f"{r['op']} {r['self_us'] / prof['calls'] / 1e3:.2f} ms"
-                     for r in prof["host_by_op"][:4])
-    log(f"  a profiled decode step: {prof['device_events'] / prof['calls']:.0f}"
-        f" device events; device by kernel: {top}; host by op (self): "
-        f"{host}")
-    return launches
+        f"{tm['decode_device_idle_share']:.2f}); {rep['tokens_per_s']:.0f} "
+        f"generated tokens/s over the {n_waves} waves, "
+        f"{rep['hit_wave_tokens_per_s']:.0f} in a lease-hit wave")
+    for what in ("prefill", "decode"):
+        prof = tm[f"profile_{what}"]
+        top = ", ".join(f"{r['name'][:40]} {r['us'] / prof['calls']:.0f} us"
+                        for r in prof["device_by_name"][:4])
+        host = ", ".join(f"{r['op']} {r['self_us'] / prof['calls'] / 1e3:.2f}"
+                         f" ms" for r in prof["host_by_op"][:4])
+        ported = {k: f"{v['us'] / prof['calls']:.0f} us x {v['count'] // prof['calls']}"
+                  for k, v in prof["ported_kernels"].items() if v["count"]}
+        log(f"  a profiled {what}: {prof['device_events'] / prof['calls']:.0f}"
+            f" device events; device by kernel: {top}; ported kernels per "
+            f"call {ported}; host by op (self): {host}")
+    return launches, rep
 
 
 # ------------------------------------------------------------------ main
@@ -915,6 +1050,7 @@ def main() -> None:
     kreport = {}
     check_kernels(torch, np, dev, kreport)
     check_float_kernels(torch, np, dev, kreport)
+    check_ssd_kernel(torch, np, dev, kreport)
     report["kernels"] = kreport
     check_no_sync(torch, np)
     log("  miss-path dispatch enqueues with no host sync (sync debug mode)")
@@ -963,19 +1099,43 @@ def main() -> None:
 
     # ---- 4. the LLM serving path
     log(f"phase 4: LLM serving path, {ARCH} at full width")
-    served = check_serving(torch, np, dev, report)
+    served, report["serving"] = check_serving(
+        torch, np, dev, ARCH,
+        need=("rmsnorm", "flash_attention", "decode_attention"))
     launches.update({k: v for k, v in served.items() if k not in launches})
+
+    # ---- 5. the SSM serving path
+    log(f"phase 5: SSM serving path, {SSM_ARCH} then {HYBRID_ARCH} at full "
+        "width")
+    served, ssm = check_serving(torch, np, dev, SSM_ARCH,
+                                need=("ssd_chunk", "rmsnorm"))
+    launches["ssd_chunk"] = served["ssd_chunk"]
+    prof = ssm["profile_prefill"]
+    ssm["ssd_chunk_prefill_device_ms"] = \
+        prof["ported_kernels"]["ssd_chunk"]["us"] / prof["calls"] / 1e3
+    log(f"  ssd_chunk in a {SSM_ARCH} prefill: "
+        f"{ssm['ssd_chunk_prefill_device_ms']:.2f} ms of device time in "
+        f"{prof['ported_kernels']['ssd_chunk']['count'] // prof['calls']} "
+        f"kernel launches (output and state passes), of "
+        f"{ssm['prefill_device_ms']:.1f} ms")
+    _, hyb = check_serving(
+        torch, np, dev, HYBRID_ARCH,
+        need=("ssd_chunk", "rmsnorm", "flash_attention", "decode_attention"),
+        n_waves=HYBRID_WAVES, max_new=HYBRID_MAX_NEW,
+        model_layers=HYBRID_MODEL_LAYERS, full=False)
+    report["ssm_serving"] = {SSM_ARCH: ssm, HYBRID_ARCH: hyb}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # ---- 5. summary lines: each kernel's row at the main path's shapes
+    # ---- 6. summary lines: each kernel's row at the main path's shapes
     main_shape = {"lease_probe": [64, 8],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
                   "flash_attention": [SERVE_B, PROMPT_LEN, 15, 5, 64],
                   "decode_attention": [SERVE_B, MAX_LEN, 15, 5, 64,
-                                       PROMPT_LEN + 1]}
+                                       PROMPT_LEN + 1],
+                  "ssd_chunk": [SERVE_B, 2, 256, 24, 64, 128]}
     line = []
     for name, source, replaces in KERNELS:
         row = max(kreport[name], key=lambda r: r["shape"][0])

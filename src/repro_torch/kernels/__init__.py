@@ -1,4 +1,4 @@
-"""The coherence kernels: hand-written CUDA for the H100 (``csrc/``),
-their plain PyTorch versions (``ref``) and the device dispatcher
-(``ops``).  Each wrapper counts its launches (``lease_probe.launches``,
-``miss_round.launches``, ``write_grant.launches``)."""
+"""The kernels: hand-written CUDA for the H100 (``csrc/``), their plain
+PyTorch versions (``ref``) and the device dispatcher (``ops``).  Each
+wrapper counts its launches (``lease_probe.launches``, ...,
+``ssd_chunk.launches``)."""

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 SOURCES = ("lease_probe", "tier_pass", "rmsnorm", "flash_attention",
-           "decode_attention")
+           "decode_attention", "ssd_chunk")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")

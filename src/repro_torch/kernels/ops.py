@@ -14,6 +14,7 @@ from repro_torch.kernels.decode_attention import decode_attention as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.lease_probe import lease_probe as _lease_probe
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.ssd_chunk import ssd_chunk as _ssd_chunk
 from repro_torch.kernels.tier_pass import miss_round as _miss_round
 from repro_torch.kernels.tier_pass import write_grant as _write_grant
 
@@ -56,3 +57,9 @@ def decode_attention(q, k, v, kv_len):
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=False, kv_len=kv_len)
     return _decode(q, k, v, kv_len)
+
+
+def ssd_chunk(x, dt, A, Bc, Cc):
+    if _on_cpu(x):
+        return ref.ssd_chunk_ref(x, dt, A, Bc, Cc)
+    return _ssd_chunk(x, dt, A, Bc, Cc)

@@ -3,7 +3,7 @@ kernels are held to, and what the dispatcher runs on CPU tensors.
 
 Each function is the line-for-line counterpart of its namesake in
 ``repro/kernels/ref.py`` and runs on any device.  The float half
-(``rmsnorm_ref``, ``attention_ref``) computes in f32 and casts the result
+(``rmsnorm_ref``, ``attention_ref``, ``ssd_chunk_ref``) computes in f32 and casts the result
 to the input's dtype, as the Pallas kernels do; in particular the softmax
 probabilities stay f32 for the PV product, where the reference's jnp
 ``layers.attention`` rounds them to v's dtype first.  Translation notes
@@ -149,3 +149,31 @@ def attention_ref(q, k, v, *, causal=True, window=0, kv_len=None):
     p = torch.softmax(s + mask, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def ssd_chunk_ref(x, dt, A, Bc, Cc):
+    """The SSD intra-chunk step for a batch of chunks — the batched form of
+    the reference's one-chunk ``ssd_chunk_ref`` and the signature of its
+    Pallas kernel.
+
+    x: [B,nc,Q,H,P]; dt: [B,nc,Q,H]; A: [H]; Bc/Cc: [B,nc,Q,H,N] (any
+    strides, a head stride of 0 included).  Per (b, chunk, h), in f32:
+    ``cum = cumsum(dt*A)``, ``y_i = sum_{j<=i} (C_i.B_j) exp(cum_i -
+    cum_j) dt_j x_j`` and ``state = sum_j (B_j dt_j exp(cum_last -
+    cum_j))^T x_j``.  Pairs with j > i get ``exp(-inf) = 0``, as in the
+    reference.  Returns (y [B,nc,Q,H,P] in x's dtype, state
+    [B,nc,H,N,P] f32, cum [B,nc,Q,H] f32)."""
+    Q = x.shape[2]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), Bc.float(), Cc.float()
+    cum = torch.cumsum(dtf * A.float(), dim=2)                 # [B,nc,Q,H]
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [B,nc,Qi,Qj,H]
+    tril = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp(torch.where(tril[None, None, :, :, None], li,
+                              -torch.inf))
+    cb = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf)
+    scores = cb * L * dtf[:, :, None, :, :]
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xf)
+    decay_out = torch.exp(cum[:, :, -1:, :] - cum)             # [B,nc,Q,H]
+    state = torch.einsum("bcjhn,bcjhp->bchnp",
+                         Bf * (dtf * decay_out)[..., None], xf)
+    return y.to(x.dtype), state, cum

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --device cpu
 
 The port of ``repro.launch.serve``, with the same flags and the same
 default (the smoke config of the arch), plus ``--device``: the CUDA card

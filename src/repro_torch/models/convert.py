@@ -1,8 +1,10 @@
 """Carry weights and caches across from the JAX package's trees.
 
 The reference's parameter tree is nested dicts of arrays with stacked
-``[L, ...]`` leaves under ``segments/seg0``; its cache tree has the same
-shape.  The port keeps both layouts, so converting is a walk of the
+``[L, ...]`` leaves under ``segments/seg<i>`` (and zamba2's shared block
+under ``shared_attn``); its cache tree has the same shape, with KV leaves
+at attention positions and ``conv``/``state`` leaves at SSM positions.
+The port keeps both layouts, so converting is a walk of the
 port's spec that checks every leaf's path and shape and makes it a tensor
 (``numpy`` arrays in, including the ``bfloat16`` arrays JAX hands out).
 Tests use this so that both packages compute with the same numbers.
@@ -50,11 +52,30 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
                     resolve_device(device))
 
 
+def _leaf_shapes(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_shapes(tree[k])
+        else:
+            yield k, np.shape(tree[k])
+
+
+def _cache_dims(tree) -> tuple:
+    """(batch, max_len) of a cache tree: batch from its first leaf (an
+    attention ``k``/``v`` and an SSM ``conv`` are ``[..., B, rows, F]``,
+    an SSM ``state`` ``[..., B, H, N, P]``), ``max_len`` from its first
+    attention leaf, 0 when it has none (an SSM cache has no length)."""
+    shapes = list(_leaf_shapes(tree))
+    name, shape = shapes[0]
+    batch = shape[-4] if name == "state" else shape[-3]
+    max_len = next((s[-2] for n, s in shapes if n in ("k", "v")), 0)
+    return batch, max_len
+
+
 def cache_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
-    """The reference's KV-cache tree (numpy leaves) as the port's, in the
-    cache dtype on ``device`` (None = the CUDA card).  Batch and length
-    come from the tree's ``[..., B, max_len, Hkv*Dh]`` leaves."""
-    first = tree["seg0"]["0"]["k"]
-    batch, max_len = np.shape(first)[-3:-1]
+    """The reference's cache tree (numpy leaves; KV, SSM or both) as the
+    port's, in the cache dtype on ``device`` (None = the CUDA card).
+    Batch and length come from the tree's leaves (``_cache_dims``)."""
+    batch, max_len = _cache_dims(tree)
     return _convert(cache_spec(cfg, batch, max_len), tree,
                     cfg.policy.cache_dtype, resolve_device(device))

@@ -1,13 +1,15 @@
-"""Model assembly: the dense decoder's serving path — the port of
-``repro.models.model``.
+"""Model assembly: the serving path of the dense decoders, mamba2 and
+zamba2's hybrid stack — the port of ``repro.models.model``.
 
 A config is compiled into the reference's *plan*: an optional prefix of
-looped layers plus a run of stacked pattern-repeats.  The parameter and
-cache trees keep the reference's names and layout (stacked ``[L, ...]``
-leaves under ``segments/seg0``), so the tests compare like with like;
+looped layers plus a run of stacked pattern-repeats (and a looped tail).
+The parameter and cache trees keep the reference's names and layout
+(stacked ``[L, ...]`` leaves under ``segments/seg<i>``, zamba2's shared
+attention block at the top level under ``shared_attn``, an empty ``{}``
+block at each of its positions), so the tests compare like with like;
 the reference's ``lax.scan`` over the stack becomes a Python loop over
-the layer index.  Only dense blocks with global attention are ported:
-MoE, SSM and shared-attention blocks, MLA, sliding windows and modality
+the layer index.  Dense, SSM and shared-attention blocks with global
+attention are ported: MoE blocks, MLA, sliding windows and modality
 frontends raise ``NotImplementedError`` naming the ROADMAP item that will
 port them.
 """
@@ -20,15 +22,14 @@ import torch
 
 from repro_torch.coherence.fabric.backend import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.params import (P, map_with_path, materialize,
                                        stack_specs)
 
+_PORTED = ("dense", "ssm", "attn_shared")
 _TODO = {
-    "ssm": "12b: the mamba2-130m serving path (ssd_chunk, models/ssm.py)",
-    "attn_shared": "12b: the mamba2-130m serving path (ssd_chunk, "
-                   "models/ssm.py) and then zamba2's shared block",
     "moe": "12c: MoE blocks (models/moe.py)",
     "mla": "12d: MLA attention",
     "window": "12e: windowed attention and the modality frontends",
@@ -46,7 +47,7 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for a config the port cannot run yet."""
     for i in range(cfg.n_layers):
         kind = cfg.layer_kind(i)
-        if kind != "dense":
+        if kind not in _PORTED:
             raise _unsupported(kind, cfg)
     if cfg.is_mla:
         raise _unsupported("mla", cfg)
@@ -96,9 +97,9 @@ def build_plan(cfg: ModelConfig) -> List[Segment]:
 
 
 # ------------------------------------------------------------------ specs
-def block_spec(cfg: ModelConfig, desc: LayerDesc) -> dict:
-    if desc.kind != "dense":
-        raise _unsupported(desc.kind, cfg)
+def attn_block_spec(cfg: ModelConfig) -> dict:
+    """A dense attention block; zamba2's one shared block has the same
+    spec (``repro.models.model.shared_block_spec``)."""
     D = cfg.d_model
     ln = lambda: P((D,), (None,), "zeros")
     return {"ln1": ln(), "attn": attn_mod.gqa_spec(cfg), "ln2": ln(),
@@ -107,21 +108,44 @@ def block_spec(cfg: ModelConfig, desc: LayerDesc) -> dict:
                     "wo": P((cfg.d_ff, D), ("mlp", "embed"))}}
 
 
+def block_spec(cfg: ModelConfig, desc: LayerDesc) -> dict:
+    if desc.kind == "ssm":
+        return {"ln": P((cfg.d_model,), (None,), "zeros"),
+                "ssm": ssm_mod.ssm_spec(cfg)}
+    if desc.kind == "attn_shared":
+        return {}                      # the weights live at the top level
+    if desc.kind != "dense":
+        raise _unsupported(desc.kind, cfg)
+    return attn_block_spec(cfg)
+
+
 def model_spec(cfg: ModelConfig) -> dict:
     check_supported(cfg)
     D, V = cfg.d_model, cfg.vocab
     spec: dict = {"embed": P((V, D), ("vocab", "embed"))}
     seg_specs = {}
-    for si, seg in enumerate(build_plan(cfg)):
+    segs = build_plan(cfg)
+    for si, seg in enumerate(segs):
         body = {str(j): block_spec(cfg, d) for j, d in enumerate(seg.pattern)}
         if seg.mode == "scan":
             body = stack_specs(body, seg.repeats)
         seg_specs[f"seg{si}"] = body
     spec["segments"] = seg_specs
+    if any(d.kind == "attn_shared" for s in segs for d in s.pattern):
+        spec["shared_attn"] = attn_block_spec(cfg)
     spec["ln_f"] = P((D,), (None,), "zeros")
     if not cfg.tie_embeddings:
         spec["unembed"] = P((D, V), ("embed", "vocab"))
     return spec
+
+
+def block_cache_spec(cfg: ModelConfig, desc: LayerDesc, batch: int,
+                     max_len: int, seq_axis: str) -> dict:
+    """An SSM position holds its conv tail and state; every attention
+    position, shared or not, holds a KV cache of its own."""
+    if desc.kind == "ssm":
+        return ssm_mod.ssm_cache_spec(cfg, batch)
+    return attn_mod.gqa_cache_spec(cfg, batch, max_len, seq_axis)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
@@ -129,8 +153,8 @@ def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     seq_axis = "kv_seq" if batch == 1 else "seq"
     out = {}
     for si, seg in enumerate(build_plan(cfg)):
-        body = {str(j): attn_mod.gqa_cache_spec(cfg, batch, max_len, seq_axis)
-                for j, _ in enumerate(seg.pattern)}
+        body = {str(j): block_cache_spec(cfg, d, batch, max_len, seq_axis)
+                for j, d in enumerate(seg.pattern)}
         if seg.mode == "scan":
             body = stack_specs(body, seg.repeats)
         out[f"seg{si}"] = body
@@ -171,8 +195,14 @@ def cast_params(cfg: ModelConfig, params: dict) -> dict:
 
 
 # ------------------------------------------------------------------ forward
-def _apply_block(cfg: ModelConfig, desc: LayerDesc, p: dict, h, *,
-                 positions, cache, pos):
+def _apply_block(cfg: ModelConfig, desc: LayerDesc, bp: dict, h, *,
+                 positions, cache, pos, shared_attn):
+    if desc.kind == "ssm":
+        y, nc = ssm_mod.ssm_apply(cfg, bp["ssm"],
+                                  rmsnorm(h, bp["ln"], cfg.rms_eps),
+                                  cache=cache)
+        return h + y, nc
+    p = shared_attn if desc.kind == "attn_shared" else bp
     a, nc = attn_mod.gqa_apply(cfg, p["attn"], rmsnorm(h, p["ln1"],
                                                        cfg.rms_eps),
                                positions=positions, cache=cache, pos=pos,
@@ -192,6 +222,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, cache=None,
     cd = cfg.policy.compute_dtype
     B, S = tokens.shape
     h = params["embed"].to(cd)[tokens]
+    shared_attn = params.get("shared_attn")
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     if pos is not None:
         positions = positions + pos
@@ -213,7 +244,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, cache=None,
                 h, nc = _apply_block(cfg, desc, bp[str(j)], h,
                                      positions=positions,
                                      cache=None if bc is None else bc[str(j)],
-                                     pos=pos)
+                                     pos=pos, shared_attn=shared_attn)
                 ncs[str(j)] = {} if nc is None else nc
             outs.append(ncs)
         if cache is not None:
@@ -257,7 +288,8 @@ def init_model(cfg: ModelConfig, gen: torch.Generator):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """A zero KV cache on ``device`` (None = the CUDA card)."""
+    """A zero cache (KV, or SSM conv tail and state) on ``device`` (None =
+    the CUDA card)."""
     dev = resolve_device(device)
     return map_with_path(cache_spec(cfg, batch, max_len),
                          lambda _, p: torch.zeros(p.shape, device=dev,

@@ -12,10 +12,11 @@ device work overlaps the decode; its results and fabric state equal
 back-to-back ``serve`` calls.
 
 The fabric payload of a prefix is ``(cache, first_ids)``: device tensors
-that a later lease hit decodes from.  The model never writes a cache it
-is given (``layers.update_cache`` is out of place), so decoding over a
-cached prefix leaves the payload other groups and replicas read
-unchanged.  Every decode step brings its token ids to the host, as the
+that a later lease hit decodes from (a KV cache, or an SSM's final state
+and conv tail).  The model never writes a cache it is given
+(``layers.update_cache`` and ``ssm.ssm_apply`` build new tensors), so
+decoding over a cached prefix leaves the payload other groups and
+replicas read unchanged.  Every decode step brings its token ids to the host, as the
 reference does.
 """
 from __future__ import annotations

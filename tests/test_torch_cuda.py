@@ -375,3 +375,136 @@ def test_cuda_server_bf16_equals_cpu_counters(cuda_device):
     assert srvs[0].cache_stats == srvs[1].cache_stats
     assert srvs[0].fabric_stats == srvs[1].fabric_stats
     assert list(srvs[0].fabric.grant_log) == list(srvs[1].fabric.grant_log)
+
+
+def _ssd_inputs(dev, B, nc, Q, H, P, N, dtype, stride0, dt_scale, seed):
+    """x, dt, A, B and C for ``ssd_chunk`` on the card: dt is
+    softplus(normal) * ``dt_scale``, A = -exp(U(0, 1.5)); B and C are a
+    group's ``[..., 1, N]`` broadcast to the heads as a stride-0 view
+    (``stride0``, as the model passes them) or a copy per head."""
+    rng = np.random.default_rng(seed)
+    x = _randn(dev, (B, nc, Q, H, P), dtype, seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, nc, Q, H)))) * dt_scale
+    dt = torch.from_numpy(dt.astype(np.float32)).to(dev)
+    A = torch.from_numpy((-np.exp(rng.uniform(0.0, 1.5, H))).astype(
+        np.float32)).to(dev)
+    bc = []
+    for s in (seed + 1, seed + 2):
+        g = _randn(dev, (B, nc, Q, 1, N), dtype, s)
+        g = g.expand(B, nc, Q, H, N)
+        bc.append(g if stride0 else g.contiguous())
+    return x, dt, A, bc[0], bc[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,Q,H,P,N,stride0", [
+    (8, 2, 256, 24, 64, 128, True),     # mamba2-130m prefill, B = 8, S = 512
+    (8, 2, 256, 64, 64, 64, True),      # zamba2-1.2b prefill
+    (2, 1, 16, 4, 16, 16, False),       # one chunk of 16 (the smoke configs)
+    (2, 3, 64, 4, 32, 16, False),
+    (1, 2, 100, 3, 128, 48, True),      # ragged query and key tiles
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_chunk_equals_plain(exact_f32, B, nc, Q, H, P, N, stride0,
+                                     dtype):
+    """dt of 0.1 softplus(normal) makes cum span about -50 over a chunk
+    of 256; y and state within ``FLOAT_TOL``, cum within 1e-5."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    args = _ssd_inputs(exact_f32, B, nc, Q, H, P, N, dtype, stride0, 0.1,
+                       Q + N)
+    before = ssd_chunk.launches
+    y, st, cum = ssd_chunk(*args)
+    yr, sr, cr = ref.ssd_chunk_ref(*args)
+    assert ssd_chunk.launches == before + 1
+    for t in (y, st, cum):
+        assert torch.isfinite(t).all()
+    _close(y, yr)
+    torch.testing.assert_close(st, sr, **FLOAT_TOL[dtype])
+    torch.testing.assert_close(cum, cr, rtol=1e-5, atol=1e-5)
+    assert torch.equal(cum, cr)          # the same sums in the same order
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_never_weighs_masked_pairs(exact_f32):
+    """dt wide enough that cum spans thousands: exp(cum_i - cum_j) is inf
+    for j > i, so masking those pairs with a 0 would give NaN; the kernel
+    skips them.  Its cum is the plain version's bit for bit (the same
+    products summed in the same order), so the tolerances hold here too."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    args = _ssd_inputs(exact_f32, 2, 2, 256, 4, 64, 64, torch.float32, True,
+                       4.0, 7)
+    y, st, cum = ssd_chunk(*args)
+    yr, sr, cr = ref.ssd_chunk_ref(*args)
+    assert float(cum.min()) < -200
+    for t in (y, st, cum):
+        assert torch.isfinite(t).all()
+    assert torch.equal(cum, cr)
+    _close(y, yr)
+    torch.testing.assert_close(st, sr, **FLOAT_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_checks_its_inputs(cuda_device):
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    x, dt, A, Bc, Cc = _ssd_inputs(cuda_device, 1, 1, 16, 2, 16, 16,
+                                   torch.float32, True, 0.1, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_chunk(x[..., :8], dt, A, Bc, Cc)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk(x, dt.bfloat16(), A, Bc, Cc)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk(x, dt, A, Bc.bfloat16(), Cc)
+    with pytest.raises(ValueError, match="shapes"):
+        ssd_chunk(x, dt, A[:1], Bc, Cc)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk(x, dt, A, Bc.transpose(3, 4), Cc)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_chunk(x, dt.cpu(), A, Bc, Cc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_cuda_ssm_model_and_server_equal_cpu(exact_f32, arch):
+    """The SSM smoke models under the f32 policy on the card and on the
+    CPU: hidden states within rtol = atol = 1e-4, equal greedy tokens,
+    equal lease-cache and fabric counters; ``ssd_chunk`` and ``rmsnorm``
+    launch."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.models import forward, init_model
+    from repro_torch.models.config import Policy
+    from repro_torch.models.model import tree_map
+    from repro_torch.runtime.server import Request, Server
+
+    cfg = dataclasses.replace(configs.SMOKE[arch], policy=Policy(
+        compute_dtype=torch.float32, cache_dtype=torch.float32))
+    params = init_model(cfg, torch.Generator(exact_f32).manual_seed(0))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, (2, 48)).astype(np.int32))
+    h_card, _ = forward(cfg, params, tok.to(exact_f32))
+    h_cpu, _ = forward(cfg, cpu, tok)
+    torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=1e-4, atol=1e-4)
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(2, cfg.vocab, 32).astype(np.int32)
+               for _ in range(3)]
+    waves = [[Request(rid=w * 3 + i, prompt=prompts[i], max_new=4)
+              for i in range(3)] for w in range(3)]
+    before = (ssd_chunk.launches, rmsnorm.launches)
+    outs, srvs = [], []
+    for dev in (exact_f32, "cpu"):
+        srv = Server(cfg, params, batch_size=2, max_len=48, device=dev)
+        outs.append({k: v for w in waves for k, v in srv.serve(w).items()})
+        srvs.append(srv)
+    assert ssd_chunk.launches > before[0] and rmsnorm.launches > before[1]
+    assert outs[0].keys() == outs[1].keys()
+    for rid in outs[0]:
+        np.testing.assert_array_equal(outs[0][rid], outs[1][rid])
+    assert srvs[0].cache_stats == srvs[1].cache_stats
+    assert srvs[0].fabric_stats == srvs[1].fabric_stats
+    assert list(srvs[0].fabric.grant_log) == list(srvs[1].fabric.grant_log)
+    assert srvs[0].cache_stats["hits"] >= 1

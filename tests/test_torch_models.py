@@ -194,7 +194,8 @@ def _f32(cfg):
     return dataclasses.replace(cfg, policy=type(cfg.policy)(**pol))
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-14b",
+                                  "mamba2-130m", "zamba2-1.2b"])
 @pytest.mark.parametrize("table", ["ARCHS", "SMOKE"])
 def test_specs_match_reference(arch, table):
     rc, tc = getattr(rcfgs, table)[arch], getattr(tcfgs, table)[arch]
@@ -241,8 +242,7 @@ def _leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b",
-                                  "llama4-maverick-400b-a17b",
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
                                   "deepseek-v2-236b", "gemma3-4b",
                                   "llava-next-34b", "hubert-xlarge"])
 def test_unported_blocks_raise(arch):
