@@ -104,7 +104,7 @@ KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
            ("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
             "src/repro/kernels/rmsnorm.py:31"),
            ("flash_attention",
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "src/repro/kernels/flash_attention.py:79"),
            ("decode_attention",
             "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -130,6 +130,8 @@ MODEL_REL_L2 = 2e-2          # card vs CPU model in bf16
 # shared-attention layer (index 5)
 SSM_ARCH, HYBRID_ARCH = "mamba2-130m", "zamba2-1.2b"
 HYBRID_WAVES, HYBRID_MAX_NEW, HYBRID_MODEL_LAYERS = 2, 16, 6
+# the cache length zamba2's traffic needs: phase 2 times decode there
+HYBRID_MAX_LEN = PROMPT_LEN + HYBRID_MAX_NEW + 8
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -315,14 +317,15 @@ def check_float_kernels(torch, np, dev, report):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, route
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     def randn(shape, dtype, seed):
         a = np.random.default_rng(seed).standard_normal(shape)
         return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
 
-    def compare(name, kern, plain, library, nbytes, flops, dtype, shape):
+    def compare(name, kern, plain, library, nbytes, flops, dtype, shape,
+                route="cuda"):
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -338,14 +341,16 @@ def check_float_kernels(torch, np, dev, report):
         rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
         bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
         row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
-               "max_abs_err": err, "tol": tol, "ms": device_ms(torch, kern),
+               "route": route, "max_abs_err": err, "tol": tol,
+               "ms": device_ms(torch, kern),
                "plain_ms": device_ms(torch, plain),
                "library_ms": device_ms(torch, library),
                "bound_ms": max(bt, ot),
                "bound_by": "bytes" if bt >= ot else "operations",
                "bytes": nbytes, "flops": flops}
         report.setdefault(name, []).append(row)
-        log(f"  {name}{shape} {row['dtype']}: max |err| {err:.3g} <= {tol}; "
+        log(f"  {name}{shape} {row['dtype']} ({route}): max |err| {err:.3g} "
+            f"<= {tol}; "
             f"kernel {row['ms'] * 1e3:.2f} us, plain "
             f"{row['plain_ms'] * 1e3:.2f} us, library "
             f"{row['library_ms'] * 1e3:.2f} us, bound "
@@ -364,8 +369,10 @@ def check_float_kernels(torch, np, dev, report):
                     lambda: ref.rmsnorm_ref(x, w, eps),
                     lambda: F.rms_norm(x, (D,), weight=w1, eps=eps),
                     2 * R * D * el + 4 * D, 4 * R * D, dtype, [R, D])
-        for S in (PROMPT_LEN, 100):
-            B, Hq, Hkv, D = SERVE_B, 15, 5, 64
+        # smollm-360m's prefill, a ragged tail, zamba2-1.2b's prefill
+        for S, Hq, Hkv in ((PROMPT_LEN, 15, 5), (100, 15, 5),
+                           (PROMPT_LEN, 32, 32)):
+            B, D = SERVE_B, 64
             q = randn((B, S, Hq, D), dtype, 1)
             k = randn((B, S, Hkv, D), dtype, 2)
             v = randn((B, S, Hkv, D), dtype, 3)
@@ -377,17 +384,24 @@ def check_float_kernels(torch, np, dev, report):
                         qt, kt, vt, is_causal=True, enable_gqa=True),
                     (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * el,
                     4 * D * B * Hq * _visible_pairs(S, S, True), dtype,
-                    [B, S, Hq, Hkv, D])
-        B, Sk, Hq, Hkv, D = SERVE_B, MAX_LEN, 15, 5, 64
-        q = randn((B, 1, Hq, D), dtype, 4)
-        k = randn((B, Sk, Hkv * D), dtype, 5).view(B, Sk, Hkv, D)
-        v = randn((B, Sk, Hkv * D), dtype, 6).view(B, Sk, Hkv, D)
-        for kv_len in (1, PROMPT_LEN + 1, MAX_LEN):
+                    [B, S, Hq, Hkv, D], route(dtype, D))
+        # smollm-360m's cache at three fill levels, zamba2-1.2b's at one
+        for Sk, Hq, Hkv, kv_len in ((MAX_LEN, 15, 5, 1),
+                                    (MAX_LEN, 15, 5, PROMPT_LEN + 1),
+                                    (MAX_LEN, 15, 5, MAX_LEN),
+                                    (HYBRID_MAX_LEN, 32, 32, PROMPT_LEN + 1)):
+            B, D = SERVE_B, 64
+            q = randn((B, 1, Hq, D), dtype, 4)
+            k = randn((B, Sk, Hkv * D), dtype, 5).view(B, Sk, Hkv, D)
+            v = randn((B, Sk, Hkv * D), dtype, 6).view(B, Sk, Hkv, D)
+            k[:, kv_len:] = float("nan")       # never read: no NaN out
+            v[:, kv_len:] = float("nan")
             qt = q.transpose(1, 2)
             kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+            kp, vp = (t.nan_to_num() for t in (k, v))
             compare("decode_attention",
                     lambda: decode_attention(q, k, v, kv_len),
-                    lambda: ref.attention_ref(q, k, v, causal=False,
+                    lambda: ref.attention_ref(q, kp, vp, causal=False,
                                               kv_len=kv_len),
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, enable_gqa=True),
@@ -689,9 +703,8 @@ KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                   "miss_round": ("miss_round_kernel",),
                   "write_grant": ("write_grant_kernel",),
                   "rmsnorm": ("rmsnorm_kernel",),
-                  "flash_attention": ("flash_kernel",),
-                  "decode_attention": ("decode_split_kernel",
-                                       "decode_combine_kernel"),
+                  "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
+                  "decode_attention": ("decode_cluster_kernel",),
                   "ssd_chunk": ("ssd_output_kernel", "ssd_state_kernel")}
 
 
@@ -718,8 +731,7 @@ def device_breakdown(prof, wall_us):
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
     top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
-    ported = {name: [sum(v[i] for n, v in by_name.items()
-                         if any(sym in n for sym in syms)) for i in (0, 1)]
+    ported = {name: [n for n in by_name if any(sym in n for sym in syms)]
               for name, syms in KERNEL_SYMBOLS.items()}
     top_host = sorted(((a.key, a.count, a.self_cpu_time_total)
                        for a in prof.key_averages()
@@ -730,8 +742,11 @@ def device_breakdown(prof, wall_us):
             "device_events": len(dev),
             "device_by_name": [{"name": n[:120], "count": c, "us": us}
                                for n, (c, us) in top_dev],
-            "ported_kernels": {n: {"count": c, "us": us}
-                               for n, (c, us) in ported.items()},
+            "ported_kernels": {
+                k: {"count": sum(by_name[n][0] for n in names),
+                    "us": sum(by_name[n][1] for n in names),
+                    "symbols": [n[:120] for n in names]}
+                for k, names in ported.items()},
             "host_by_op": [{"op": k[:120], "count": c, "self_us": us}
                            for k, c, us in top_host]}
 
@@ -821,10 +836,13 @@ def serve_timings(torch, np, cfg, srv, tokens, max_new):
         nxt.cpu()
         host.append(t1 - t0)
         steps.append(time.perf_counter() - t0)
+    from repro_torch.kernels.decode_attention import decode_attention
     prof_prefill = profile_calls(torch, lambda: run_prefill()[0].cpu(), 2)
+    n0 = decode_attention.launches
     prof_decode = profile_calls(
         torch, lambda: decode_step(cfg, srv.params, cache0, ids0[:, None],
                                    PROMPT_LEN)[0].cpu(), 8)
+    prof_decode["decode_attention_calls"] = decode_attention.launches - n0
     return {"prefill_ms": statistics.median(walls) * 1e3,
             "prefill_device_ms": prof_prefill["device_ms_per_call"],
             "decode_step_ms": statistics.mean(steps) * 1e3,
@@ -855,6 +873,7 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import cast_params, forward, init_model
     from repro_torch.models.model import tree_map, unembed_matrix
     from repro_torch.runtime.server import Server
@@ -878,6 +897,8 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     counters = kernel_wrappers()
     for fn in counters:
         fn.launches = 0
+    flash_routes = flash_attention.route_launches
+    flash_routes.update(dict.fromkeys(flash_routes, 0))
     out, walls, hits, snap = {}, [], [], None
     t_all = time.perf_counter()
     for w, wave in enumerate(waves):
@@ -899,6 +920,14 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     missing = [name for name in need if launches[name] < 1]
     if missing:
         raise AssertionError(f"{missing} not launched: {launches}")
+    if "flash_attention" in need:
+        # bf16 at D = 64: every prefill on the tensor-core kernel, none on
+        # the CUDA-core one
+        log(f"  flash_attention routes: {flash_routes}")
+        if flash_routes["wgmma"] < 1 or flash_routes["simt"]:
+            raise AssertionError(f"flash routes {flash_routes}: the "
+                                 "prefills did not all take the tensor-core "
+                                 "kernel")
     if len(posted) != 1 or not all(
             torch.equal(a, b) for a, b in zip(snap, leaves(posted[0][1]))):
         raise AssertionError("the prefix payload changed while decoding "
@@ -974,6 +1003,16 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     tm["decode_device_idle_share"] = \
         1.0 - tm["decode_device_ms"] / tm["decode_step_ms"]
     rep.update(tm)
+    if "decode_attention" in need:
+        # one kernel per decode_attention call: a single device symbol,
+        # launched as often as the wrapper counted
+        dec = tm["profile_decode"]["ported_kernels"]["decode_attention"]
+        calls = tm["profile_decode"]["decode_attention_calls"]
+        if len(dec["symbols"]) != 1 or dec["count"] != calls or calls < 1:
+            raise AssertionError(f"decode_attention: {calls} calls, device "
+                                 f"kernels {dec}")
+        log(f"  decode_attention is one kernel a call: {calls} calls, "
+            f"{dec['count']} launches of {dec['symbols'][0][:60]}")
     log(f"  prefill (B={SERVE_B}, S={PROMPT_LEN}) {tm['prefill_ms']:.1f} ms "
         f"wall, {tm['prefill_device_ms']:.1f} ms device; decode step "
         f"{tm['decode_step_ms']:.2f} ms wall (host enqueue "

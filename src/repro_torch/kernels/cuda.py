@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 SOURCES = ("lease_probe", "tier_pass", "rmsnorm", "flash_attention",
-           "decode_attention", "ssd_chunk")
+           "flash_attention_wgmma", "decode_attention", "ssd_chunk")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -164,6 +164,19 @@ def launch(fn, args, device) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA launch failed with cudaError {rc}")
+
+
+def check_rows_16b(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` starts on a 16-byte boundary and each stride of
+    a dim longer than 1, over all but the last dim, is a whole number of
+    16 bytes: what 16-byte copies (``cp.async``, TMA) of its rows need."""
+    el = t.element_size()
+    if t.data_ptr() % 16 or any(
+            n > 1 and s * el % 16
+            for n, s in zip(t.shape[:-1], t.stride()[:-1])):
+        raise ValueError(f"{name} must start on a 16-byte boundary with "
+                         "strides of whole 16 bytes, got strides "
+                         f"{t.stride()}")
 
 
 def check_float(name: str, t: torch.Tensor, device, dtype=None) -> int:

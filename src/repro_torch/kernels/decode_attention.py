@@ -3,11 +3,14 @@
 The CUDA kernel (``csrc/decode_attention.cu``) replaces the Pallas kernel
 ``repro/kernels/decode_attention.py::_decode_kernel``; its plain version
 is ``kernels.ref.attention_ref(..., causal=False, kv_len=kv_len)``.  It
-reads only the first ``kv_len`` cache rows, in splits of 128 combined by
-a second pass.  ``kv_len`` is a host int (the reference prefetches it as
-a device scalar).  This wrapper launches on CUDA tensors only and raises
-on anything else; ``kernels.ops.decode_attention`` is the dispatcher that
-sends CPU tensors to the plain version.
+reads only the first ``kv_len`` cache rows, in one launch: a cluster of
+up to 8 blocks per (batch row, kv head) that combine their partial
+softmax through distributed shared memory.  ``kv_len`` is a host int (the
+reference prefetches it as a device scalar).  k and v rows are copied
+16 bytes at a time, so their base pointers and strides over B, S and H
+must be multiples of 16 bytes.  This wrapper launches on CUDA tensors
+only and raises on anything else; ``kernels.ops.decode_attention`` is the
+dispatcher that sends CPU tensors to the plain version.
 """
 from __future__ import annotations
 
@@ -16,16 +19,15 @@ import torch
 from repro_torch.kernels import cuda
 from repro_torch.kernels.flash_attention import check_qkv
 
-KEYS_PER_SPLIT = 128          # csrc/decode_attention.cu kKeys
 MAX_Q_PER_KV = 16             # csrc/decode_attention.cu kMaxQpk
 _ARGS = ([cuda.P, cuda.LD, cuda.LD] + [cuda.P, cuda.LD, cuda.LD, cuda.LD] * 2
-         + [cuda.P] * 4 + [cuda.I] * 5 + [cuda.F, cuda.I, cuda.P])
+         + [cuda.P] + [cuda.I] * 5 + [cuda.F, cuda.I, cuda.P])
 
 
 def decode_attention(q, k, v, kv_len):
     """q: [B, 1, Hq, D]; k, v: [B, Sk, Hkv, D]; kv_len: int in [1, Sk].
-    Returns [B, 1, Hq, D] in q's dtype.  Allocates its output and the
-    per-split scratch, launches on the current stream and does not
+    Returns [B, 1, Hq, D] in q's dtype.  Allocates its output (and
+    nothing else), launches on the current stream and does not
     synchronise."""
     dt = check_qkv(q, k, v, "decode_attention")
     if isinstance(kv_len, torch.Tensor):
@@ -43,22 +45,18 @@ def decode_attention(q, k, v, kv_len):
     if Hq // Hkv > MAX_Q_PER_KV:
         raise ValueError(f"decode_attention: {Hq // Hkv} query heads per kv "
                          f"head, at most {MAX_Q_PER_KV}")
+    for name, t in (("k", k), ("v", v)):
+        cuda.check_rows_16b(f"decode_attention: {name}", t)
     dev = q.device
     out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=dev)
     if B:
-        nsplit = -(-kv_len // KEYS_PER_SPLIT)
-        f32 = dict(dtype=torch.float32, device=dev)
-        pm = torch.empty((B, Hq, nsplit), **f32)
-        pl = torch.empty((B, Hq, nsplit), **f32)
-        pacc = torch.empty((B, Hq, nsplit, D), **f32)
         fn = cuda.function("decode_attention", "halcone_decode_attention",
                            _ARGS)
         args = [q.data_ptr(), q.stride(0), q.stride(2)]
         for t in (k, v):
             args += [t.data_ptr(), *t.stride()[:3]]
-        cuda.launch(fn, args + [pm.data_ptr(), pl.data_ptr(),
-                                pacc.data_ptr(), out.data_ptr(), B, Hq, Hkv,
-                                D, kv_len, D ** -0.5, dt], dev)
+        cuda.launch(fn, args + [out.data_ptr(), B, Hq, Hkv, D, kv_len,
+                                D ** -0.5, dt], dev)
         decode_attention.launches += 1
     return out
 

@@ -225,6 +225,8 @@ def test_cuda_rmsnorm_equals_plain(exact_f32, R, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
     (2, 512, 512, 15, 5, 64, True, 0),        # the serving path's prefill
+    (8, 512, 512, 15, 5, 64, True, 0),        # smollm-360m prefill, B=8
+    (8, 512, 512, 32, 32, 64, True, 0),       # zamba2-1.2b prefill, qpk=1
     (1, 100, 100, 15, 5, 64, True, 0),        # ragged tail
     (2, 77, 77, 4, 2, 16, False, 0),
     (1, 130, 130, 4, 1, 128, True, 32),       # MQA, windowed
@@ -233,7 +235,7 @@ def test_cuda_rmsnorm_equals_plain(exact_f32, R, D, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
                                            causal, window, dtype):
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, route
     dev = exact_f32
     q = _randn(dev, (B, Sq, Hq, D), dtype, 1)
     # k and v as strided views of one [B, S, 2, Hkv, D] block, as a fused
@@ -241,16 +243,27 @@ def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
     kv = _randn(dev, (B, Sk, 2, Hkv, D), dtype, 2)
     k, v = kv[:, :, 0], kv[:, :, 1]
     before = flash_attention.launches
+    path = route(dtype, D)
+    before_route = flash_attention.route_launches[path]
     got = flash_attention(q, k, v, causal=causal, window=window)
     _close(got, ref.attention_ref(q, k, v, causal=causal, window=window))
     assert flash_attention.launches == before + 1
+    assert flash_attention.route_launches[path] == before_route + 1
+    assert path == ("wgmma" if dtype == torch.bfloat16 and D >= 64
+                    else "simt")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sk,Hq,Hkv,D,kv_len", [
     (8, 584, 15, 5, 64, 1), (8, 584, 15, 5, 64, 513),
     (8, 584, 15, 5, 64, 584), (2, 300, 8, 2, 128, 257),
-    (1, 64, 16, 1, 16, 40)])
+    (1, 64, 16, 1, 16, 40),
+    # one tile short of, at, and one row past a 64-row tile
+    (8, 584, 15, 5, 64, 63), (8, 584, 15, 5, 64, 64),
+    (8, 584, 15, 5, 64, 65),
+    (8, 536, 32, 32, 64, 513),                # zamba2-1.2b decode, qpk=1
+    (2, 4096, 15, 5, 64, 4000),               # several tiles per block
+    (2, 200, 4, 2, 32, 150), (1, 100, 8, 1, 64, 77)])   # qpk 2 and 8
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decode_attention_equals_plain(exact_f32, B, Sk, Hq, Hkv, D,
                                             kv_len, dtype):
@@ -292,6 +305,13 @@ def test_cuda_float_wrappers_check_their_inputs(cuda_device):
         decode_attention(q, k, k, torch.tensor(3, device=dev))
     with pytest.raises(TypeError, match="float32"):
         flash_attention(q, k.bfloat16(), k)
+    # the tensor-core route loads through TMA: strides of whole 16 bytes
+    wide = torch.ones(1, 4, 2, 68, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(wide[..., :64], wide[..., :64], wide[..., :64])
+    with pytest.raises(ValueError, match="16 bytes"):
+        decode_attention(wide[:, :1, :, :64], wide[..., :64],
+                         wide[..., :64], 2)
 
 
 @pytest.mark.cuda
