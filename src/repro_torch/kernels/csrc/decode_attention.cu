@@ -28,7 +28,7 @@
 //   XOR-swizzled by row, so the threads of a quarter warp, one row each,
 //   read distinct banks.
 // - Per tile: the block holds the group's q_per_kv query rows in f32
-//   shared memory, padded with zero rows to G, a power of two (a template
+//   shared memory, padded with zero rows to G in {1, 4, 16} (a template
 //   argument), so no loop over heads tests its bound and the shared-memory
 //   reads of a step issue together (the tile is latency-bound, not
 //   bandwidth-bound).  Thread t scores row t % 64 against
@@ -56,9 +56,12 @@ constexpr int kThreads = 128;
 constexpr int kTile = 64;          // cache rows per tile
 constexpr int kMaxQpk = 16;        // query heads per kv head
 
-// G: the group's query heads rounded up to a power of two (1 .. 16); the
-// rows past q_per_kv are zeros, so every loop over heads runs G times
-// with no test inside, and its shared-memory reads issue back to back.
+// G: the group's query heads rounded up to 1, 4 or 16; the rows past
+// q_per_kv are zeros, so every loop over heads runs G times with no test
+// inside, and its shared-memory reads issue back to back.  Three sizes
+// keep the build short (each is one instantiation per dtype and head
+// dim): G = 1 and 4 are zamba2-1.2b's and smollm-360m's groups (1 and 3
+// query heads per kv head), 16 takes every other group.
 template <typename T, int D, int G>
 struct Layout {
   static constexpr int kVec = halcone::vec_len<T>();      // per 16 bytes
@@ -337,11 +340,7 @@ int dispatch_g(int qpk, const void* q, const long long* qs, const void* k,
                cudaStream_t s) {
   if (qpk <= 1) return launch<T, D, 1>(q, qs, k, ks, v, vs, out, B, Hq, Hkv,
                                        kv_len, scale, s);
-  if (qpk <= 2) return launch<T, D, 2>(q, qs, k, ks, v, vs, out, B, Hq, Hkv,
-                                       kv_len, scale, s);
   if (qpk <= 4) return launch<T, D, 4>(q, qs, k, ks, v, vs, out, B, Hq, Hkv,
-                                       kv_len, scale, s);
-  if (qpk <= 8) return launch<T, D, 8>(q, qs, k, ks, v, vs, out, B, Hq, Hkv,
                                        kv_len, scale, s);
   if (qpk <= kMaxQpk)
     return launch<T, D, kMaxQpk>(q, qs, k, ks, v, vs, out, B, Hq, Hkv,

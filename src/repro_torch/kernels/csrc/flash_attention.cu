@@ -1,21 +1,24 @@
-// Flash attention (forward, prefill) on Hopper (sm_90a).
+// Flash attention (forward, prefill) on Hopper's CUDA cores (sm_90a): the
+// f32 route, and the bf16 route at head dims 16 and 32.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::_flash_kernel
-// (pallas_call at flash_attention.py:79): causal / sliding-window GQA
-// softmax attention with an online softmax over KV tiles and f32
-// accumulation.  q: [B, Sq, Hq, D], k and v: [B, Sk, Hkv, D] (f32 or bf16,
-// any strides over B, S and H, the head dim contiguous); out: [B, Sq, Hq,
-// D] contiguous, in q's dtype.  Query head h reads kv head h / (Hq / Hkv).
-// Masked scores get NEG_INF = -1e30 added, as in the reference, and the
-// final denominator is max(l, 1e-30).
+// (pallas_call at flash_attention.py:79) where
+// kernels/flash_attention.py::route picks "simt": f32 at D in {16, 32, 64,
+// 128}, which the card tests hold to 1e-5 (TF32 tensor cores would not
+// meet that), and bf16 at D in {16, 32}.  bf16 at D = 64 and 128, the
+// serving path's prefill, takes flash_attention_wgmma.cu; this library
+// builds no bf16 code for those head dims and returns cudaErrorInvalidValue
+// if asked.  Causal / sliding-window GQA softmax attention with an online
+// softmax over KV tiles and f32 accumulation.  q: [B, Sq, Hq, D], k and
+// v: [B, Sk, Hkv, D] (any strides over B, S and H, the head dim
+// contiguous); out: [B, Sq, Hq, D] contiguous, in q's dtype.  Query head
+// h reads kv head h / (Hq / Hkv).  Masked scores get NEG_INF = -1e30
+// added, as in the reference, and the final denominator is max(l, 1e-30).
 //
-// Bound: at the serving path's prefill (B = 8, S = 512, Hq = 15, Hkv = 5,
-// D = 64, causal) the work is 4 * D flops per (query, visible key) pair,
-// about 4 GFLOP a layer, over 0.3 MB of q/k/v/out per (batch, head):
-// bytes over 3.35 TB/s and flops over the tensor cores' 989 TF/s are
-// close (chip_smoke.py prints both).  This first kernel computes on the
-// f32 cores without wgmma, so it runs far from either bound; wgmma tiles
-// and TMA loads are the later step.
+// Bound: 4 * D flops per (query, visible key) pair over the f32 CUDA
+// cores, and q/k/v/out read and written once; this kernel computes with
+// scalar f32 math and synchronous tile loads, so it runs far from either.
+// chip_smoke.py times its f32 rows beside their bound.
 //
 // Design: one block per (b, q-head, tile of 64 query rows), one thread
 // per query row holding its q row and its output accumulator in
@@ -30,6 +33,8 @@
 // and Sk work: rows past Sq only help load tiles, and keys past Sk are
 // never scored.  The tensors are read with their strides, so the
 // [B, S, H, D] layout needs no transposes.
+#include <type_traits>
+
 #include "float_io.cuh"
 
 namespace {
@@ -138,6 +143,8 @@ int launch(const void* q, const long long* qs, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// f32 at every head dim; bf16 only at D = 16 and 32 (the others take the
+// tensor-core kernel)
 template <typename T>
 int dispatch_d(int D, const void* q, const long long* qs, const void* k,
                const long long* ks, const void* v, const long long* vs,
@@ -148,10 +155,14 @@ int dispatch_d(int D, const void* q, const long long* qs, const void* k,
                                   Hkv, scale, causal, window, s);
     case 32: return launch<T, 32>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq,
                                   Hkv, scale, causal, window, s);
-    case 64: return launch<T, 64>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq,
-                                  Hkv, scale, causal, window, s);
-    case 128: return launch<T, 128>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq,
+  }
+  if constexpr (std::is_same_v<T, float>) {
+    switch (D) {
+      case 64: return launch<T, 64>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq,
                                     Hkv, scale, causal, window, s);
+      case 128: return launch<T, 128>(q, qs, k, ks, v, vs, out, B, Sq, Sk,
+                                      Hq, Hkv, scale, causal, window, s);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -159,7 +170,8 @@ int dispatch_d(int D, const void* q, const long long* qs, const void* k,
 }  // namespace
 
 // q/k/v strides are in elements, over (B, S, H); the head dim is
-// contiguous.  dt: halcone::kF32 or kBF16; D in {16, 32, 64, 128};
+// contiguous.  dt: halcone::kF32 with D in {16, 32, 64, 128}, or
+// halcone::kBF16 with D in {16, 32};
 // scale: the softmax scale D^-0.5 as an f32.
 extern "C" int halcone_flash_attention(
     const void* q, long long qsb, long long qss, long long qsh,

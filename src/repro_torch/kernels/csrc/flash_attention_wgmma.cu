@@ -35,12 +35,15 @@
 // - The online softmax runs on the accumulator fragments: each row lives
 //   in 4 threads of a quad, so its max and sum take two shuffles.  The
 //   max is taken on the f32 products (the positive scale keeps their
-//   order) and each weight is 2^(s c - m c) with c = D^-0.5 log2(e): one
-//   fma and one ex2 per score, within ~1e-6 relative of exp((s - m)
-//   D^-0.5), below the 2^-17 that P keeps.  O is rescaled only when a
-//   row's max moved.  Causal blocks stop at their last row's key, a
-//   warpgroup skips tiles wholly above its rows, and only tiles that cross
-//   the diagonal, a window or Sk are masked, with selects, not branches.
+//   order) and each weight is 2^((s - m) c) with c = D^-0.5 log2(e),
+//   within ~1e-6 relative of exp((s - m) D^-0.5), below the 2^-17 that P
+//   keeps.  The difference comes first, so a score equal to the row's max
+//   weighs exactly 1 even where both are the masked -1e30 (2^(s c - m c)
+//   by one fma would weigh it by the rounding error of 1e30 c: inf at
+//   D = 64).  O is rescaled only when a row's max moved.  Causal blocks
+//   stop at their last row's key, a warpgroup skips tiles wholly above
+//   its rows, and only tiles that cross the diagonal, a window or Sk are
+//   masked, with selects, not branches.
 //   Keys at or past Sk get -inf, so their weight is exactly 0.
 // - O += P V: the reference computes p @ v in f32.  P is split in registers
 //   into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and two wgmma (A from
@@ -324,7 +327,7 @@ flash_wgmma_kernel(
   for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
   float m[2] = {halcone::kNegInf, halcone::kNegInf}, l[2] = {0.f, 0.f};
   mbar_wait(qbar, 0);
-  // p = 2^(s sl - m sl): the scale, in log2 units, enters by one fma
+  // p = 2^((s - m) sl): the scale, in log2 units
   const float sl = scale * kLog2e;
 
 #pragma unroll 1
@@ -380,8 +383,8 @@ flash_wgmma_kernel(
 #pragma unroll
       for (int i = 0; i < BK / 2; i += 2) {
         const int r = (i / 2) & 1;
-        const float p0 = ex2(fmaf(sacc[i], sl, -m[r] * sl)),
-                    p1 = ex2(fmaf(sacc[i + 1], sl, -m[r] * sl));
+        const float p0 = ex2((sacc[i] - m[r]) * sl),
+                    p1 = ex2((sacc[i + 1] - m[r]) * sl);
         rsum[r] += p0 + p1;
         const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
         const float2 hf = __bfloat1622float2(hi);

@@ -1,14 +1,14 @@
 """The arithmetic of the tensor-core flash kernel, emulated on the CPU.
 
-``csrc/flash_attention_wgmma.cu`` runs only on the card, so this file
-holds its arithmetic in plain PyTorch against the reference: bf16 inputs,
-scores exact in f32 (a bf16 x bf16 product is exact there), an online
-softmax in base 2 (weights 2^(s c - m c), c = D^-0.5 log2(e), by one
-fma) over 64-row warpgroups and 64-key tiles with the kernel's masks and
-skips, and P split into bf16 halves ``P_hi = bf16(P)`` and
-``P_lo = bf16(P - P_hi)`` whose two products add into one f32
-accumulator.  Inputs come from numpy with a seed; the reference's Pallas
-kernel runs in interpret mode.  Tolerances, with their reasons:
+``csrc/flash_attention_wgmma.cu`` runs only on the card, so
+``attention_emulation.py`` repeats its arithmetic in plain PyTorch (bf16
+inputs, scores exact in f32, an online softmax in base 2 with weights
+2^((s - m) c), c = D^-0.5 log2(e), over 64-row warpgroups and 64-key tiles
+with the kernel's masks and skips, and P split into bf16 halves
+``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)`` whose two products add
+into one f32 accumulator), and this file holds it against the reference.
+Inputs come from numpy with a seed; the reference's Pallas kernel runs in
+interpret mode.  Tolerances, with their reasons:
 
 - against the Pallas kernel, rtol = atol = 2e-2: both sides compute in f32
   and round the result to bf16 once (one bf16 step is 2^-8 relative);
@@ -26,111 +26,47 @@ import numpy as np
 import pytest
 import torch
 
+from attention_emulation import emulate_kernel, exact_attention
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, route,
                                                  tma_strides)
 
-NEG_INF = -1e30
-ROWS = 64                     # query rows per consumer warpgroup
+
+def _block(n):
+    """The Pallas kernel's tile along a sequence of n: it takes tiles that
+    divide the sequence, 128 at most."""
+    return max(b for b in range(1, min(n, 128) + 1) if n % b == 0)
 
 
-BK = 64                       # keys per tile (csrc Shape<D>::BK)
-LOG2E = 1.4426950408889634
-
-
-def emulate_kernel(q, k, v, *, causal, window, split=True):
-    """The kernel's arithmetic in f32: q [B, Sq, Hq, D], k and v [B, Sk,
-    Hkv, D] bf16 -> [B, Sq, Hq, D] f32, before the output's bf16
-    rounding.  ``split=False`` rounds P to bf16 once instead."""
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    qpk = Hq // Hkv
-    nt = -(-Sk // BK)
-    # TMA zero-fills keys past Sk up to whole tiles
-    pad = nt * BK - Sk
-    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
-    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
-    kf = kf.repeat_interleave(qpk, 2).transpose(1, 2)   # [B, Hq, S, D]
-    vf = vf.repeat_interleave(qpk, 2).transpose(1, 2)
-    qf = q.float().transpose(1, 2)
-    out = torch.zeros(B, Hq, Sq, D)
-    # weights 2^(s c - m c), c = D^-0.5 log2(e), with one fma: the f64
-    # difference of s c (exact there) and the f32 m c, rounded once
-    c = (torch.tensor(D ** -0.5, dtype=torch.float32)
-         * torch.tensor(LOG2E, dtype=torch.float32))
-    for r0 in range(0, Sq, ROWS):
-        rows = torch.arange(r0, min(r0 + ROWS, Sq))
-        last = int(rows[-1])
-        o = torch.zeros(B, Hq, len(rows), D)
-        m = torch.full((B, Hq, len(rows)), NEG_INF)
-        l = torch.zeros(B, Hq, len(rows))
-        kv_end = min(Sk, (r0 // 128 + 1) * 128, Sq) if causal else Sk
-        for t in range(-(-kv_end // BK)):
-            k0 = t * BK
-            if causal and k0 > last:                # wholly above the rows
-                continue
-            cols = torch.arange(k0, k0 + BK)
-            s = qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)
-            add = torch.zeros(len(rows), BK)
-            if causal:
-                add = torch.where(cols[None] > rows[:, None], NEG_INF, add)
-            if window:
-                add = torch.where(rows[:, None] - cols[None] >= window,
-                                  NEG_INF, add)
-            s = torch.where(cols[None] >= Sk, -torch.inf, s + add)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp2((m - m_new) * c)
-            mc = (m_new * c)[..., None].double()
-            p = torch.exp2((s.double() * c.double() - mc).float())
-            l = l * alpha + p.sum(-1)
-            hi = p.to(torch.bfloat16).float()
-            vt = vf[:, :, cols]
-            pv = hi @ vt
-            if split:
-                pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
-            o = o * alpha[..., None] + pv
-            m = m_new
-        out[:, :, rows] = o * (1 / torch.clamp(l, min=1e-30))[..., None]
-    return out.transpose(1, 2)
-
-
-def _exact(q, k, v, *, causal, window):
-    """Softmax attention in f64 with the reference's masks."""
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    qd = q.double().transpose(1, 2)
-    kd = k.double().repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
-    vd = v.double().repeat_interleave(Hq // Hkv, 2).transpose(1, 2)
-    s = qd @ kd.transpose(-1, -2) * D ** -0.5
-    i, j = torch.arange(Sq)[:, None], torch.arange(Sk)[None]
-    if causal:
-        s = s + torch.where(j > i, NEG_INF, 0.0)
-    if window:
-        s = s + torch.where(i - j >= window, NEG_INF, 0.0)
-    return (torch.softmax(s, -1) @ vd).transpose(1, 2)
-
-
-@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window", [
-    (2, 256, 4, 2, 64, True, 0),              # GQA, causal, two q blocks
-    (1, 128, 3, 1, 128, True, 32),            # MQA, windowed, D = 128
-    (2, 128, 2, 2, 64, False, 0),             # no mask
-    (1, 100, 4, 2, 64, True, 0),              # keys past Sk in the tile
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (2, 256, 256, 4, 2, 64, True, 0),         # GQA, causal, two q blocks
+    (1, 128, 128, 3, 1, 128, True, 32),       # MQA, windowed, D = 128
+    (2, 128, 128, 2, 2, 64, False, 0),        # no mask
+    (1, 100, 100, 4, 2, 64, True, 0),         # keys past Sk in the tile
+    # windowed at D = 64: rows whose first key tile lies wholly outside
+    # the window see a tile of equal masked scores
+    (1, 200, 200, 4, 2, 64, True, 32),
+    (1, 200, 200, 4, 2, 64, False, 32),
+    (1, 50, 130, 4, 2, 64, False, 0),         # rectangular
+    (1, 130, 50, 4, 2, 64, True, 0),          # more queries than keys
 ])
 def test_split_emulation_matches_pallas_and_beats_one_rounding(
-        B, S, Hq, Hkv, D, causal, window):
-    rng = np.random.default_rng(S + Hq + D)
+        B, Sq, Sk, Hq, Hkv, D, causal, window):
+    rng = np.random.default_rng(Sq + Hq + D)
     arrs = [rng.standard_normal(shp).astype(np.float32)
-            for shp in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+            for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
     got = emulate_kernel(q, k, v, causal=causal, window=window)
+    assert torch.isfinite(got).all()
     want = pallas_flash(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
                           for t in (q, k, v)),
-                        causal=causal, window=window, interpret=True)
+                        causal=causal, window=window, bq=_block(Sq),
+                        bk=_block(Sk), interpret=True)
     np.testing.assert_allclose(
         got.to(torch.bfloat16).float().numpy(),
         np.asarray(want, np.float32), rtol=2e-2, atol=2e-2)
 
-    exact = _exact(q, k, v, causal=causal, window=window)
+    exact = exact_attention(q, k, v, causal=causal, window=window)
     one = emulate_kernel(q, k, v, causal=causal, window=window, split=False)
     err_split = float((got.double() - exact).abs().max())
     err_one = float((one.double() - exact).abs().max())

@@ -231,6 +231,12 @@ def test_cuda_rmsnorm_equals_plain(exact_f32, R, D, dtype):
     (2, 77, 77, 4, 2, 16, False, 0),
     (1, 130, 130, 4, 1, 128, True, 32),       # MQA, windowed
     (1, 50, 130, 4, 2, 32, False, 0),         # rectangular
+    # windowed at D = 64: rows whose first key tile lies wholly outside
+    # the window see a tile of equal masked scores
+    (1, 200, 200, 4, 2, 64, True, 32),
+    (1, 200, 200, 4, 2, 64, False, 32),
+    (1, 50, 130, 4, 2, 64, False, 0),         # rectangular, tensor cores
+    (1, 130, 50, 4, 2, 64, True, 0),          # more queries than keys
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
@@ -251,6 +257,49 @@ def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
     assert flash_attention.route_launches[path] == before_route + 1
     assert path == ("wgmma" if dtype == torch.bfloat16 and D >= 64
                     else "simt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 200, 200, 4, 2, 64, False, 32),
+    (1, 50, 130, 4, 2, 64, False, 0),
+    (1, 128, 128, 2, 1, 128, True, 0),
+])
+def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
+                                        causal, window):
+    """The tensor-core kernel against the CPU emulation of its arithmetic
+    (``attention_emulation.py``) on the same bf16 inputs.  With P split
+    into bf16 hi and lo halves the kernel's bf16 output is the split
+    emulation's rounded output on nearly all elements (at most 1% differ:
+    ex2's approximation and the tensor cores' order of summation may move
+    a value across a rounding boundary); a single bf16 rounding of P
+    changes about a third of them at these shapes (measured on the CPU:
+    35-37%), so at least 20% must differ from that emulation.  Against an
+    f64 softmax its mean error must also be at least 1.2x below the single
+    rounding's (1.37-1.43x on the CPU), and within 2% of the split's."""
+    from attention_emulation import emulate_kernel, exact_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(Sq + Sk + D)
+    q, k, v = (torch.from_numpy(
+        rng.standard_normal(shp).astype(np.float32)).to(torch.bfloat16)
+        for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    before = flash_attention.route_launches["wgmma"]
+    got = flash_attention(*(t.to(cuda_device) for t in (q, k, v)),
+                          causal=causal, window=window).cpu()
+    assert flash_attention.route_launches["wgmma"] == before + 1
+    split = emulate_kernel(q, k, v, causal=causal, window=window)
+    one = emulate_kernel(q, k, v, causal=causal, window=window, split=False)
+    miss_split = float((got != split.to(torch.bfloat16)).float().mean())
+    miss_one = float((got != one.to(torch.bfloat16)).float().mean())
+    assert miss_split <= 0.01, (miss_split, miss_one)
+    assert miss_one >= 0.2, (miss_split, miss_one)
+    exact = exact_attention(q, k, v, causal=causal, window=window)
+
+    def err(t):
+        return float((t.to(torch.bfloat16).double() - exact).abs().mean())
+    assert err(got) * 1.2 <= err(one), (err(got), err(split), err(one))
+    assert err(got) <= err(split) * 1.02, (err(got), err(split))
 
 
 @pytest.mark.cuda
