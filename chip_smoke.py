@@ -12,11 +12,15 @@ Phases (any failure raises and the script exits non-zero):
      CUDA-event timings and each kernel's bound.  The coherence kernels
      at the main path's shapes, on seeded inputs with duplicate tags,
      empty ways, full and partly-full TSU rows and clocks near ``TS_MAX``
-     — exact equality on every output.  The float kernels (rmsnorm,
-     flash attention, decode attention) at the LLM serving path's shapes
-     and at odd ones, in bf16 and in f32, within stated tolerances, with
-     the time of one PyTorch library call of the same function beside
-     them (timed only: the port never calls it).  ``ssd_chunk`` at the
+     — exact equality on every output; ``write_grant`` in its gathered
+     form (256 rows) and at the write pass's (the 8 shard rows read in
+     place by 16 or 64 lanes), beside the three gathers plus gathered
+     launch that the pass made before.  The float kernels (rmsnorm at
+     decode and prefill rows of every width the models normalise, flash
+     attention, decode attention) at the LLM serving path's shapes and at
+     odd ones, in bf16 and in f32, within stated tolerances, with the
+     time of one PyTorch library call of the same function beside them
+     (timed only: the port never calls it).  ``ssd_chunk`` at the
      mamba2-130m and zamba2-1.2b prefill shapes (B and C a stride-0
      broadcast over the heads, as the model passes them) and at odd ones,
      bf16 and f32, with dt drawn so that cum falls to about -50 over a
@@ -31,8 +35,10 @@ Phases (any failure raises and the script exits non-zero):
      with the same deterministic service model, which must agree on every
      served result, the grant log, all counters, every key's ``memts`` and
      the whole fabric state; the kernels' launch counts of the card run
-     must all be > 0; then a closed-loop and an open-loop replay on the
-     card with the wall clock (requests/s, p50/p99);
+     must all be > 0, ``write_grant``'s equal to the write and fence
+     passes' rounds (one launch a round); then a closed-loop and an
+     open-loop replay on the card with the wall clock (requests/s,
+     p50/p99);
   4. the LLM serving path at full width: ``runtime.server.Server`` with
      smollm-360m (32 layers, d_model 960, vocab 49152, seeded weights on
      the card), batch 8, 512-token prompts, 64 new tokens, four waves of
@@ -142,6 +148,13 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+# rmsnorm's rows: decode (R = 8) and prefill (R = 4096) at the widths
+# the serving path normalises (smollm 960, mamba2 768 and its d_inner
+# 1536, zamba2 2048 and its d_inner 4096), then an odd one
+RMSNORM_SHAPES = tuple((R, D) for R in (SERVE_B, SERVE_B * PROMPT_LEN)
+                       for D in (768, 960, 1536, 2048, 4096)) + ((7, 80),)
+
+
 # ------------------------------------------------------------------ timing
 def device_ms(torch, fn, n=20, trials=5) -> float:
     """Median CUDA-event time of one call of ``fn``: a sleep kernel holds
@@ -227,29 +240,48 @@ def miss_bound(rows, vecs):
     return nbytes, ops
 
 
-def grant_case(rng, N, C):
+def grant_case(rng, K, C):
+    """write_grant's TSU side: ``[K, 1, C+1]`` tag, memts and seq tables
+    (set 0 with its trash way, as the fabric holds them)."""
     import numpy as np
-    tag = rng.integers(0, 6000, (N, C + 1)).astype(np.int32)   # full rows
-    tag[1::4, 5::3] = -1                           # partly full rows
-    tag[2::8, :] = -1                              # empty rows
+    tag = rng.integers(0, 6000, (K, 1, C + 1)).astype(np.int32)  # full rows
+    tag[1::4, :, 5::3] = -1                        # partly full rows
+    tag[2::8] = -1                                 # empty rows
+    mem = rng.integers(65528, 65535, (K, 1, C + 1)).astype(np.int32)  # ties
+    seq = rng.integers(0, 64, (K, 1, C + 1)).astype(np.int32)
+    return [tag, mem, seq]
+
+
+def grant_lanes(rng, tables, N, row):
+    """Lanes over the tables' rows ``row``: hits on a third, wl in 1..8."""
+    import numpy as np
     addr = rng.integers(0, 6000, N).astype(np.int32)
-    tag[::3, 11] = addr[::3]                       # hits on a third
-    mem = rng.integers(65528, 65535, (N, C + 1)).astype(np.int32)  # ties
-    seq = rng.integers(0, 64, (N, C + 1)).astype(np.int32)
-    wl = rng.integers(1, 9, N).astype(np.int32)
-    return [tag, mem, seq], [addr, wl]
+    addr[::3] = tables[0][row[::3], 0, 11]
+    addr[addr == -1] = 6000
+    return [addr, rng.integers(1, 9, N).astype(np.int32)]
 
 
-def grant_bound(rows, vecs):
+def grant_bound(tables, row, addr, indexed):
+    """Bytes: each distinct row named once (its tags, the memts of its
+    live ways and the seq of its ways tied at the minimum), then per lane
+    addr, wl, the row index when ``indexed``, one memts on a hit and the
+    outputs (4 int32 + 3 bool).  Operations: three per way of each
+    distinct row, one compare per way a lane scans to its first match
+    (all C on a miss) and ten per lane."""
     import numpy as np
-    tag, mem, seq = (a[:, :-1] for a in rows)
-    N, C = tag.shape
-    valid = tag != -1
-    p = np.where(valid, mem, -2 ** 30)
-    tie = p == p.min(1, keepdims=True)
-    nbytes = 4 * (tag.size + int(valid.sum()) + int(tie.sum())) + 8 * N \
-        + 19 * N
-    return nbytes, 3 * tag.size + 10 * N
+    tag, mem, seq = (a[:, 0, :-1] for a in tables)
+    C = tag.shape[1]
+    nbytes, ops = 0, 0
+    for r in np.unique(row):
+        valid = tag[r] != -1
+        p = np.where(valid, mem[r], -2 ** 30)
+        nbytes += 4 * (C + int(valid.sum()) + int((p == p.min()).sum()))
+        ops += 3 * C
+    f = _first(tag[row], addr)
+    N = len(row)
+    nbytes += (12 if indexed else 8) * N + 4 * int((f >= 0).sum()) + 19 * N
+    ops += int((f + 1).sum() + (f < 0).sum() * C) + 10 * N
+    return nbytes, ops
 
 
 # ------------------------------------------------------------- phase 2
@@ -261,7 +293,7 @@ def check_kernels(torch, np, dev, report):
     rng = np.random.default_rng(2026)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def compare(name, kern, plain, args, bound, shape):
+    def compare(name, kern, plain, args, bound, shape, gathered=None):
         got = kern(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -280,10 +312,14 @@ def check_kernels(torch, np, dev, report):
                "plain_ms": plain_ms, "bound_ms": max(bt, ot),
                "bound_by": "bytes" if bt >= ot else "operations",
                "bytes": nbytes, "ops": ops}
+        more = ""
+        if gathered is not None:
+            row["gathered_ms"] = device_ms(torch, gathered)
+            more = f", gathered {row['gathered_ms'] * 1e3:.2f} us"
         report.setdefault(name, []).append(row)
         log(f"  {name}{shape}: exact; kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.4f} us "
-            f"({row['bound_by']})")
+            f"{plain_ms * 1e3:.2f} us{more}, bound "
+            f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})")
 
     for N in (1, 64, 4096):
         for W in (2, 8):
@@ -295,10 +331,30 @@ def check_kernels(torch, np, dev, report):
     compare("miss_round", miss_round, ref.miss_round_ref,
             [T(a)[:, :-1] for a in rows] + [T(v) for v in vecs],
             miss_bound(rows, vecs), [256, 8, 8, 1024])
-    rows, vecs = grant_case(rng, 256, 1024)
+    # gathered form: 256 lanes, each on its own row (lane i reads row i)
+    tables = grant_case(rng, 256, 1024)
+    lanes = np.arange(256, dtype=np.int32)
+    vecs = grant_lanes(rng, tables, 256, lanes)
     compare("write_grant", write_grant, ref.write_grant_ref,
-            [T(a)[:, :-1] for a in rows] + [T(v) for v in vecs],
-            grant_bound(rows, vecs), [256, 1024])
+            [T(a)[:, 0, :-1] for a in tables] + [T(v) for v in vecs],
+            grant_bound(tables, lanes, vecs[0], False), [256, 1024])
+    # the write pass's form: the 8 shard rows read in place, 16 (a storm)
+    # or 64 (a warm-up chunk) lanes naming them, half at shard 0 as the
+    # pass pads; beside it the three [N, C+1] gathers the pass made
+    # before, plus the gathered-form launch
+    tables = grant_case(rng, 8, 1024)
+    full = [T(a) for a in tables]
+    for N in (16, 64):
+        row = rng.integers(0, 8, N).astype(np.int32)
+        row[rng.random(N) < 0.5] = 0
+        vecs = [T(v) for v in grant_lanes(rng, tables, N, row)]
+        rowt = T(row)
+        compare("write_grant", write_grant, ref.write_grant_ref,
+                [t[:, 0, :-1] for t in full] + vecs + [rowt],
+                grant_bound(tables, row, np.asarray(vecs[0].cpu()), True),
+                [8, N, 1024],
+                lambda: write_grant(*(t[rowt, 0][..., :-1] for t in full),
+                                    *vecs))
 
 
 # ------------------------------------------------ phase 2, float kernels
@@ -361,7 +417,7 @@ def check_float_kernels(torch, np, dev, report):
     eps = 1e-6
     for dtype in (torch.bfloat16, torch.float32):
         el = torch.finfo(dtype).bits // 8
-        for R, D in ((SERVE_B * PROMPT_LEN, 960), (7, 80)):
+        for R, D in RMSNORM_SHAPES:
             x = randn((R, D), dtype, R + D)
             w = randn((D,), torch.float32, D) * 0.1
             w1 = (1.0 + w).to(dtype)
@@ -408,6 +464,13 @@ def check_float_kernels(torch, np, dev, report):
                     (2 * B * Hq * D + 2 * B * kv_len * Hkv * D) * el,
                     4 * D * B * Hq * kv_len, dtype,
                     [B, Sk, Hq, Hkv, D, kv_len])
+
+
+def log_rmsnorm_vs_library(report) -> None:
+    """rmsnorm's time over ``F.rms_norm``'s at each bf16 shape."""
+    rows = [r for r in report["rmsnorm"] if r["dtype"] == "bfloat16"]
+    log("  rmsnorm / F.rms_norm, bf16: " + ", ".join(
+        f"{tuple(r['shape'])} {r['ms'] / r['library_ms']:.2f}" for r in rows))
 
 
 def ssd_bound(B, nc, Q, H, P, N, el, stride0):
@@ -557,9 +620,31 @@ def service_model(n: int) -> float:
     return 1e-3 + 2e-5 * n
 
 
+def count_rounds(fab):
+    """Wrap ``fab``'s write and fence passes to count the rounds each runs
+    (the rows of its round matrix with a live lane): each round makes one
+    TSU write grant.  Returns the running counts."""
+    import numpy as np
+    n = collections.Counter()
+
+    def wrap(kind, run, masks_at):
+        def counted(*args):
+            n[kind] += int(np.asarray(args[masks_at]).any(axis=1).sum())
+            return run(*args)
+        return counted
+
+    fab._write_run = wrap("write", fab._write_run, 3)
+    fab._fence_run = wrap("fence", fab._fence_run, 2)
+    return n
+
+
 def replay_modeled(device, trace):
+    """Warm a fresh fabric on ``device`` and replay ``trace`` with the
+    deterministic service model; also returns the write and fence passes'
+    round counts."""
     from repro_torch.runtime import scheduler
     fab = build_fabric(device)
+    rounds = count_rounds(fab)
     serving = Serving(fab)
     t0 = time.perf_counter()
     warm(serving)
@@ -572,7 +657,7 @@ def replay_modeled(device, trace):
                            republish_n=REPUBLISH_N,
                            service_model=service_model)
     t2 = time.perf_counter()
-    return fab, serving, res, t1 - t0, t2 - t1
+    return fab, serving, res, t1 - t0, t2 - t1, rounds
 
 
 def compare_fabrics(np, a, b, sa, sb) -> None:
@@ -702,7 +787,7 @@ def profile_replay(torch, fab, trace):
 KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                   "miss_round": ("miss_round_kernel",),
                   "write_grant": ("write_grant_kernel",),
-                  "rmsnorm": ("rmsnorm_kernel",),
+                  "rmsnorm": ("rmsnorm_reg_kernel", "rmsnorm_elem_kernel"),
                   "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
                   "decode_attention": ("decode_cluster_kernel",),
                   "ssd_chunk": ("ssd_output_kernel", "ssd_state_kernel")}
@@ -1089,6 +1174,7 @@ def main() -> None:
     kreport = {}
     check_kernels(torch, np, dev, kreport)
     check_float_kernels(torch, np, dev, kreport)
+    log_rmsnorm_vs_library(kreport)
     check_ssd_kernel(torch, np, dev, kreport)
     report["kernels"] = kreport
     check_no_sync(torch, np)
@@ -1101,22 +1187,31 @@ def main() -> None:
     counters = (lease_probe, miss_round, write_grant)
     for fn in counters:
         fn.launches = 0
-    fab_c, serv_c, res_c, warm_c, rep_c = replay_modeled(dev, trace)
+    fab_c, serv_c, res_c, warm_c, rep_c, rounds = replay_modeled(dev, trace)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
     log(f"  card: warm {warm_c:.1f} s, replay {rep_c:.1f} s, "
-        f"{len(res_c.batch_sizes)} waves; launches {launches}")
+        f"{len(res_c.batch_sizes)} waves; launches {launches}; write and "
+        f"fence pass rounds {dict(rounds)}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    fab_h, serv_h, res_h, warm_h, rep_h = replay_modeled(
+    if launches["write_grant"] != sum(rounds.values()):
+        raise AssertionError(f"write_grant launched {launches['write_grant']}"
+                             f" times over {dict(rounds)} rounds: not one "
+                             "launch a round")
+    fab_h, serv_h, res_h, warm_h, rep_h, rounds_h = replay_modeled(
         torch.device("cpu"), trace)
     log(f"  cpu:  warm {warm_h:.1f} s, replay {rep_h:.1f} s")
+    if rounds_h != rounds:
+        raise AssertionError(f"rounds differ: card {dict(rounds)}, cpu "
+                             f"{dict(rounds_h)}")
     compare_fabrics(np, fab_c, fab_h, serv_c, serv_h)
     check_outputs(res_c, fab_c, serv_c)
     log("  card == cpu: served results, grant log, counters, replica "
         "counters, memts of every key, whole fabric state")
     st = fab_c.stats()
-    report["main_path"] = {"launches": launches, "warm_s": warm_c,
+    report["main_path"] = {"launches": launches, "rounds": dict(rounds),
+                           "warm_s": warm_c,
                            "replay_s": rep_c,
                            "waves": len(res_c.batch_sizes),
                            "stats": st}
@@ -1169,7 +1264,7 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 6. summary lines: each kernel's row at the main path's shapes
-    main_shape = {"lease_probe": [64, 8],
+    main_shape = {"lease_probe": [64, 8], "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
                   "flash_attention": [SERVE_B, PROMPT_LEN, 15, 5, 64],
                   "decode_attention": [SERVE_B, MAX_LEN, 15, 5, 64,

@@ -273,9 +273,10 @@ def tsu_commit_write_batch(tsu: TSUState, ver_arr, gseq_arr, seq_arr, nseq,
     cap = tsu.n_ways
     zset = torch.zeros_like(shard)
     # fused probe + lex victim + mm_write grant (kernels.ops.write_grant)
+    # over the shards' set-0 rows in place, each lane reading row `shard`
     th, w0, full, g_wts, g_rts, g_memts, g_ovf = K.write_grant(
-        tsu.tag[shard, 0][..., :-1], tsu.memts[shard, 0][..., :-1],
-        seq_arr[shard, 0][..., :-1], key, lanes(wr_eff, key))
+        tsu.tag[:, 0, :-1], tsu.memts[:, 0, :-1], seq_arr[:, 0, :-1], key,
+        lanes(wr_eff, key), shard)
     ai = b2i(active)
     evict = active & ~th & full
     ver = torch.where(th, ver_arr[shard, zset, w0] + 1, 1)

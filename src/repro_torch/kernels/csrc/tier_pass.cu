@@ -10,20 +10,42 @@
 // (empty ways first, else min memts, then min allocation seq, then first
 // index), `full`, and the mm_write grant + reinit.
 //
-// Bound: bytes.  Each lane scans its gathered TSU row of C ways (C = 1024
-// by default) once, so the work is a streaming read of 8*C (miss_round:
-// tag + memts) or 12*C (write_grant: tag + memts + seq) bytes per lane
-// against HBM's 3.35 TB/s; the few compares per way are far below the
-// card's integer rate.
+// Bound: bytes.  miss_round: each lane scans its gathered TSU row of C
+// ways (C = 1024 by default), a streaming read of 8*C bytes per lane
+// against HBM's 3.35 TB/s.  write_grant: each distinct TSU row that some
+// lane names is read once (12*C bytes: tag, memts, seq), plus a few
+// bytes per lane; on the write pass that is the K = 8 shard rows however
+// many lanes (16-64) the round has.  The compares per way are far below
+// the card's integer rate; at the path's sizes launch latency dominates.
 //
-// Design: one warp per lane, 8 lanes per 256-thread block, masked tail.
-// The 32 threads stride over the ways with coalesced loads; the first
-// match is the warp minimum of matching indices (__reduce_min_sync).  The
-// write_grant victim is argmin(where(p == pmin, seq, 2^30)) with
-// p = (empty ? -2^30 : memts), taken as the warp-lexicographic minimum of
-// (key, index) in a second pass over the row (the row is then in L1/L2),
-// which keeps the reference's first-index tie rule even when every way is
-// empty.  Rows are gathered [N, W] views with explicit row strides.
+// miss_round design: one warp per lane, 8 lanes per 256-thread block,
+// masked tail.  The 32 threads stride over the ways with coalesced loads;
+// the first match is the warp minimum of matching indices
+// (__reduce_min_sync).  Rows are gathered [N, W] views with explicit row
+// strides.
+//
+// write_grant design: the tables are [K, C] with a row stride (e.g. the
+// TSU's set 0 with its trash way sliced off) and `row` names each lane's
+// table row; a null `row` means lane i reads row i (the gathered form).
+// One block per table row; the row's ways are held in registers, 256
+// threads of up to 16 ways each (1024 threads past 4096 ways), and read
+// once: every load of the row is issued first, so its round trip
+// overlaps the scan of `row`.  That scan collects the lanes naming the
+// row into shared memory with their address and lease (256 at a time),
+// traps on an index outside [0, K) as a device-side assert, and a block
+// with no lane returns (its row's loads were issued, and go unused).
+// `full` and the victim take four block reductions, each one barrier and
+// one redux.sync a warp: all valid; pmin over p = (empty ? -2^30 :
+// memts); the minimum of key = (p == pmin ? seq : 2^30); the first index
+// holding it.  The victim is not one packed
+// (p, seq, index) key: the cap at 2^30 makes them differ when
+// seq >= 2^30.  The collected lanes' addresses fill an open-addressing
+// table in shared memory (512 slots, linear probing); every thread looks
+// its ways' tags up in it and keeps the first matching way of each
+// address by atomicMin, so the search costs a probe or two a way however
+// many lanes name the row; one thread a lane then takes that way's memts
+// from shared memory for the mm_write grant and the 16-bit overflow
+// reinit.  Every lane gets all seven outputs, active or not.
 #include "halcone.cuh"
 
 namespace {
@@ -125,81 +147,205 @@ __global__ void miss_round_kernel(
   nr1_o[i] = nr1;
 }
 
-__global__ void write_grant_kernel(
+// Minimum of v over the block, returned to every thread; `red` holds
+// one int per warp and is not reused by another reduction.
+__device__ __forceinline__ int block_min(int v, int* red) {
+  const int lane = threadIdx.x & 31;
+  v = __reduce_min_sync(kFull, v);
+  if (lane == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : INT_MAX;
+  return __reduce_min_sync(kFull, v);
+}
+
+constexpr int kLaneChunk = 256;     // lanes a block collects at a time
+constexpr int kSlots = 2 * kLaneChunk;   // their address table
+
+// A table slot's word: the address with bit 32 set (0 = empty slot).
+__device__ __forceinline__ unsigned long long slot_word(int a) {
+  return (1ull << 32) | static_cast<unsigned>(a);
+}
+__device__ __forceinline__ int slot_of(int a) {
+  return static_cast<int>((static_cast<unsigned>(a) * 2654435761u) >> 23) &
+         (kSlots - 1);
+}
+
+// One block of NT threads per table row (see the header), WPT ways a
+// thread: way j = tid + k * NT is the thread's k-th.  Dynamic shared
+// memory: the row's C memts.
+template <int WPT, int NT>
+__global__ void __launch_bounds__(NT) write_grant_kernel(
     const int* __restrict__ ts_tag, int64_t ts_tag_ld,
     const int* __restrict__ ts_mem, int64_t ts_mem_ld,
     const int* __restrict__ ts_seq, int64_t ts_seq_ld,
-    const int* __restrict__ addr, const int* __restrict__ wl,
+    const int* __restrict__ row, const int* __restrict__ addr,
+    const int* __restrict__ wl,
     bool* __restrict__ th_o, int* __restrict__ way_o,
     bool* __restrict__ full_o, int* __restrict__ wts_o,
     int* __restrict__ rts_o, int* __restrict__ nmem_o,
-    bool* __restrict__ ovf_o, int N, int C) {
-  const int lane = threadIdx.x & 31;
-  const int64_t i =
-      static_cast<int64_t>(blockIdx.x) * kLanesPerBlock + (threadIdx.x >> 5);
-  if (i >= N) return;  // warp-uniform
-  const int a = addr[i];
-  const int* tag = ts_tag + i * ts_tag_ld;
-  const int* mem = ts_mem + i * ts_mem_ld;
-  const int* seq = ts_seq + i * ts_seq_ld;
+    bool* __restrict__ ovf_o, int N, int K, int C) {
+  extern __shared__ int mems[];
+  __shared__ int red[3][NT / 32];
+  __shared__ int lane_i[kLaneChunk], lane_w[kLaneChunk], lane_s[kLaneChunk];
+  __shared__ unsigned long long slot_key[kSlots];
+  __shared__ int slot_way[kSlots];
+  __shared__ int n_mine;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  constexpr int nt = NT;
 
-  // pass 1: first match, every way allocated, min victim score p
-  int m = INT_MAX;
-  int pmin = INT_MAX;
+  // the row's ways first, all loads in flight together, so their round
+  // trip overlaps the scan of `row`
+  const int* tag = ts_tag + b * ts_tag_ld;
+  const int* mem = ts_mem + b * ts_mem_ld;
+  const int* seq = ts_seq + b * ts_seq_ld;
+  int t[WPT], m[WPT], sq[WPT];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int j = tid + k * nt;
+    const bool in = j < C;
+    t[k] = in ? tag[j] : 0;
+    m[k] = in ? mem[j] : 0;
+    sq[k] = in ? seq[j] : 0;
+  }
+
+  // the lanes of [base, base + kLaneChunk) that name this row, with their
+  // lease and their address's slot in an open-addressing table, into
+  // shared memory (lanes with one address share a slot); an index outside
+  // [0, K) traps
+  const int n_lanes = row != nullptr ? N : 1;
+  auto collect = [&](int base) {
+    if (tid == 0) n_mine = 0;
+    for (int h = tid; h < kSlots; h += nt) {
+      slot_key[h] = 0;
+      slot_way[h] = INT_MAX;
+    }
+    __syncthreads();
+    const int end = min(n_lanes, base + kLaneChunk);
+    for (int i = base + tid; i < end; i += nt) {
+      const int li = row != nullptr ? i : b;
+      const int r = row != nullptr ? row[i] : b;
+      const int a = addr[li];
+      const int w = wl[li];
+      if (r < 0 || r >= K) __trap();
+      if (r == b) {
+        const unsigned long long want = slot_word(a);
+        int h = slot_of(a);
+        for (;;) {
+          const unsigned long long old = atomicCAS(&slot_key[h], 0ull, want);
+          if (old == 0 || old == want) break;
+          h = (h + 1) & (kSlots - 1);
+        }
+        const int k = atomicAdd(&n_mine, 1);
+        lane_i[k] = li;
+        lane_w[k] = w;
+        lane_s[k] = h;
+      }
+    }
+    __syncthreads();
+    return n_mine;
+  };
+  int n = collect(0);
+  if (n == 0 && n_lanes <= kLaneChunk) return;
+
+  // full, pmin over p = where(empty, -2^30, memts), then the victim: the
+  // first index of the minimum of key = where(p == pmin, seq, 2^30)
   bool all_valid = true;
-  for (int j = lane; j < C; j += 32) {
-    const int t = tag[j];
-    if (t == a && m == INT_MAX) m = j;
-    const bool empty = t == halcone::kInvalid;
-    all_valid = all_valid && !empty;
-    pmin = min(pmin, empty ? halcone::kNeg : mem[j]);
-  }
-  m = __reduce_min_sync(kFull, m);
-  pmin = __reduce_min_sync(kFull, pmin);
-  const bool full = __all_sync(kFull, all_valid);
-
-  // pass 2: victim = first index of the min key where(p == pmin, seq, 2^30)
-  int bs = INT_MAX;
-  int bi = INT_MAX;
-  for (int j = lane; j < C; j += 32) {
-    const int t = tag[j];
-    const int p = t == halcone::kInvalid ? halcone::kNeg : mem[j];
-    const int s = p == pmin ? seq[j] : halcone::kSeqCap;
-    if (bi == INT_MAX || s < bs) {
-      bs = s;
-      bi = j;
+  int pmin = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int j = tid + k * nt;
+    if (j < C) {
+      mems[j] = m[k];
+      const bool empty = t[k] == halcone::kInvalid;
+      all_valid = all_valid && !empty;
+      pmin = min(pmin, empty ? halcone::kNeg : m[k]);
     }
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const int os = __shfl_xor_sync(kFull, bs, o);
-    const int oi = __shfl_xor_sync(kFull, bi, o);
-    if (os < bs || (os == bs && oi < bi)) {
-      bs = os;
-      bi = oi;
-    }
+  const bool full = __syncthreads_and(all_valid);
+  pmin = block_min(pmin, red[0]);
+  int key[WPT];
+  int kmin = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int p = t[k] == halcone::kInvalid ? halcone::kNeg : m[k];
+    key[k] = p == pmin ? sq[k] : halcone::kSeqCap;
+    if (tid + k * nt < C) kmin = min(kmin, key[k]);
   }
-  if (lane != 0) return;
+  kmin = block_min(kmin, red[1]);
+  int first = INT_MAX;
+#pragma unroll
+  for (int k = WPT - 1; k >= 0; --k) {
+    const int j = tid + k * nt;
+    if (j < C && key[k] == kmin) first = j;
+  }
+  const int victim = block_min(first, red[2]);
 
-  // mm_write grant + 16-bit overflow reinit
-  const bool th = m != INT_MAX;
-  const int memts = th ? mem[m] : 0;
-  const int w = wl[i];
-  int wts = add32(memts, 1);
-  int rts = add32(memts, w);
-  int nmem = rts;
-  const bool ovf = nmem > halcone::kTsMax;
-  if (ovf) {
-    wts = 0;
-    rts = w;
-    nmem = w;
+  // every way looks its tag up in the address table (the first matching
+  // way is the least index, by atomicMin), then one thread a lane grants:
+  // mm_write + 16-bit overflow reinit
+  for (int base = 0;;) {
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+      const int j = tid + k * nt;
+      if (j >= C) continue;
+      const unsigned long long want = slot_word(t[k]);
+      for (int h = slot_of(t[k]);; h = (h + 1) & (kSlots - 1)) {
+        const unsigned long long sk = slot_key[h];
+        if (sk == want) atomicMin(&slot_way[h], j);
+        if (sk == want || sk == 0) break;
+      }
+    }
+    __syncthreads();
+    for (int k = tid; k < n; k += nt) {
+      const int li = lane_i[k];
+      const int way = slot_way[lane_s[k]];
+      const bool th = way != INT_MAX;
+      const int memts = th ? mems[way] : 0;
+      const int w = lane_w[k];
+      int wts = add32(memts, 1);
+      int rts = add32(memts, w);
+      int nmem = rts;
+      const bool ovf = nmem > halcone::kTsMax;
+      if (ovf) {
+        wts = 0;
+        rts = w;
+        nmem = w;
+      }
+      th_o[li] = th;
+      way_o[li] = th ? way : victim;
+      full_o[li] = full;
+      wts_o[li] = wts;
+      rts_o[li] = rts;
+      nmem_o[li] = nmem;
+      ovf_o[li] = ovf;
+    }
+    base += kLaneChunk;
+    if (base >= n_lanes) break;
+    __syncthreads();   // the table and lists are refilled
+    n = collect(base);
   }
-  th_o[i] = th;
-  way_o[i] = th ? m : bi;
-  full_o[i] = full;
-  wts_o[i] = wts;
-  rts_o[i] = rts;
-  nmem_o[i] = nmem;
-  ovf_o[i] = ovf;
+}
+
+template <int WPT, int NT>
+int launch_write_grant(const int* const* p, const int64_t* ld, void* const* o,
+                       int N, int K, int C, cudaStream_t stream) {
+  const size_t smem = sizeof(int) * static_cast<size_t>(C);
+  if (smem > 40 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        write_grant_kernel<WPT, NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  write_grant_kernel<WPT, NT><<<p[3] != nullptr ? K : N, NT, smem,
+                                stream>>>(
+      p[0], ld[0], p[1], ld[1], p[2], ld[2], p[3], p[4], p[5],
+      static_cast<bool*>(o[0]), static_cast<int*>(o[1]),
+      static_cast<bool*>(o[2]), static_cast<int*>(o[3]),
+      static_cast<int*>(o[4]), static_cast<int*>(o[5]),
+      static_cast<bool*>(o[6]), N, K, C);
+  return static_cast<int>(cudaGetLastError());
 }
 
 inline int blocks_for(int N) {
@@ -238,20 +384,30 @@ extern "C" int halcone_miss_round(
   return static_cast<int>(cudaGetLastError());
 }
 
+// Tables [K, C] with row strides; `row` [N] names each lane's table row,
+// or is null for the gathered form (K == N, lane i reads row i).  A row
+// is 256 threads of up to 16 ways each (C <= 4096), or 1024 threads
+// (C <= 16384).
 extern "C" int halcone_write_grant(
     const void* ts_tag, long long ts_tag_ld, const void* ts_mem,
     long long ts_mem_ld, const void* ts_seq, long long ts_seq_ld,
-    const void* addr, const void* wl, void* th, void* way, void* full,
-    void* wts, void* rts, void* nmem, void* ovf, int N, int C,
-    void* stream) {
-  using I = const int*;
-  write_grant_kernel<<<blocks_for(N), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<I>(ts_tag), ts_tag_ld, static_cast<I>(ts_mem), ts_mem_ld,
-      static_cast<I>(ts_seq), ts_seq_ld, static_cast<I>(addr),
-      static_cast<I>(wl), static_cast<bool*>(th), static_cast<int*>(way),
-      static_cast<bool*>(full), static_cast<int*>(wts),
-      static_cast<int*>(rts), static_cast<int*>(nmem),
-      static_cast<bool*>(ovf), N, C);
-  return static_cast<int>(cudaGetLastError());
+    const void* row, const void* addr, const void* wl, void* th, void* way,
+    void* full, void* wts, void* rts, void* nmem, void* ovf, int N, int K,
+    int C, void* stream) {
+  const int* p[6] = {static_cast<const int*>(ts_tag),
+                     static_cast<const int*>(ts_mem),
+                     static_cast<const int*>(ts_seq),
+                     static_cast<const int*>(row),
+                     static_cast<const int*>(addr),
+                     static_cast<const int*>(wl)};
+  const int64_t ld[3] = {ts_tag_ld, ts_mem_ld, ts_seq_ld};
+  void* const o[7] = {th, way, full, wts, rts, nmem, ovf};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 256) return launch_write_grant<1, 256>(p, ld, o, N, K, C, s);
+  if (C <= 512) return launch_write_grant<2, 256>(p, ld, o, N, K, C, s);
+  if (C <= 1024) return launch_write_grant<4, 256>(p, ld, o, N, K, C, s);
+  if (C <= 2048) return launch_write_grant<8, 256>(p, ld, o, N, K, C, s);
+  if (C <= 4096) return launch_write_grant<16, 256>(p, ld, o, N, K, C, s);
+  if (C <= 16384) return launch_write_grant<16, 1024>(p, ld, o, N, K, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -146,6 +146,33 @@ def check_rows(name: str, t: torch.Tensor, n: int, device) -> int:
     return t.stride(0)
 
 
+def check_table(tables, row, n: int, device):
+    """Validate named ``[K, C]`` int32 tables on ``device`` that share K
+    and C, each with contiguous ways and any row stride, and ``row``, the
+    contiguous ``[n]`` int32 vector naming each lane's table row (None:
+    lane i reads row i, so K == n).  Returns ``(K, C, row strides)``.
+    Does not read ``row``'s values: the kernel traps on one outside
+    ``[0, K)``."""
+    (name, first), *_ = tables
+    _check_cuda_i32(name, first, device)
+    if first.dim() != 2:
+        raise ValueError(f"{name}: expected a [K, C] table, got shape "
+                         f"{tuple(first.shape)}")
+    K, C = first.shape
+    if row is None and K != n:
+        raise ValueError(f"{name}: {K} rows for {n} lanes; without `row` "
+                         "lane i reads row i")
+    if row is not None:
+        check_vec("row", row, n, device)
+        if n and K < 1:
+            raise ValueError(f"{name}: no rows for {n} lanes to name")
+    lds = [check_rows(nm, t, K, device) for nm, t in tables]
+    for nm, t in tables:
+        if t.shape[1] != C:
+            raise ValueError(f"{nm}: expected {C} ways, got {t.shape[1]}")
+    return K, C, lds
+
+
 def check_vec(name: str, t: torch.Tensor, n: int, device) -> None:
     """Validate a contiguous ``[n]`` int32 vector on ``device``."""
     _check_cuda_i32(name, t, device)

@@ -35,10 +35,10 @@ def miss_round(*args):
     return _miss_round(*args)
 
 
-def write_grant(*args):
-    if _on_cpu(args[3]):                       # addr
-        return ref.write_grant_ref(*args)
-    return _write_grant(*args)
+def write_grant(ts_tag, ts_mem, ts_seq, addr, wl, row=None):
+    if _on_cpu(addr):
+        return ref.write_grant_ref(ts_tag, ts_mem, ts_seq, addr, wl, row)
+    return _write_grant(ts_tag, ts_mem, ts_seq, addr, wl, row)
 
 
 def rmsnorm(x, w, *, eps=1e-6):

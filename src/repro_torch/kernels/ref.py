@@ -100,10 +100,14 @@ def miss_round_ref(rp_tag, rp_rts, sh_tag, sh_rts, sh_wts, ts_tag, ts_mem,
             fnd & ovf, leaseA.wts, leaseA.rts, lease1.wts, lease1.rts)
 
 
-def write_grant_ref(ts_tag, ts_mem, ts_seq, addr, wl, invalid=-1):
+def write_grant_ref(ts_tag, ts_mem, ts_seq, addr, wl, row=None,
+                    invalid=-1):
     """Write-side TSU math (``kernels.tier_pass.write_grant``): probe,
     lexicographic victim (min-(memts, alloc_seq)) and the ``mm_write``
-    grant + overflow reinit."""
+    grant + overflow reinit.  The tables are ``[K, C]`` and ``row`` names
+    each lane's table row; None means lane i reads row i (K == N)."""
+    if row is not None:
+        ts_tag, ts_mem, ts_seq = ts_tag[row], ts_mem[row], ts_seq[row]
     eq = ts_tag == addr[:, None]
     th = eq.any(-1)
     way = _first_index(eq)

@@ -3,12 +3,16 @@
 ``miss_round`` and ``write_grant`` (``csrc/tier_pass.cu``) replace the
 Pallas kernels ``repro/kernels/tier_pass.py::_miss_round_kernel`` and
 ``::_write_grant_kernel``; their plain versions are
-``kernels.ref.miss_round_ref`` and ``kernels.ref.write_grant_ref``.  Both
-keep the reference's gathered-row signature: the caller passes each
-lane's set rows (``[N, W]``) and the TSU shard's row (``[N, C]``).  These
-wrappers launch on CUDA tensors only and raise on anything else;
-``kernels.ops`` is the dispatcher that sends CPU tensors to the plain
-versions.
+``kernels.ref.miss_round_ref`` and ``kernels.ref.write_grant_ref``.
+``miss_round`` keeps the reference's gathered-row signature: the caller
+passes each lane's set rows (``[N, W]``) and the TSU shard's row
+(``[N, C]``).  ``write_grant`` takes the TSU tables themselves (``[K, C]``
+with a row stride: the shards' set 0 with the trash way sliced off) and
+``row``, each lane's table row, so no lane's row is copied and each
+distinct row is read once, by one block; without ``row`` it takes the
+gathered form (lane i reads row i).  These wrappers launch on CUDA
+tensors only and raise on anything else; ``kernels.ops`` is the
+dispatcher that sends CPU tensors to the plain versions.
 """
 from __future__ import annotations
 
@@ -17,12 +21,13 @@ import torch
 from repro_torch.kernels import cuda
 
 _MISS_ARGS = [cuda.P, cuda.LD] * 7 + [cuda.P] * 21 + [cuda.I] * 4 + [cuda.P]
-_WRITE_ARGS = [cuda.P, cuda.LD] * 3 + [cuda.P] * 9 + [cuda.I] * 2 + [cuda.P]
+_WRITE_ARGS = [cuda.P, cuda.LD] * 3 + [cuda.P] * 10 + [cuda.I] * 3 + [cuda.P]
 
 # output kinds, in the reference's order (True = bool)
 _MISS_BOOL = (True, True, False, True, True, False, True, False, False,
               False, False, True, False, False, False, False)
 _WRITE_BOOL = (True, False, True, False, False, False, True)
+GRANT_MAX_WAYS = 16384       # write_grant holds a row in registers
 
 
 def _outs(kinds, N, dev):
@@ -63,28 +68,32 @@ def miss_round(rp_tag, rp_rts, sh_tag, sh_rts, sh_wts, ts_tag, ts_mem,
     return tuple(outs)
 
 
-def write_grant(ts_tag, ts_mem, ts_seq, addr, wl):
-    """Fused write-side TSU math over gathered shard rows, on the card.
+def write_grant(ts_tag, ts_mem, ts_seq, addr, wl, row=None):
+    """Fused write-side TSU math, on the card: one block per table row.
 
-    ts_tag/ts_mem/ts_seq: [N, C]; addr/wl: [N] — all int32.  Returns
-    (th, way, full, wts, rts, nmem, ovf) as in
-    ``repro/kernels/tier_pass.py::write_grant`` (th, full, ovf bool)."""
+    ts_tag/ts_mem/ts_seq: [K, C] tables with contiguous ways; addr/wl:
+    [N]; row: [N] table row of each lane, each in [0, K) (the kernel traps
+    otherwise), or None for lane i reading row i (K == N) — all int32.
+    Returns (th, way, full, wts, rts, nmem, ovf) of each lane as in
+    ``repro/kernels/tier_pass.py::write_grant`` on the rows
+    ``ts_*[row]`` (th, full, ovf bool)."""
     dev = addr.device
     N = addr.shape[0] if addr.dim() == 1 else -1
-    rows = (("ts_tag", ts_tag), ("ts_mem", ts_mem), ("ts_seq", ts_seq))
-    lds = [cuda.check_rows(n, t, N, dev) for n, t in rows]
-    C = ts_tag.shape[1]
-    for n, t in rows:
-        if t.shape[1] != C:
-            raise ValueError(f"{n}: expected {C} ways, got {t.shape[1]}")
+    K, C, lds = cuda.check_table(
+        (("ts_tag", ts_tag), ("ts_mem", ts_mem), ("ts_seq", ts_seq)), row,
+        N, dev)
+    if C > GRANT_MAX_WAYS:
+        raise ValueError(f"write_grant: {C} ways, the kernel holds at most "
+                         f"{GRANT_MAX_WAYS} a row")
     cuda.check_vec("addr", addr, N, dev)
     cuda.check_vec("wl", wl, N, dev)
     outs = _outs(_WRITE_BOOL, N, dev)
     if N:
         args = []
-        for (_, t), ld in zip(rows, lds):
+        for t, ld in zip((ts_tag, ts_mem, ts_seq), lds):
             args += [t.data_ptr(), ld]
-        args += [t.data_ptr() for t in (addr, wl, *outs)] + [N, C]
+        args += [None if row is None else row.data_ptr()]
+        args += [t.data_ptr() for t in (addr, wl, *outs)] + [N, K, C]
         cuda.launch(cuda.function("tier_pass", "halcone_write_grant",
                                   _WRITE_ARGS), args, dev)
         write_grant.launches += 1

@@ -115,7 +115,8 @@ def test_cuda_miss_round_equals_plain(cuda_device, N, W1, W2, C, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,C,seed", [(256, 1024, 0), (40, 8, 2)])
+@pytest.mark.parametrize("N,C,seed", [(256, 1024, 0), (40, 8, 2),
+                                      (16, 3000, 3), (16, 5000, 4)])
 def test_cuda_write_grant_equals_plain(cuda_device, N, C, seed):
     rows, vecs = _grant_inputs(N, C, seed)
     args = [_rows(cuda_device, a) for a in rows] + \
@@ -123,6 +124,142 @@ def test_cuda_write_grant_equals_plain(cuda_device, N, C, seed):
     got = write_grant(*args)
     _assert_equal(got, ref.write_grant_ref(*args))
     assert got[2].any() and not got[2].all()           # full and not full
+
+
+def _indexed_grant_inputs(K, N, C, seed):
+    """A write round's TSU side: ``[K, 1, C+1]`` tag, memts and seq tables
+    (set 0 with the trash way, as the fabric holds them) and the ``[N]``
+    shard of each lane.  Inactive lanes (a third) name shard 0; shard 1 is
+    all empty, shard 2 holds duplicate tags, shard 3 is full with its
+    minimum memts tied on a third of the ways, whose seq is 2^30 and
+    above; clocks sit within a lease of TS_MAX; half the lanes hit."""
+    rng = np.random.default_rng(seed)
+    tag = rng.integers(0, 4 * C, (K, 1, C + 1)).astype(np.int32)
+    tag[:, 0, 1::5] = -1
+    tag[1] = -1
+    tag[2, 0, 1:C:2] = tag[2, 0, 0:C - 1:2]
+    tag[3, 0] = np.arange(C + 1) + 8 * C
+    mem = rng.integers(TS_MAX - 7, TS_MAX + 1, (K, 1, C + 1)).astype(np.int32)
+    seq = rng.integers(0, 64, (K, 1, C + 1)).astype(np.int32)
+    mem[3, 0] = 100
+    mem[3, 0, 2::3] = 50
+    seq[3, 0, 2::3] = 2 ** 30 + rng.integers(0, 3, len(seq[3, 0, 2::3]))
+    row = rng.integers(0, K, N).astype(np.int32)
+    row[::3] = 0
+    row[1:5] = [3, 1, 0, 2][:max(0, min(N, 5) - 1)]
+    addr = rng.integers(0, 4 * C, N).astype(np.int32)
+    hit = rng.random(N) < 0.5
+    addr[hit] = tag[row[hit], 0, rng.integers(0, C, N)[hit]]
+    addr[addr == -1] = 4 * C
+    wl = rng.integers(1, 9, N).astype(np.int32)
+    return (tag, mem, seq), row, addr, wl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 16, 64, 256])
+def test_cuda_write_grant_indexed_equals_plain(cuda_device, N):
+    """The indexed form at the write pass's shape (K = 8 shard rows of
+    C = 1024 ways read in place, lanes naming them) equals its plain
+    version exactly, in one launch."""
+    tables, row, addr, wl = _indexed_grant_inputs(8, N, 1024, N)
+    full = [_vec(cuda_device, a) for a in tables]
+    args = [t[:, 0, :-1] for t in full] + \
+        [_vec(cuda_device, v) for v in (addr, wl)]
+    rowt = _vec(cuda_device, row)
+    before = write_grant.launches
+    got = write_grant(*args, rowt)
+    assert write_grant.launches == before + 1
+    _assert_equal(got, ref.write_grant_ref(*args, rowt))
+    _assert_equal(got, ref.write_grant_ref(*(t[rowt] for t in args[:3]),
+                                           *args[3:]))
+
+
+@pytest.mark.cuda
+def test_cuda_write_grant_checks_its_inputs(cuda_device):
+    tables, row, addr, wl = _indexed_grant_inputs(8, 16, 64, 0)
+    t = [_vec(cuda_device, a)[:, 0, :-1] for a in tables]
+    a, w, r = (_vec(cuda_device, v) for v in (addr, wl, row))
+    with pytest.raises(TypeError, match="int32"):
+        write_grant(*t, a, w, r.long())
+    with pytest.raises(ValueError, match="shape"):
+        write_grant(*t, a, w, r[:8])
+    with pytest.raises(ValueError, match="lane i reads row i"):
+        write_grant(*t, a, w)
+    with pytest.raises(ValueError, match="ways"):
+        write_grant(t[0], t[1][:, :32], t[2], a, w, r)
+    with pytest.raises(ValueError, match="contiguous"):
+        write_grant(t[0][:, ::2], *t[1:], a, w, r)
+
+
+@pytest.mark.cuda
+def test_cuda_write_grant_traps_on_a_row_out_of_range(cuda_device):
+    """A lane naming a row outside [0, K) stops the kernel with a device
+    error, as torch's gather does: never a silent wrong answer."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.tier_pass import write_grant\n"
+        "d = torch.device('cuda')\n"
+        "t = torch.zeros((8, 64), dtype=torch.int32, device=d)\n"
+        "v = torch.zeros(4, dtype=torch.int32, device=d)\n"
+        "row = torch.tensor([0, 1, 8, 2], dtype=torch.int32, device=d)\n"
+        "write_grant(t, t, t, v, v, row)\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode != 0 and "no error" not in out.stdout
+    assert "CUDA" in out.stderr or "cuda" in out.stderr
+
+
+@pytest.mark.cuda
+def test_cuda_tsu_commit_write_batch_equals_cpu(cuda_device):
+    """A write storm through ``tsu_commit_write_batch`` (the write grant
+    over the TSU tables in place, allocation, eviction, commit) on the
+    card and on the CPU: equal outputs and state after every round."""
+    from repro_torch.core import state as S
+    rng = np.random.default_rng(9)
+    KS, C, M = 8, 1024, 64
+    tables, _, _, _ = _indexed_grant_inputs(KS, 1, C, 9)
+    side = [rng.integers(0, 9, (KS, 1, C + 1)).astype(np.int32)
+            for _ in range(2)]
+    nseq = rng.integers(2 ** 30 - 2, 2 ** 30 + 2, KS).astype(np.int32)
+    host = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (*tables, *side, nseq)]
+    dev = [h.to(cuda_device, copy=True) for h in host]
+    gseq = [torch.tensor(5, dtype=torch.int32, device=d)
+            for d in ("cpu", cuda_device)]
+    for rnd in range(12):
+        shard = rng.integers(0, KS, M).astype(np.int32)
+        active = np.zeros(M, bool)
+        _, first = np.unique(shard, return_index=True)
+        active[first[rng.random(len(first)) < 0.8]] = True
+        shard[~active] = 0                       # as the write pass pads
+        keys = rng.integers(0, 4 * C, M).astype(np.int32)
+        hit = rng.random(M) < 0.4
+        keys[hit] = host[0].numpy()[shard[hit], 0,
+                                    rng.integers(0, C, M)[hit]]
+        keys[keys == -1] = 4 * C
+        wl = rng.integers(1, 9, M).astype(np.int32)
+        outs = []
+        for arrs, g, d in ((host, gseq[0], "cpu"), (dev, gseq[1],
+                                                    cuda_device)):
+            T = lambda a: torch.from_numpy(a).to(d)
+            out = S.tsu_commit_write_batch(
+                S.TSUState(arrs[0], arrs[1]), arrs[3], arrs[4], arrs[2],
+                arrs[5], g, T(shard), T(keys), T(wl), 8, T(active))
+            g.copy_(out[-1])
+            outs.append([o.cpu() for i, o in enumerate(out)
+                         if i not in (6, 7, 8, 9, 10)])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), f"round {rnd}"
+        for a, b in zip(host, dev):
+            assert torch.equal(a, b.cpu()), f"state after round {rnd}"
+    assert host[0][1].ne(-1).any()               # the empty shard filled
 
 
 @pytest.mark.cuda
@@ -209,9 +346,14 @@ def _close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,D", [(4096, 960), (7, 80), (5, 100), (3, 8)])
+@pytest.mark.parametrize("R,D", [(4096, 960), (7, 80), (5, 100), (3, 8)] + [
+    (R, D) for R in (8, 4096) for D in (768, 960, 1536, 2048, 4096)
+    if (R, D) != (4096, 960)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_rmsnorm_equals_plain(exact_f32, R, D, dtype):
+    """The serving path's rows (decode R = 8, prefill R = 4096, at every
+    width of smollm, mamba2 and zamba2 and their d_inner) and odd ones
+    (element path, masked vector slots)."""
     from repro_torch.kernels.rmsnorm import rmsnorm
     x = _randn(exact_f32, (R, D), dtype, R + D)
     w = _randn(exact_f32, (D,), torch.float32, D) * 0.1
@@ -220,6 +362,22 @@ def test_cuda_rmsnorm_equals_plain(exact_f32, R, D, dtype):
     assert rmsnorm.launches == before + 1
     x3 = x.reshape(1, R, D)
     _close(rmsnorm(x3, w), ref.rmsnorm_ref(x3, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D", [(8, 960), (4096, 960), (8, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rmsnorm_weight_off_16_bytes(exact_f32, R, D, dtype):
+    """A weight that does not start on a 16-byte boundary (a row of a
+    stacked [L, D] table whose 4 D is not a multiple of 16, here a slice
+    one element in) takes the element path and gives the same answer."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    x = _randn(exact_f32, (R, D), dtype, R + D)
+    buf = _randn(exact_f32, (D + 1,), torch.float32, D) * 0.1
+    w = buf[1:]
+    assert w.data_ptr() % 16
+    _close(rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+    _close(rmsnorm(x, w), rmsnorm(x, w.clone()))
 
 
 @pytest.mark.cuda

@@ -57,6 +57,42 @@ def _write_grant_inputs(N, C, seed):
     return ts_tag, ts_mem, ts_seq, addr, wl
 
 
+def _indexed_grant_inputs(K, N, C, seed):
+    """A write round's ``[K, C]`` TSU tables (the shards' set-0 rows) and
+    the ``[N]`` row vector naming each lane's shard.  Lanes share the K
+    rows; a third of the lanes, the inactive ones, name row 0 as the write
+    pass gives them.  Row 1 is all empty, row 2 holds duplicate tags, row
+    3 is full with its minimum memts tied on a third of the ways whose seq
+    is 2^30 and above, row 4 is full; memts near TS_MAX tie elsewhere.
+    Lane 1 misses in row 3, lane 2 misses in row 1, lane 4 hits row 2's
+    duplicated tag; half the other lanes hit their row."""
+    rng = np.random.default_rng(seed)
+    tag = rng.integers(0, 4 * C, (K, C)).astype(np.int32)
+    tag[:, 1::5] = -1                           # partly full rows
+    tag[1] = -1                                 # an all-empty row
+    tag[2, 1::2] = tag[2, 0:C - 1:2]            # duplicate tags
+    tag[3] = np.arange(C) + 8 * C               # full, distinct
+    tag[4] = np.arange(C) + 16 * C              # full, distinct
+    mem = rng.integers(tprotocol.TS_MAX - 7, tprotocol.TS_MAX + 1,
+                       (K, C)).astype(np.int32)  # ties, reinits
+    seq = rng.integers(0, 64, (K, C)).astype(np.int32)
+    mem[3] = 100
+    mem[3, 2::3] = 50                           # tied minimum
+    seq[3, 2::3] = 2 ** 30 + rng.integers(0, 3, len(seq[3, 2::3]))
+    row = rng.integers(0, K, N).astype(np.int32)
+    row[::3] = 0                                # inactive lanes
+    row[1:5] = [3, 1, 0, 2]
+    addr = rng.integers(0, 4 * C, N).astype(np.int32)
+    hit = rng.random(N) < 0.5
+    way = rng.integers(0, C, N)
+    addr[hit] = tag[row[hit], way[hit]]
+    addr[addr == -1] = 4 * C                    # an address is never -1
+    addr[1:3] = 32 * C                          # misses
+    addr[4] = tag[2, 0]
+    wl = rng.integers(1, 10, N).astype(np.int32)
+    return (tag, mem, seq), row, addr, wl
+
+
 # ------------------------------------------------------------ lease_probe
 @pytest.mark.parametrize("N,W", [(64, 4), (256, 16), (100, 8), (1, 2)])
 def test_lease_probe_ref_matches_pallas(N, W):
@@ -181,6 +217,31 @@ def test_write_grant_ref_matches_pallas(N, C, seed):
     assert got[2].numpy()[::7].sum() == 0       # empty rows are not full
 
 
+@pytest.mark.parametrize("K,N,C,seed", [(8, 16, 16, 0), (8, 64, 64, 1),
+                                         (8, 64, 1024, 2), (8, 16, 8, 3)])
+def test_write_grant_ref_indexed_matches_pallas(K, N, C, seed):
+    """The indexed form (``[K, C]`` tables + each lane's row) equals the
+    Pallas kernel on the gathered rows, as the reference passes them, and
+    the plain version's own gathered form."""
+    tables, row, addr, wl = _indexed_grant_inputs(K, N, C, seed)
+    got = ref.write_grant_ref(*map(_t, tables), _t(addr), _t(wl), _t(row))
+    rows = [a[row] for a in tables]
+    want = pallas_write_grant(*map(jnp.asarray, rows), jnp.asarray(addr),
+                              jnp.asarray(wl), interpret=True)
+    _assert_outs_equal(got, want, _GRANT_OUTS)
+    _assert_outs_equal(got, ref.write_grant_ref(*map(_t, rows), _t(addr),
+                                                _t(wl)), _GRANT_OUTS)
+    th, way, full = (g.numpy() for g in got[:3])
+    # tied minimum with seq >= 2^30: the cap at 2^30 on the untied ways
+    # wins, so the victim is way 0 (a packed (p, seq, index) key would
+    # pick way 2)
+    assert not th[1] and way[1] == 0
+    # all empty: every way ties at -2^30, so the least seq picks
+    assert not th[2] and not full[2] and way[2] == np.argmin(tables[2][1])
+    assert th[4] and way[4] == 0                         # first duplicate
+    assert full[1] and full[row == 4].all()
+
+
 # ------------------------------------------------------------ dispatcher
 def test_dispatcher_sends_cpu_tensors_to_plain_versions():
     ins = tuple(map(_t, _lease_probe_inputs(16, 4)))
@@ -192,6 +253,44 @@ def test_dispatcher_sends_cpu_tensors_to_plain_versions():
     gins = tuple(map(_t, _write_grant_inputs(16, 8, 0)))
     _assert_outs_equal(ops.write_grant(*gins), ref.write_grant_ref(*gins),
                        _GRANT_OUTS)
+
+
+def test_dispatcher_sends_indexed_write_grant_to_plain_version():
+    tables, row, addr, wl = _indexed_grant_inputs(8, 64, 32, 4)
+    args = (*map(_t, tables), _t(addr), _t(wl))
+    before = cuda_write_grant.launches
+    _assert_outs_equal(ops.write_grant(*args, _t(row)),
+                       ref.write_grant_ref(*args, row=_t(row)), _GRANT_OUTS)
+    assert cuda_write_grant.launches == before
+
+
+def test_write_batch_grants_from_the_tsu_tables_in_place(monkeypatch):
+    """``tsu_commit_write_batch`` hands ``write_grant`` the shards' set-0
+    tables as views (no [M, C] gather) and each lane's shard as its row."""
+    rng = np.random.default_rng(5)
+    KS, CAP, M = 4, 16, 8
+    tag = rng.integers(-1, 40, (KS, 1, CAP + 1)).astype(np.int32)
+    arrs = [_t(tag)] + [_t(rng.integers(0, 9, (KS, 1, CAP + 1)).astype(
+        np.int32)) for _ in range(5)]
+    tsu = TS.TSUState(arrs[0], arrs[1])
+    shard = _t(np.array([0, 2, 1, 3, 0, 0, 0, 0], np.int32))
+    seen = []
+    old = TS.K.write_grant
+
+    def spy(*args):
+        seen.append(args)
+        return old(*args)
+
+    monkeypatch.setattr(TS.K, "write_grant", spy)
+    TS.tsu_commit_write_batch(
+        tsu, arrs[2], arrs[3], arrs[4], _t(np.full(KS, 3, np.int32)),
+        torch.tensor(0, dtype=torch.int32), shard,
+        _t(rng.integers(0, 40, M).astype(np.int32)), 4, 8,
+        _t(np.arange(M) < 4))
+    (args,) = seen
+    for t, table in zip(args[:3], (tsu.tag, tsu.memts, arrs[4])):
+        assert t.shape == (KS, CAP) and t.data_ptr() == table.data_ptr()
+    assert args[5] is shard
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

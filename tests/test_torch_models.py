@@ -39,6 +39,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import \
     decode_attention as cuda_decode
 from repro_torch.kernels.flash_attention import flash_attention as cuda_flash
+from repro_torch.kernels.rmsnorm import ELEMENT_PATH
+from repro_torch.kernels.rmsnorm import plan as rmsnorm_plan
 from repro_torch.kernels.rmsnorm import rmsnorm as cuda_rmsnorm
 from repro_torch.models import attention as tattn
 from repro_torch.models import convert, layers
@@ -83,6 +85,38 @@ def test_rmsnorm_plain_matches_pallas_and_jnp(R, D, dt):
     for want in (pallas_rmsnorm(xj, jnp.asarray(w), interpret=True),
                  rlayers.rmsnorm(xj, jnp.asarray(w))):
         np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("D", [768, 960, 1536, 2048, 4096])
+@pytest.mark.parametrize("R", [8, 4096])
+@pytest.mark.parametrize("vec", [4, 8])
+def test_rmsnorm_plan_holds_each_row_in_registers(R, D, vec):
+    """The rmsnorm kernel's shape at the serving path's rows (on an H100's
+    132 SMs): the least vectors a thread that hold the row; prefill packs
+    256 / tpr rows a block with the least tpr that needs at most four
+    vectors a thread; decode spreads one row over 128-256 threads with
+    one or two vectors each (four only for a row of 1024 f32 vectors)."""
+    nvec = D // vec
+    vpt, tpr, rows = rmsnorm_plan(R, D, vec, 132)
+    assert vpt in (1, 2, 4) and tpr in (32, 128, 256)
+    assert vpt * tpr >= nvec and (vpt == 1 or (vpt // 2) * tpr < nvec)
+    if R == 8:
+        assert rows == 1 and tpr in (128, 256)
+        assert vpt <= 2 or nvec > 512
+    else:
+        assert rows * tpr == 256
+        assert 4 * tpr >= nvec > 4 * {32: 0, 128: 32, 256: 128}[tpr]
+
+
+@pytest.mark.parametrize("R,D,vec,want", [
+    (5, 100, 8, ELEMENT_PATH), (5, 100, 4, (1, 32, 1)), (7, 80, 8, (1, 32, 1)),
+    (3, 8, 8, (1, 32, 1)), (2, 8200 * 8, 8, ELEMENT_PATH),
+    (1024, 960, 8, (1, 128, 1))])
+def test_rmsnorm_plan_odd_rows(R, D, vec, want):
+    """A D that does not fill whole vectors, or a row over 1024 vectors,
+    takes the element path; a row of at most 32 vectors one warp; rows
+    that would fill fewer blocks than SMs one row a block."""
+    assert rmsnorm_plan(R, D, vec, 132) == want
 
 
 _FLASH = [(1, 128, 4, 4, 64), (2, 64, 6, 2, 16), (1, 128, 4, 2, 80)]
