@@ -10,16 +10,18 @@
 // any strides over the first four dims, a head stride of 0 included, so a
 // group's B/C broadcast to its heads is never copied; the last dim
 // contiguous); dt: [B, nc, Q, H] f32, any strides; A: [H] f32.  Outputs,
-// contiguous: y in x's dtype, state [B, nc, H, N, P] f32, cum [B, nc, Q, H]
-// f32.
+// contiguous: y in x's dtype or in f32 (the caller's choice), state
+// [B, nc, H, N, P] f32, cum [B, nc, Q, H] f32.  bf16 at P, N in {64, 128}
+// takes the tensor-core kernel (ssd_chunk_wgmma.cu) instead.
 //
 // Bound: bytes.  At the mamba2-130m prefill (B = 8, S = 512 -> nc = 2,
 // Q = 256, H = 24, P = 64, N = 128, bf16) the function moves ~41 MB (x, y
 // and the f32 state ~12.6 MB each) and does ~6.5 GFLOP over the visible
 // causal pairs: ~12 us at 3.35 TB/s against ~6.5 us on the bf16 tensor
 // cores.  This kernel computes on the f32 CUDA cores (~96 us for those
-// flops at 67 TF/s), so it is far from the byte bound; wgmma tiles are
-// the later step.
+// flops at 67 TF/s), so it is far from the byte bound; it serves f32
+// (held to 1e-5, which bf16 tensor cores would miss) and the shapes the
+// tensor-core kernel does not take.
 //
 // Design.  The Pallas kernel keeps a whole [Q, Q] score and decay tile in
 // VMEM; at Q = 256 an f32 [Q, Q] tile alone is 256 KB, above the 227 KB a
@@ -94,11 +96,11 @@ struct Strides {
   long long b, c, q, h;
 };
 
-template <typename T, int P>
+template <typename T, typename OT, int P>
 __global__ void __launch_bounds__(kThreads) ssd_output_kernel(
     const T* __restrict__ x, Strides xs, const float* __restrict__ dt,
     Strides ds, const float* __restrict__ A, const T* __restrict__ Bm,
-    Strides bs, const T* __restrict__ Cm, Strides cs, T* __restrict__ y,
+    Strides bs, const T* __restrict__ Cm, Strides cs, OT* __restrict__ y,
     float* __restrict__ cum_out, int nc, int Q, int H, int N) {
   constexpr int PC = P / kSub;
   extern __shared__ float smem[];
@@ -184,10 +186,10 @@ __global__ void __launch_bounds__(kThreads) ssd_output_kernel(
   for (int r = 0; r < 4; ++r) {
     const int i = q0 + tr + kSub * r;
     if (i >= Q) continue;
-    T* yr = y + ((row0 + i) * H + h) * P;
+    OT* yr = y + ((row0 + i) * H + h) * P;
 #pragma unroll
     for (int k = 0; k < PC; ++k)
-      yr[tc + kSub * k] = halcone::from_f32<T>(acc[r][k]);
+      yr[tc + kSub * k] = halcone::from_f32<OT>(acc[r][k]);
   }
   if (qend == Q) {                          // the last query tile: cum
     for (int j = tid; j < Q; j += kThreads)
@@ -268,7 +270,7 @@ size_t state_smem(int Q, int P) {
   return sizeof(float) * (2 * Q + kTile * kTile + kTile * P);
 }
 
-template <typename T, int P>
+template <typename T, typename OT, int P>
 int launch(const void* x, Strides xs, const void* dt, Strides ds,
            const void* A, const void* Bm, Strides bs, const void* Cm,
            Strides cs, void* y, void* state, void* cum, int Bsz, int nc,
@@ -276,7 +278,8 @@ int launch(const void* x, Strides xs, const void* dt, Strides ds,
   const size_t out_bytes = output_smem(Q, N, P);
   const size_t st_bytes = state_smem(Q, P);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_output_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_output_kernel<T, OT, P>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(out_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(ssd_state_kernel<T, P>,
@@ -284,10 +287,10 @@ int launch(const void* x, Strides xs, const void* dt, Strides ds,
                              static_cast<int>(st_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 out_grid((Q + kTile - 1) / kTile, H, Bsz * nc);
-  ssd_output_kernel<T, P><<<out_grid, kThreads, out_bytes, stream>>>(
+  ssd_output_kernel<T, OT, P><<<out_grid, kThreads, out_bytes, stream>>>(
       static_cast<const T*>(x), xs, static_cast<const float*>(dt), ds,
       static_cast<const float*>(A), static_cast<const T*>(Bm), bs,
-      static_cast<const T*>(Cm), cs, static_cast<T*>(y),
+      static_cast<const T*>(Cm), cs, static_cast<OT*>(y),
       static_cast<float*>(cum), nc, Q, H, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -299,24 +302,24 @@ int launch(const void* x, Strides xs, const void* dt, Strides ds,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename OT>
 int launch_p(int P, const void* x, Strides xs, const void* dt, Strides ds,
              const void* A, const void* Bm, Strides bs, const void* Cm,
              Strides cs, void* y, void* state, void* cum, int Bsz, int nc,
              int Q, int H, int N, cudaStream_t s) {
   switch (P) {
     case 16:
-      return launch<T, 16>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y, state, cum,
-                           Bsz, nc, Q, H, N, s);
+      return launch<T, OT, 16>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y,
+                               state, cum, Bsz, nc, Q, H, N, s);
     case 32:
-      return launch<T, 32>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y, state, cum,
-                           Bsz, nc, Q, H, N, s);
+      return launch<T, OT, 32>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y,
+                               state, cum, Bsz, nc, Q, H, N, s);
     case 64:
-      return launch<T, 64>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y, state, cum,
-                           Bsz, nc, Q, H, N, s);
+      return launch<T, OT, 64>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y,
+                               state, cum, Bsz, nc, Q, H, N, s);
     case 128:
-      return launch<T, 128>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y, state, cum,
-                            Bsz, nc, Q, H, N, s);
+      return launch<T, OT, 128>(x, xs, dt, ds, A, Bm, bs, Cm, cs, y,
+                                state, cum, Bsz, nc, Q, H, N, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -327,10 +330,11 @@ int launch_p(int P, const void* x, Strides xs, const void* dt, Strides ds,
 // x: [Bsz, nc, Q, H, P] with element strides xs*; dt: [Bsz, nc, Q, H] f32
 // with strides ds*; A: [H] f32; Bm, Cm: [Bsz, nc, Q, H, N] with strides
 // bs*, cs* (the last dim of x, Bm and Cm contiguous).  y: [Bsz, nc, Q, H,
-// P] contiguous in x's dtype; state: [Bsz, nc, H, N, P] and cum: [Bsz, nc,
-// Q, H] contiguous f32.  `dt_code` is the storage type of x, Bm and Cm
-// (halcone::kF32 / kBF16).  P in {16, 32, 64, 128}; the wrapper bounds Q
-// and N so that the shared memory fits.
+// P] contiguous; state: [Bsz, nc, H, N, P] and cum: [Bsz, nc, Q, H]
+// contiguous f32.  `dt_code` is the storage type of x, Bm and Cm and
+// `out_code` y's (halcone::kF32 / kBF16; y in x's type or in f32).  P in
+// {16, 32, 64, 128}; the wrapper bounds Q and N so that the shared memory
+// fits.
 extern "C" int halcone_ssd_chunk(
     const void* x, long long xsb, long long xsc, long long xsq,
     long long xsh, const void* dt, long long dsb, long long dsc,
@@ -338,15 +342,20 @@ extern "C" int halcone_ssd_chunk(
     long long bsb, long long bsc, long long bsq, long long bsh,
     const void* Cm, long long csb, long long csc, long long csq,
     long long csh, void* y, void* state, void* cum, int Bsz, int nc, int Q,
-    int H, int P, int N, int dt_code, void* stream) {
+    int H, int P, int N, int dt_code, int out_code, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides xs{xsb, xsc, xsq, xsh}, ds{dsb, dsc, dsq, dsh},
       bs{bsb, bsc, bsq, bsh}, cs{csb, csc, csq, csh};
-  if (dt_code == halcone::kF32)
-    return launch_p<float>(P, x, xs, dt, ds, A, Bm, bs, Cm, cs, y, state,
-                           cum, Bsz, nc, Q, H, N, s);
-  if (dt_code == halcone::kBF16)
-    return launch_p<__nv_bfloat16>(P, x, xs, dt, ds, A, Bm, bs, Cm, cs, y,
-                                   state, cum, Bsz, nc, Q, H, N, s);
+  if (dt_code == halcone::kF32 && out_code == halcone::kF32)
+    return launch_p<float, float>(P, x, xs, dt, ds, A, Bm, bs, Cm, cs, y,
+                                  state, cum, Bsz, nc, Q, H, N, s);
+  if (dt_code == halcone::kBF16 && out_code == halcone::kBF16)
+    return launch_p<__nv_bfloat16, __nv_bfloat16>(
+        P, x, xs, dt, ds, A, Bm, bs, Cm, cs, y, state, cum, Bsz, nc, Q, H, N,
+        s);
+  if (dt_code == halcone::kBF16 && out_code == halcone::kF32)
+    return launch_p<__nv_bfloat16, float>(P, x, xs, dt, ds, A, Bm, bs, Cm,
+                                          cs, y, state, cum, Bsz, nc, Q, H,
+                                          N, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -45,7 +45,11 @@
 // address by atomicMin, so the search costs a probe or two a way however
 // many lanes name the row; one thread a lane then takes that way's memts
 // from shared memory for the mm_write grant and the 16-bit overflow
-// reinit.  Every lane gets all seven outputs, active or not.
+// reinit.  Every lane gets all seven outputs, active or not.  A row past
+// 16384 ways (the user sets the TSU's capacity) is walked in tiles of
+// 16384 ways, 1024 threads of 16, three times: for `full` and pmin, for
+// the victim, and for each 256 lanes' matches; each reduction is carried
+// from tile to tile, and a granted way's memts is read from the table.
 #include "halcone.cuh"
 
 namespace {
@@ -171,9 +175,12 @@ __device__ __forceinline__ int slot_of(int a) {
 }
 
 // One block of NT threads per table row (see the header), WPT ways a
-// thread: way j = tid + k * NT is the thread's k-th.  Dynamic shared
-// memory: the row's C memts.
-template <int WPT, int NT>
+// thread: way c0 + tid + k * NT is the thread's k-th of the tile at c0.
+// A row of at most WPT * NT ways is one tile, held in registers, with its
+// C memts in dynamic shared memory.  A longer row (kTiled) is walked in
+// tiles of WPT * NT ways, each reduction carried from tile to tile, and
+// a granted way's memts is read from the table.
+template <int WPT, int NT, bool kTiled>
 __global__ void __launch_bounds__(NT) write_grant_kernel(
     const int* __restrict__ ts_tag, int64_t ts_tag_ld,
     const int* __restrict__ ts_mem, int64_t ts_mem_ld,
@@ -193,6 +200,7 @@ __global__ void __launch_bounds__(NT) write_grant_kernel(
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   constexpr int nt = NT;
+  constexpr int kTile = WPT * NT;
 
   // the row's ways first, all loads in flight together, so their round
   // trip overlaps the scan of `row`
@@ -200,14 +208,19 @@ __global__ void __launch_bounds__(NT) write_grant_kernel(
   const int* mem = ts_mem + b * ts_mem_ld;
   const int* seq = ts_seq + b * ts_seq_ld;
   int t[WPT], m[WPT], sq[WPT];
+  auto load = [&](int c0, bool tags_only) {
 #pragma unroll
-  for (int k = 0; k < WPT; ++k) {
-    const int j = tid + k * nt;
-    const bool in = j < C;
-    t[k] = in ? tag[j] : 0;
-    m[k] = in ? mem[j] : 0;
-    sq[k] = in ? seq[j] : 0;
-  }
+    for (int k = 0; k < WPT; ++k) {
+      const int j = c0 + tid + k * nt;
+      const bool in = j < C;
+      t[k] = in ? tag[j] : 0;
+      if (!tags_only) {
+        m[k] = in ? mem[j] : 0;
+        sq[k] = in ? seq[j] : 0;
+      }
+    }
+  };
+  load(0, false);
 
   // the lanes of [base, base + kLaneChunk) that name this row, with their
   // lease and their address's slot in an open-addressing table, into
@@ -249,59 +262,75 @@ __global__ void __launch_bounds__(NT) write_grant_kernel(
   if (n == 0 && n_lanes <= kLaneChunk) return;
 
   // full, pmin over p = where(empty, -2^30, memts), then the victim: the
-  // first index of the minimum of key = where(p == pmin, seq, 2^30)
+  // first index of the minimum of key = where(p == pmin, seq, 2^30).
+  // Each thread keeps the least (key, way) of its ways, in way order;
+  // the block takes the least key, then the first way holding it.
   bool all_valid = true;
   int pmin = INT_MAX;
+  for (int c0 = 0;;) {
 #pragma unroll
-  for (int k = 0; k < WPT; ++k) {
-    const int j = tid + k * nt;
-    if (j < C) {
-      mems[j] = m[k];
-      const bool empty = t[k] == halcone::kInvalid;
-      all_valid = all_valid && !empty;
-      pmin = min(pmin, empty ? halcone::kNeg : m[k]);
+    for (int k = 0; k < WPT; ++k) {
+      const int j = c0 + tid + k * nt;
+      if (j < C) {
+        if (!kTiled) mems[j] = m[k];
+        const bool empty = t[k] == halcone::kInvalid;
+        all_valid = all_valid && !empty;
+        pmin = min(pmin, empty ? halcone::kNeg : m[k]);
+      }
     }
+    c0 += kTile;
+    if (!kTiled || c0 >= C) break;
+    load(c0, false);
   }
   const bool full = __syncthreads_and(all_valid);
   pmin = block_min(pmin, red[0]);
-  int key[WPT];
-  int kmin = INT_MAX;
+  int kmin = INT_MAX, first = INT_MAX;
+  if (kTiled) load(0, false);
+  for (int c0 = 0;;) {
 #pragma unroll
-  for (int k = 0; k < WPT; ++k) {
-    const int p = t[k] == halcone::kInvalid ? halcone::kNeg : m[k];
-    key[k] = p == pmin ? sq[k] : halcone::kSeqCap;
-    if (tid + k * nt < C) kmin = min(kmin, key[k]);
+    for (int k = 0; k < WPT; ++k) {
+      const int j = c0 + tid + k * nt;
+      const int p = t[k] == halcone::kInvalid ? halcone::kNeg : m[k];
+      const int key = p == pmin ? sq[k] : halcone::kSeqCap;
+      if (j < C && key < kmin) {
+        kmin = key;
+        first = j;
+      }
+    }
+    c0 += kTile;
+    if (!kTiled || c0 >= C) break;
+    load(c0, false);
   }
-  kmin = block_min(kmin, red[1]);
-  int first = INT_MAX;
-#pragma unroll
-  for (int k = WPT - 1; k >= 0; --k) {
-    const int j = tid + k * nt;
-    if (j < C && key[k] == kmin) first = j;
-  }
-  const int victim = block_min(first, red[2]);
+  const int kblock = block_min(kmin, red[1]);
+  const int victim = block_min(kmin == kblock ? first : INT_MAX, red[2]);
 
   // every way looks its tag up in the address table (the first matching
   // way is the least index, by atomicMin), then one thread a lane grants:
   // mm_write + 16-bit overflow reinit
   for (int base = 0;;) {
+    if (kTiled) load(0, true);
+    for (int c0 = 0;;) {
 #pragma unroll
-    for (int k = 0; k < WPT; ++k) {
-      const int j = tid + k * nt;
-      if (j >= C) continue;
-      const unsigned long long want = slot_word(t[k]);
-      for (int h = slot_of(t[k]);; h = (h + 1) & (kSlots - 1)) {
-        const unsigned long long sk = slot_key[h];
-        if (sk == want) atomicMin(&slot_way[h], j);
-        if (sk == want || sk == 0) break;
+      for (int k = 0; k < WPT; ++k) {
+        const int j = c0 + tid + k * nt;
+        if (j >= C) continue;
+        const unsigned long long want = slot_word(t[k]);
+        for (int h = slot_of(t[k]);; h = (h + 1) & (kSlots - 1)) {
+          const unsigned long long sk = slot_key[h];
+          if (sk == want) atomicMin(&slot_way[h], j);
+          if (sk == want || sk == 0) break;
+        }
       }
+      c0 += kTile;
+      if (!kTiled || c0 >= C) break;
+      load(c0, true);
     }
     __syncthreads();
     for (int k = tid; k < n; k += nt) {
       const int li = lane_i[k];
       const int way = slot_way[lane_s[k]];
       const bool th = way != INT_MAX;
-      const int memts = th ? mems[way] : 0;
+      const int memts = th ? (kTiled ? mem[way] : mems[way]) : 0;
       const int w = lane_w[k];
       int wts = add32(memts, 1);
       int rts = add32(memts, w);
@@ -327,19 +356,19 @@ __global__ void __launch_bounds__(NT) write_grant_kernel(
   }
 }
 
-template <int WPT, int NT>
+template <int WPT, int NT, bool kTiled = false>
 int launch_write_grant(const int* const* p, const int64_t* ld, void* const* o,
                        int N, int K, int C, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * static_cast<size_t>(C);
+  const size_t smem = kTiled ? 0 : sizeof(int) * static_cast<size_t>(C);
   if (smem > 40 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        write_grant_kernel<WPT, NT>,
+        write_grant_kernel<WPT, NT, kTiled>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  write_grant_kernel<WPT, NT><<<p[3] != nullptr ? K : N, NT, smem,
-                                stream>>>(
+  write_grant_kernel<WPT, NT, kTiled><<<p[3] != nullptr ? K : N, NT, smem,
+                                        stream>>>(
       p[0], ld[0], p[1], ld[1], p[2], ld[2], p[3], p[4], p[5],
       static_cast<bool*>(o[0]), static_cast<int*>(o[1]),
       static_cast<bool*>(o[2]), static_cast<int*>(o[3]),
@@ -387,7 +416,7 @@ extern "C" int halcone_miss_round(
 // Tables [K, C] with row strides; `row` [N] names each lane's table row,
 // or is null for the gathered form (K == N, lane i reads row i).  A row
 // is 256 threads of up to 16 ways each (C <= 4096), or 1024 threads
-// (C <= 16384).
+// (C <= 16384); a longer row is walked in tiles of 16384 ways.
 extern "C" int halcone_write_grant(
     const void* ts_tag, long long ts_tag_ld, const void* ts_mem,
     long long ts_mem_ld, const void* ts_seq, long long ts_seq_ld,
@@ -409,5 +438,5 @@ extern "C" int halcone_write_grant(
   if (C <= 2048) return launch_write_grant<8, 256>(p, ld, o, N, K, C, s);
   if (C <= 4096) return launch_write_grant<16, 256>(p, ld, o, N, K, C, s);
   if (C <= 16384) return launch_write_grant<16, 1024>(p, ld, o, N, K, C, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_write_grant<16, 1024, true>(p, ld, o, N, K, C, s);
 }

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Sequence
 import torch
 
 SOURCES = ("lease_probe", "tier_pass", "rmsnorm", "flash_attention",
-           "flash_attention_wgmma", "decode_attention", "ssd_chunk")
+           "flash_attention_wgmma", "decode_attention", "ssd_chunk",
+           "ssd_chunk_wgmma")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")

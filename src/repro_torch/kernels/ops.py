@@ -59,7 +59,7 @@ def decode_attention(q, k, v, kv_len):
     return _decode(q, k, v, kv_len)
 
 
-def ssd_chunk(x, dt, A, Bc, Cc):
+def ssd_chunk(x, dt, A, Bc, Cc, out_dtype=None):
     if _on_cpu(x):
-        return ref.ssd_chunk_ref(x, dt, A, Bc, Cc)
-    return _ssd_chunk(x, dt, A, Bc, Cc)
+        return ref.ssd_chunk_ref(x, dt, A, Bc, Cc, out_dtype)
+    return _ssd_chunk(x, dt, A, Bc, Cc, out_dtype=out_dtype)

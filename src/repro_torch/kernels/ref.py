@@ -155,7 +155,7 @@ def attention_ref(q, k, v, *, causal=True, window=0, kv_len=None):
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def ssd_chunk_ref(x, dt, A, Bc, Cc):
+def ssd_chunk_ref(x, dt, A, Bc, Cc, out_dtype=None):
     """The SSD intra-chunk step for a batch of chunks — the batched form of
     the reference's one-chunk ``ssd_chunk_ref`` and the signature of its
     Pallas kernel.
@@ -165,8 +165,9 @@ def ssd_chunk_ref(x, dt, A, Bc, Cc):
     ``cum = cumsum(dt*A)``, ``y_i = sum_{j<=i} (C_i.B_j) exp(cum_i -
     cum_j) dt_j x_j`` and ``state = sum_j (B_j dt_j exp(cum_last -
     cum_j))^T x_j``.  Pairs with j > i get ``exp(-inf) = 0``, as in the
-    reference.  Returns (y [B,nc,Q,H,P] in x's dtype, state
-    [B,nc,H,N,P] f32, cum [B,nc,Q,H] f32)."""
+    reference.  Returns (y [B,nc,Q,H,P] in ``out_dtype``, by default x's
+    dtype, as the Pallas kernel; state [B,nc,H,N,P] f32; cum [B,nc,Q,H]
+    f32)."""
     Q = x.shape[2]
     xf, dtf, Bf, Cf = x.float(), dt.float(), Bc.float(), Cc.float()
     cum = torch.cumsum(dtf * A.float(), dim=2)                 # [B,nc,Q,H]
@@ -180,4 +181,4 @@ def ssd_chunk_ref(x, dt, A, Bc, Cc):
     decay_out = torch.exp(cum[:, :, -1:, :] - cum)             # [B,nc,Q,H]
     state = torch.einsum("bcjhn,bcjhp->bchnp",
                          Bf * (dtf * decay_out)[..., None], xf)
-    return y.to(x.dtype), state, cum
+    return y.to(x.dtype if out_dtype is None else out_dtype), state, cum

@@ -27,7 +27,6 @@ _WRITE_ARGS = [cuda.P, cuda.LD] * 3 + [cuda.P] * 10 + [cuda.I] * 3 + [cuda.P]
 _MISS_BOOL = (True, True, False, True, True, False, True, False, False,
               False, False, True, False, False, False, False)
 _WRITE_BOOL = (True, False, True, False, False, False, True)
-GRANT_MAX_WAYS = 16384       # write_grant holds a row in registers
 
 
 def _outs(kinds, N, dev):
@@ -69,7 +68,8 @@ def miss_round(rp_tag, rp_rts, sh_tag, sh_rts, sh_wts, ts_tag, ts_mem,
 
 
 def write_grant(ts_tag, ts_mem, ts_seq, addr, wl, row=None):
-    """Fused write-side TSU math, on the card: one block per table row.
+    """Fused write-side TSU math, on the card: one block per table row,
+    any number of ways C (a row past 16384 ways is walked in tiles).
 
     ts_tag/ts_mem/ts_seq: [K, C] tables with contiguous ways; addr/wl:
     [N]; row: [N] table row of each lane, each in [0, K) (the kernel traps
@@ -82,9 +82,6 @@ def write_grant(ts_tag, ts_mem, ts_seq, addr, wl, row=None):
     K, C, lds = cuda.check_table(
         (("ts_tag", ts_tag), ("ts_mem", ts_mem), ("ts_seq", ts_seq)), row,
         N, dev)
-    if C > GRANT_MAX_WAYS:
-        raise ValueError(f"write_grant: {C} ways, the kernel holds at most "
-                         f"{GRANT_MAX_WAYS} a row")
     cuda.check_vec("addr", addr, N, dev)
     cuda.check_vec("wl", wl, N, dev)
     outs = _outs(_WRITE_BOOL, N, dev)

@@ -7,11 +7,10 @@ The intra-chunk step goes through the kernels' dispatcher
 kernel, on the CPU its plain version.  The inter-chunk scan is a Python
 loop over chunks in f32, as ``tests/test_kernels.py`` composes the
 reference's Pallas kernel with it.  The reference's jnp ``ssd_chunked``
-sums the intra- and inter-chunk parts in f32; the kernel (Pallas and CUDA
-alike) returns the intra-chunk part in x's dtype, and x is in the compute
-dtype, so under a bf16 policy the port rounds that part to bf16 once
-before adding the inter-chunk part: one rounding step, inside the bf16
-tolerance of 2e-2.  Under the f32 policy nothing changes.
+keeps the intra-chunk part in f32, adds the inter-chunk part and rounds
+once; the port asks the kernel for the intra-chunk part in f32
+(``out_dtype``) and does the same, so under a bf16 policy the sum is
+rounded once, where the reference rounds it.
 
 Rounding points follow the reference: the conv window, the ``silu`` input
 cast and the gated-norm input are in the compute dtype, and the state is
@@ -101,7 +100,7 @@ def ssd_chunked(x, dt, A, Bc, Cc, chunk: int, state0=None):
     y_intra, chunk_state, cum = ops.ssd_chunk(
         x.reshape(B, nc, chunk, H, Pd), dt.float().reshape(B, nc, chunk, H),
         A.float(), _heads(Bc.reshape(B, nc, chunk, G, N), H),
-        _heads(Cc.reshape(B, nc, chunk, G, N), H))
+        _heads(Cc.reshape(B, nc, chunk, G, N), H), torch.float32)
     chunk_decay = torch.exp(cum[:, :, -1, :])                   # [B,nc,H]
     state = (torch.zeros((B, H, N, Pd), dtype=torch.float32, device=x.device)
              if state0 is None else state0.float())
@@ -112,7 +111,7 @@ def ssd_chunked(x, dt, A, Bc, Cc, chunk: int, state0=None):
         y_inter = torch.einsum(
             "bqgn,bgknp->bqgkp", Cg[:, c],
             state.reshape(B, G, H // G, N, Pd)).reshape(B, chunk, H, Pd)
-        ys.append(y_intra[:, c].float() + y_inter * decay_in[..., None])
+        ys.append(y_intra[:, c] + y_inter * decay_in[..., None])
         state = state * chunk_decay[:, c][:, :, None, None] + chunk_state[:, c]
     y = torch.stack(ys, 1).reshape(B, S, H, Pd)
     return y.to(x.dtype), state

@@ -126,6 +126,46 @@ def test_cuda_write_grant_equals_plain(cuda_device, N, C, seed):
     assert got[2].any() and not got[2].all()           # full and not full
 
 
+def _wide_grant_inputs(N, C, seed):
+    """Rows past 16384 ways, which the kernel walks in tiles of 16384, with
+    every lane's answer in the last tile.  A row's tags are distinct.
+    Lanes 0::4 hit a tag at ways C - 3 and C - 1 (the first wins); lanes
+    1::4 miss a full row whose least memts is at way C - 2; lanes 2::4
+    miss a row whose one empty way is C - 5; lanes 3::4 miss a full row
+    whose least memts ties on ways 7 and C - 4, with seq 9 and 3."""
+    rng = np.random.default_rng(seed)
+    tag = np.stack([rng.permutation(4 * C)[:C] for _ in range(N)]).astype(
+        np.int32)
+    mem = rng.integers(TS_MAX - 20, TS_MAX, (N, C)).astype(np.int32)
+    seq = rng.integers(0, 64, (N, C)).astype(np.int32)
+    addr = np.full(N, 4 * C + 1, np.int32)
+    tag[0::4, C - 1] = addr[0::4] = tag[0::4, C - 3]
+    mem[1::4, C - 2] = TS_MAX - 100
+    tag[2::4, C - 5] = -1
+    mem[3::4, 7] = mem[3::4, C - 4] = TS_MAX - 100
+    seq[3::4, 7], seq[3::4, C - 4] = 9, 3
+    return [tag, mem, seq], [addr, rng.integers(1, 9, N).astype(np.int32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16385, 20000, 65536])
+def test_cuda_write_grant_past_16384_ways_equals_plain(cuda_device, C):
+    """A row of more ways than the kernel holds in registers is walked in
+    tiles, each reduction carried over: the first matching way, `full`
+    and the victim (empty first, then least memts, least seq, first
+    index) all lie in the last tile here."""
+    rows, vecs = _wide_grant_inputs(16, C, seed=C)
+    args = [_vec(cuda_device, a) for a in rows] + \
+        [_vec(cuda_device, v) for v in vecs]
+    got = write_grant(*args)
+    _assert_equal(got, ref.write_grant_ref(*args))
+    th, way, full = (g.cpu().numpy() for g in got[:3])
+    assert th[0::4].all() and not th[1::4].any()
+    assert (way[0::4] == C - 3).all() and (way[1::4] == C - 2).all()
+    assert (way[2::4] == C - 5).all() and (way[3::4] == C - 4).all()
+    assert full[1::4].all() and not full[2::4].any()
+
+
 def _indexed_grant_inputs(K, N, C, seed):
     """A write round's TSU side: ``[K, 1, C+1]`` tag, memts and seq tables
     (set 0 with the trash way, as the fabric holds them) and the ``[N]``
@@ -630,19 +670,33 @@ def _ssd_inputs(dev, B, nc, Q, H, P, N, dtype, stride0, dt_scale, seed):
     (2, 1, 16, 4, 16, 16, False),       # one chunk of 16 (the smoke configs)
     (2, 3, 64, 4, 32, 16, False),
     (1, 2, 100, 3, 128, 48, True),      # ragged query and key tiles
+    # the tensor-core route in bf16: B/C copied per head, a ragged chunk,
+    # one chunk, P = 128 and N = 128
+    (8, 2, 256, 24, 64, 128, False),
+    (2, 2, 200, 4, 64, 64, True),
+    (8, 1, 16, 24, 64, 128, False),
+    (2, 2, 256, 4, 128, 128, True),
+    (2, 1, 130, 4, 128, 64, False),
+    (1, 1, 512, 2, 64, 64, True),       # four query blocks, eight key tiles
+    (1, 1, 1024, 2, 64, 128, False),    # the longest chunk the kernels take
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ssd_chunk_equals_plain(exact_f32, B, nc, Q, H, P, N, stride0,
                                      dtype):
     """dt of 0.1 softplus(normal) makes cum span about -50 over a chunk
-    of 256; y and state within ``FLOAT_TOL``, cum within 1e-5."""
-    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    of 256; y and state within ``FLOAT_TOL``, cum within 1e-5; each call
+    takes the kernel ``route`` names."""
+    from repro_torch.kernels.ssd_chunk import route, ssd_chunk
     args = _ssd_inputs(exact_f32, B, nc, Q, H, P, N, dtype, stride0, 0.1,
                        Q + N)
-    before = ssd_chunk.launches
+    path = route(dtype, P, N)
+    before = ssd_chunk.launches, ssd_chunk.route_launches[path]
     y, st, cum = ssd_chunk(*args)
     yr, sr, cr = ref.ssd_chunk_ref(*args)
-    assert ssd_chunk.launches == before + 1
+    assert (ssd_chunk.launches, ssd_chunk.route_launches[path]) == \
+        (before[0] + 1, before[1] + 1)
+    assert path == ("wgmma" if dtype == torch.bfloat16 and P >= 64
+                    and N in (64, 128) else "simt")
     for t in (y, st, cum):
         assert torch.isfinite(t).all()
     _close(y, yr)
@@ -652,14 +706,41 @@ def test_cuda_ssd_chunk_equals_plain(exact_f32, B, nc, Q, H, P, N, stride0,
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_chunk_never_weighs_masked_pairs(exact_f32):
-    """dt wide enough that cum spans thousands: exp(cum_i - cum_j) is inf
-    for j > i, so masking those pairs with a 0 would give NaN; the kernel
-    skips them.  Its cum is the plain version's bit for bit (the same
-    products summed in the same order), so the tolerances hold here too."""
+@pytest.mark.parametrize("B,nc,Q,H,P,N,path", [
+    (8, 2, 256, 24, 64, 128, "wgmma"), (8, 2, 256, 24, 64, 128, "simt"),
+    (8, 2, 256, 64, 64, 64, "wgmma"), (8, 2, 256, 64, 64, 64, "simt"),
+    (2, 1, 100, 3, 32, 16, "simt")])
+def test_cuda_ssd_chunk_f32_output_equals_plain(exact_f32, B, nc, Q, H, P, N,
+                                                path):
+    """bf16 inputs with y asked in f32 (the model's call): both kernels
+    against the plain version's f32 y within the bf16 inputs' tolerance;
+    the default output is that y rounded to bf16."""
     from repro_torch.kernels.ssd_chunk import ssd_chunk
-    args = _ssd_inputs(exact_f32, 2, 2, 256, 4, 64, 64, torch.float32, True,
-                       4.0, 7)
+    args = _ssd_inputs(exact_f32, B, nc, Q, H, P, N, torch.bfloat16, True,
+                       0.1, Q + N)
+    y, st, cum = ssd_chunk(*args, out_dtype=torch.float32, path=path)
+    yr, sr, cr = ref.ssd_chunk_ref(*args, torch.float32)
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+    torch.testing.assert_close(y, yr, **FLOAT_TOL[torch.bfloat16])
+    torch.testing.assert_close(st, sr, **FLOAT_TOL[torch.bfloat16])
+    assert torch.equal(cum, cr)
+    y16, st16, _ = ssd_chunk(*args, path=path)
+    assert torch.equal(y16, y.to(torch.bfloat16)) and torch.equal(st16, st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,P,N", [(torch.float32, 64, 64),
+                                       (torch.bfloat16, 64, 64),
+                                       (torch.bfloat16, 64, 128)])
+def test_cuda_ssd_chunk_never_weighs_masked_pairs(exact_f32, dtype, P, N):
+    """dt wide enough that cum spans thousands: exp(cum_i - cum_j) is inf
+    for j > i, so masking those pairs with a 0 would give NaN; both
+    kernels set them to 0 instead (the CUDA-core one skips them, the
+    tensor-core one selects).  Its cum is the plain version's bit for bit
+    (the same products summed in the same order), so the tolerances hold
+    here too."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    args = _ssd_inputs(exact_f32, 2, 2, 256, 4, P, N, dtype, True, 4.0, 7)
     y, st, cum = ssd_chunk(*args)
     yr, sr, cr = ref.ssd_chunk_ref(*args)
     assert float(cum.min()) < -200
@@ -667,7 +748,41 @@ def test_cuda_ssd_chunk_never_weighs_masked_pairs(exact_f32):
         assert torch.isfinite(t).all()
     assert torch.equal(cum, cr)
     _close(y, yr)
-    torch.testing.assert_close(st, sr, **FLOAT_TOL[torch.float32])
+    torch.testing.assert_close(st, sr, **FLOAT_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+    (2, 2, 256, 4, 64, 128), (1, 2, 256, 8, 64, 64), (1, 1, 200, 4, 128, 64),
+    (2, 1, 100, 2, 128, 128), (1, 1, 16, 2, 64, 64)])
+def test_cuda_ssd_wgmma_keeps_split_w(cuda_device, B, nc, Q, H, P, N):
+    """The tensor-core kernel against the CPU emulation of its arithmetic
+    (``ssd_emulation.py``) on the same bf16 inputs, y and state in f32.
+    With W and w x split into bf16 hi and lo halves the kernel is the
+    split emulation within rtol = atol = 5e-4 (ex2's approximation and
+    the tensor cores' order of summation; the CPU emulation is within
+    8e-5 of the Pallas kernel), and its error against the function in f64
+    is at least 16x below that of one bf16 rounding of W and w x (the
+    emulation's is 477-741x below on the CPU)."""
+    from ssd_emulation import emulate_kernel, exact_ssd
+
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    args = _ssd_inputs(torch.device("cpu"), B, nc, Q, H, P, N,
+                       torch.bfloat16, True, 0.1, Q + P + N)
+    before = ssd_chunk.route_launches["wgmma"]
+    got = [t.cpu() for t in ssd_chunk(*(t.to(cuda_device) for t in args),
+                                      out_dtype=torch.float32)]
+    assert ssd_chunk.route_launches["wgmma"] == before + 1
+    split = emulate_kernel(*args)
+    one = emulate_kernel(*args, split=False)
+    exact = exact_ssd(*args)
+    # the kernel's cum is torch's cumsum on the card bit for bit (above);
+    # on the CPU torch sums an f32 cumsum in f64, so here within 1e-5
+    torch.testing.assert_close(got[2], split[2], rtol=1e-5, atol=1e-5)
+    for g, s, o, e in zip(got, split, one, exact):
+        torch.testing.assert_close(g, s, rtol=5e-4, atol=5e-4)
+        err = lambda t: float((t.double() - e).abs().max())
+        assert err(g) * 16 < err(o), (err(g), err(s), err(o))
 
 
 @pytest.mark.cuda
@@ -687,6 +802,20 @@ def test_cuda_ssd_chunk_checks_its_inputs(cuda_device):
         ssd_chunk(x, dt, A, Bc.transpose(3, 4), Cc)
     with pytest.raises(ValueError, match="CUDA tensor"):
         ssd_chunk(x, dt.cpu(), A, Bc, Cc)
+    with pytest.raises(TypeError, match="y in"):
+        ssd_chunk(x, dt, A, Bc, Cc, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        ssd_chunk(x, dt, A, Bc, Cc, path="wgmma")
+    # the tensor-core route raises on a view TMA cannot read; it never
+    # falls back to the CUDA-core kernel
+    xb, dtb, Ab, Bb, Cb = _ssd_inputs(cuda_device, 1, 1, 16, 2, 64, 64,
+                                      torch.bfloat16, True, 0.1, 0)
+    wide = torch.zeros(1, 1, 16, 2, 68, dtype=torch.bfloat16,
+                       device=cuda_device)
+    before = dict(ssd_chunk.route_launches)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ssd_chunk(wide[..., :64], dtb, Ab, Bb, Cb)
+    assert ssd_chunk.route_launches == before
 
 
 @pytest.mark.cuda

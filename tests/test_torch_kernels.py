@@ -217,6 +217,36 @@ def test_write_grant_ref_matches_pallas(N, C, seed):
     assert got[2].numpy()[::7].sum() == 0       # empty rows are not full
 
 
+def test_write_grant_ref_past_16384_ways_matches_pallas():
+    """A TSU row of C = 20000 ways, past the 16384 the CUDA kernel holds
+    in registers (it walks such rows in tiles): the plain version equals
+    the Pallas kernel with the matching way and the victim in the last
+    tile.  Lanes 0::4 hit a tag at ways C - 3 and C - 1 (the first
+    wins); lanes 1::4 miss a full row whose least memts is at C - 2;
+    lanes 2::4 miss a row whose one empty way is C - 5; lanes 3::4 miss a
+    full row whose least memts ties on ways 7 and C - 4 (seq 9 and 3)."""
+    N, C = 8, 20000
+    rng = np.random.default_rng(20000)
+    tag = np.stack([rng.permutation(4 * C)[:C] for _ in range(N)]).astype(
+        np.int32)
+    mem = rng.integers(65515, 65535, (N, C)).astype(np.int32)
+    seq = rng.integers(0, 64, (N, C)).astype(np.int32)
+    addr = np.full(N, 4 * C + 1, np.int32)
+    tag[0::4, C - 1] = addr[0::4] = tag[0::4, C - 3]
+    mem[1::4, C - 2] = 65435
+    tag[2::4, C - 5] = -1
+    mem[3::4, 7] = mem[3::4, C - 4] = 65435
+    seq[3::4, 7], seq[3::4, C - 4] = 9, 3
+    ins = (tag, mem, seq, addr, rng.integers(1, 9, N).astype(np.int32))
+    got = ref.write_grant_ref(*map(_t, ins))
+    want = pallas_write_grant(*map(jnp.asarray, ins), interpret=True)
+    _assert_outs_equal(got, want, _GRANT_OUTS)
+    th, way, full = (g.numpy() for g in got[:3])
+    assert th[0::4].all() and not th[1::4].any()
+    np.testing.assert_array_equal(way, [C - 3, C - 2, C - 5, C - 4] * 2)
+    assert full[1::4].all() and not full[2::4].any()
+
+
 @pytest.mark.parametrize("K,N,C,seed", [(8, 16, 16, 0), (8, 64, 64, 1),
                                          (8, 64, 1024, 2), (8, 16, 8, 3)])
 def test_write_grant_ref_indexed_matches_pallas(K, N, C, seed):

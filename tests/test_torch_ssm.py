@@ -10,9 +10,14 @@ runs in interpret mode.  Tolerances, with their reasons:
   order (einsum vs matmul, cumsum, ``exp`` from two libraries);
 - ``CUM`` (rtol = atol = 1e-5): ``cum`` is one f32 cumsum on both sides;
 - ``BF16`` (rtol = atol = 2e-2): bf16 keeps 8 significant bits, and a
-  value may round differently on the two sides; in the model the port
-  also rounds the intra-chunk output to bf16 once (the kernel's contract)
-  where the reference's jnp ``ssd_chunked`` keeps it in f32.
+  value may round differently on the two sides.  In the model the port
+  keeps the intra-chunk output in f32, as the reference's jnp
+  ``ssd_chunked`` does, and rounds once after adding the inter-chunk
+  part; ``BF16_MODEL_REL_L2`` pins the bf16 models' relative L2 at what
+  that gives, with a margin of about 10%: mamba2 0.01155 / 0.01575 (forward /
+  after three decode steps), zamba2 0.00741 / 0.00804, where rounding
+  the intra-chunk part to bf16 first gave 0.01175 / 0.01607 and
+  0.01278 / 0.01128.
 
 The CUDA kernel is held to the plain version on the card in
 ``tests/test_torch_cuda.py``.
@@ -51,6 +56,10 @@ BF16 = dict(rtol=2e-2, atol=2e-2)
 DTYPES = {"f32": (jnp.float32, torch.float32, F32),
           "bf16": (jnp.bfloat16, torch.bfloat16, BF16)}
 ARCHS = ["mamba2-130m", "zamba2-1.2b"]
+# bf16 port vs reference, relative L2 of the forward's and of the last
+# decode step's hidden states (measured values + 10%; see the docstring)
+BF16_MODEL_REL_L2 = {"mamba2-130m": (0.0127, 0.0173),
+                     "zamba2-1.2b": (0.0082, 0.0089)}
 
 
 def _np(t):
@@ -148,6 +157,27 @@ def test_ssd_chunk_ref_matches_pallas_and_reference(B, nc, Q, H, P, N, dt,
                 np.testing.assert_allclose(_np(st[b, c, h]), _np(sr), **tol)
                 np.testing.assert_allclose(_np(cum[b, c, :, h]), _np(cr),
                                            **CUM)
+
+
+@pytest.mark.parametrize("stride0", [False, True])
+def test_ssd_chunk_ref_out_dtype_f32(stride0):
+    """``out_dtype=torch.float32`` returns the intra-chunk output before
+    its rounding: the Pallas kernel's on the same values in f32, and the
+    default bf16 output once rounded."""
+    x, dtv, A, Bc, Cc = _ssd_inputs(2, 2, 64, 4, 32, 32, seed=3)
+    xj, xt = _pair(x, "bf16")
+    Bj, Bt = _broadcast_pair(Bc, 4, "bf16", stride0)
+    Cj, Ct = _broadcast_pair(Cc, 4, "bf16", stride0)
+    args = (xt, torch.from_numpy(dtv), torch.from_numpy(A), Bt, Ct)
+    y32, st, _ = ops.ssd_chunk(*args, torch.float32)
+    y, st16, _ = ref.ssd_chunk_ref(*args)
+    assert y32.dtype == torch.float32 and y.dtype == torch.bfloat16
+    assert torch.equal(y32.to(torch.bfloat16), y) and torch.equal(st, st16)
+    f = lambda a: jnp.asarray(np.asarray(a, np.float32))
+    yp, sp, _ = pallas_ssd_chunk(f(xj), jnp.asarray(dtv), jnp.asarray(A),
+                                 f(Bj), f(Cj), interpret=True)
+    np.testing.assert_allclose(_np(y32), _np(yp), **F32)
+    np.testing.assert_allclose(_np(st), _np(sp), **F32)
 
 
 def test_ssd_chunk_ref_wide_dt_stays_finite():
@@ -356,7 +386,8 @@ def test_forward_prefill_decode_match_reference(arch, dt):
     """forward, prefill (two chunks) and three decode steps on carried-over
     weights.  Under the f32 policy hidden states and caches agree within
     ``F32`` and every greedy token is equal; in bf16 the hidden states
-    agree within a relative L2 of 2e-2."""
+    agree within a relative L2 of 2e-2, and within ``BF16_MODEL_REL_L2``,
+    which the intra-chunk part kept in f32 gives."""
     rc, tc, rp, tp = _models(arch, dt)
     rng = np.random.default_rng(2)
     B, S, T = 2, 32, 40
@@ -368,6 +399,7 @@ def test_forward_prefill_decode_match_reference(arch, dt):
         np.testing.assert_allclose(_np(ht), _np(hr), **F32)
     else:
         assert _rel_l2(ht, hr) <= 2e-2
+        assert _rel_l2(ht, hr) <= BF16_MODEL_REL_L2[arch][0]
     nr, cr = rmodel.prefill(rc, rp, tj, rmodel.init_cache(rc, B, T))
     nt, ct = tmodel.prefill(tc, tp, tt, tmodel.init_cache(tc, B, T, "cpu"))
     assert nt.dtype == torch.int32 and nt.shape == (B,)
@@ -390,6 +422,7 @@ def test_forward_prefill_decode_match_reference(arch, dt):
         np.testing.assert_allclose(_np(h_t), _np(h_r), **F32)
     else:
         assert _rel_l2(h_t, h_r) <= 2e-2
+        assert _rel_l2(h_t, h_r) <= BF16_MODEL_REL_L2[arch][1]
 
 
 def test_cast_params_keeps_ssm_vectors_in_f32():
