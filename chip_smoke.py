@@ -12,11 +12,16 @@ Phases (any failure raises and the script exits non-zero):
      CUDA-event timings and each kernel's bound.  The coherence kernels
      at the main path's shapes, on seeded inputs with duplicate tags,
      empty ways, full and partly-full TSU rows and clocks near ``TS_MAX``
-     — exact equality on every output; ``write_grant`` in its gathered
-     form (256 rows, and 16 rows of 20000 ways, walked in tiles) and at
-     the write pass's (the 8 shard rows read in place by 16 or 64 lanes),
-     beside the three gathers plus gathered launch that the pass made
-     before.  The float kernels (rmsnorm at
+     — exact equality on every output; each in the indexed form its
+     caller uses, the tier tables read in place at each lane's row
+     (``lease_probe`` on a replica's 1024 sets at N = 1, 64, 4096 lanes;
+     ``miss_round`` on the 8 TSU rows of 1024 ways with 32, 64 and 8192
+     lanes, the counts phase 3 launches, and on rows of 20000 ways;
+     ``write_grant`` on the 8 shard rows with 16 or 64 lanes), beside the
+     call it replaced (the gathers plus the gathered launch, which must
+     agree), and in the gathered form (``miss_round`` and ``write_grant``
+     at 256 rows, ``write_grant`` at 16 rows of 20000 ways, walked in
+     tiles).  The float kernels (rmsnorm at
      decode and prefill rows of every width the models normalise, flash
      attention, decode attention) at the LLM serving path's shapes and at
      odd ones, in bf16 and in f32, within stated tolerances, with the
@@ -40,7 +45,9 @@ Phases (any failure raises and the script exits non-zero):
      served result, the grant log, all counters, every key's ``memts`` and
      the whole fabric state; the kernels' launch counts of the card run
      must all be > 0, ``write_grant``'s equal to the write and fence
-     passes' rounds (one launch a round); then a closed-loop and an
+     passes' rounds (one launch a round); ``lease_probe``'s launches by
+     call site and ``miss_round``'s by lane count are logged; then a
+     closed-loop and an
      open-loop replay on the card with the wall clock (requests/s,
      p50/p99);
   4. the LLM serving path at full width: ``runtime.server.Server`` with
@@ -70,9 +77,12 @@ Phases (any failure raises and the script exits non-zero):
      must run every ``ssd_chunk`` on the tensor-core route; both report
      its device time in a prefill and the card-vs-CPU relative L2 after
      each layer of the checked model, with the card's ``ssd_chunk`` on
-     the tensor-core kernel, on the CUDA-core kernels, and on those with
-     y rounded to bf16 before the inter-chunk part (the earlier
-     arithmetic);
+     the tensor-core kernel (with cuBLAS's reduced-precision bf16
+     reductions allowed, PyTorch's default, and refused), on the
+     CUDA-core kernels, and on those with y rounded to bf16 before the
+     inter-chunk part (the earlier arithmetic); then the second SSM
+     block split into its steps, each step's card-vs-CPU error from the
+     same input and chained from the same block input (F2);
   6. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
@@ -87,6 +97,8 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import json
 import os
 import pathlib
@@ -197,59 +209,102 @@ def _first(tags, addr):
     return np.where(eq.any(1), eq.argmax(1), -1)
 
 
-def probe_case(rng, N, W):
-    """lease_probe inputs: gathered set rows WITH the trash way (the
-    kernel gets the strided [:, :-1] view, as the fabric passes it)."""
+def probe_case(rng, K, N, W):
+    """lease_probe at the fast read's shape: two replicas' ``[2, K, W+1]``
+    tag and rts tables (every set WITH its trash way: the kernel reads
+    replica 1's ``[:, :-1]`` view in place), duplicate tags, empty sets,
+    each lane's set ``row`` (lanes share sets), hits on about half,
+    clocks within a lease of ``TS_MAX``, one clock per replica."""
     import numpy as np
-    tag = rng.integers(-1, 12, (N, W + 1)).astype(np.int32)
-    tag[::3, 1 % W] = tag[::3, 0]                  # duplicate tags
-    tag[1::5] = -1                                 # empty set rows
-    rts = rng.integers(65500, 65535, (N, W + 1)).astype(np.int32)
-    cts = rng.integers(65500, 65535, N).astype(np.int32)
-    addr = rng.integers(0, 12, N).astype(np.int32)
-    mwts = rng.integers(65520, 65535, N).astype(np.int32)
-    mrts = (mwts + rng.integers(1, 9, N)).astype(np.int32)
-    return tag, rts, cts, addr, mwts, mrts
+    tag = rng.integers(-1, 4 * W, (2, K, W + 1)).astype(np.int32)
+    tag[:, ::3, 1 % W] = tag[:, ::3, 0]            # duplicate tags
+    tag[:, 1::5] = -1                              # empty sets
+    rts = rng.integers(65500, 65535, (2, K, W + 1)).astype(np.int32)
+    row = rng.integers(0, K, N).astype(np.int32)
+    addr = rng.integers(0, 4 * W, N).astype(np.int32)
+    hit = rng.random(N) < 0.5
+    addr[hit] = tag[1, row[hit], rng.integers(0, W, N)[hit]]
+    addr[addr == -1] = 4 * W
+    cts = rng.integers(65500, 65535, 2).astype(np.int32)
+    return tag, rts, row, cts, addr
 
 
-def probe_bound(tag, addr):
-    N, W1 = tag.shape
-    W = W1 - 1
-    f = _first(tag[:, :-1], addr)
-    scanned = int((f + 1).sum() + (f < 0).sum() * W)
-    nbytes = 4 * scanned + 4 * int((f >= 0).sum()) + 16 * N + 22 * N
-    ops = scanned + 8 * N
-    return nbytes, ops
+def _scanned(tags, addr):
+    """Ways read up to each lane's first match (all of them on a miss) in
+    ``[N, W]`` rows, and the number of lanes that match."""
+    f = _first(tags, addr)
+    return int((f + 1).sum() + (f < 0).sum() * tags.shape[1]), \
+        int((f >= 0).sum())
 
 
-def miss_case(rng, N, W1, W2, C):
+def probe_bound(tags, addr):
+    """The indexed form: per lane its set's tags up to the first match,
+    the rts of a hit, its address and row and the outputs (5 int32 + 2
+    bool), and the one clock; operations, the compares and 8 a lane."""
+    N = len(addr)
+    scanned, hits = _scanned(tags, addr)
+    return 4 * scanned + 4 * hits + 30 * N + 4, scanned + 8 * N
+
+
+def miss_case(rng, M, C, K1=1024, K2=2048, KT=8, W=8, match_at=None):
+    """miss_round at the miss pass's shape: two replicas' ``[2, K1, W+1]``
+    tag and rts sets, two nodes' ``[2, K2, W+1]`` tag, rts and wts sets,
+    the TSU's ``[KT, 1, C+1]`` tag and memts (the kernel reads replica and
+    node 1's ``[:, :-1]`` views and the TSU's ``[:, 0, :-1]`` in place),
+    one clock per replica and node, and M lanes naming their rows: a
+    quarter inactive on shard 0, as the pass pads; TSU row 1 empty, row 0
+    with duplicate tags; hits on about half (at way ``match_at`` and
+    nowhere else if given), some also in the replica or shared set; TSU
+    clocks within rd = 8 of ``TS_MAX``."""
     import numpy as np
     r = lambda lo, hi, shp: rng.integers(lo, hi, shp).astype(np.int32)
-    rp_tag, sh_tag, ts_tag = r(-1, 40, (N, W1 + 1)), r(-1, 40, (N, W2 + 1)), \
-        r(-1, 4000, (N, C + 1))
-    rp_tag[::4, 1] = rp_tag[::4, 0]                # duplicate tags
-    addr = r(0, 40, N)
-    ts_tag[::2, 7] = addr[::2]                     # TSU hits on half the lanes
-    ts_tag[1::6, :] = -1                           # empty TSU rows
-    ts_mem = r(65520, 65535, (N, C + 1))           # clocks within rd of TS_MAX
-    return ([rp_tag, r(0, 40, (N, W1 + 1)), sh_tag, r(0, 40, (N, W2 + 1)),
-             r(0, 40, (N, W2 + 1)), ts_tag, ts_mem],
-            [r(0, 40, N), r(0, 40, N), addr, r(0, 2, N),
-             np.full(N, 8, np.int32)])
+    rp_tag, sh_tag = r(-1, 8 * C, (2, K1, W + 1)), r(-1, 8 * C, (2, K2, W + 1))
+    ts_tag = r(0, 8 * C, (KT, 1, C + 1))
+    ts_tag[:, 0, 3::7] = -1                        # partly full rows
+    ts_tag[0, 0, 1:C:2] = ts_tag[0, 0, 0:C - 1:2]  # duplicate tags
+    ts_tag[1] = -1                                 # an empty row
+    s1, s2, shard = r(0, K1, M), r(0, K2, M), r(0, KT, M)
+    act = rng.random(M) < 0.75
+    shard[~act] = 0
+    addr = r(0, 8 * C, M)
+    hit = (rng.random(M) < 0.5) & (shard != 1)
+    way = np.full(M, match_at) if match_at is not None else \
+        rng.integers(0, C, M)
+    if match_at is not None:        # no tag equals an address elsewhere
+        ts_tag[ts_tag >= 0] += 8 * C
+    ts_tag[shard[hit], 0, way[hit]] = addr[hit]
+    for tag, s in ((rp_tag, s1), (sh_tag, s2)):
+        put = rng.random(M) < 0.3
+        tag[1, s[put], rng.integers(0, W, M)[put]] = addr[put]
+    tables = [rp_tag, r(65515, 65535, (2, K1, W + 1)), sh_tag,
+              r(65515, 65535, (2, K2, W + 1)), r(65505, 65515, (2, K2, W + 1)),
+              ts_tag, r(65523, 65536, (KT, 1, C + 1))]
+    return tables, [s1, s2, shard], [r(65515, 65535, 2), r(65515, 65535, 2),
+                                     addr, act]
 
 
-def miss_bound(rows, vecs):
-    N = vecs[0].shape[0]
-    addr = vecs[2]
-    nbytes, ops = 20 * N + 46 * N, 30 * N
-    for tags, vals in ((rows[0], (rows[1],)), (rows[2], rows[3:5]),
-                       (rows[5], (rows[6],))):
-        W = tags.shape[1] - 1
-        f = _first(tags[:, :-1], addr)
-        scanned = int((f + 1).sum() + (f < 0).sum() * W)
-        nbytes += 4 * scanned + 4 * len(vals) * int((f >= 0).sum())
+def miss_bound(tables, rows, addr, indexed):
+    """Bytes: each distinct TSU row named once (its C tags), per lane its
+    replica and shared set's tags up to the first match, the clocks of
+    the matched ways, the memts of a TSU hit, its address, act and row
+    indexes (indexed) or five int32 vectors (gathered), the two clocks
+    once (indexed) and the 16 outputs (10 int32 + 6 bool).  Operations:
+    a compare a way of each distinct row, the compares of the set scans
+    and 30 a lane."""
+    import numpy as np
+    rp_tag, sh_tag, ts_tag = tables[0], tables[2], tables[5]
+    s1, s2, shard = rows
+    N, C = len(addr), ts_tag.shape[2] - 1
+    distinct = len(np.unique(shard)) if indexed else N
+    nbytes, ops = 4 * C * distinct, C * distinct + 30 * N
+    for tags, s, vals in ((rp_tag[1, :, :-1], s1, 1),
+                          (sh_tag[1, :, :-1], s2, 2)):
+        scanned, hits = _scanned(tags[s], addr)
+        nbytes += 4 * scanned + 4 * vals * hits
         ops += scanned
-    return nbytes, ops
+    nbytes += 4 * _scanned(ts_tag[shard, 0, :-1], addr)[1]
+    nbytes += (17 * N + 8) if indexed else 20 * N
+    return nbytes + 46 * N, ops
 
 
 def grant_case(rng, K, C):
@@ -306,6 +361,9 @@ def check_kernels(torch, np, dev, report):
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def compare(name, kern, plain, args, bound, shape, gathered=None):
+        """``gathered``, when given, is the call path the kernel's caller
+        made before (the gathers plus the gathered launch): it must give
+        the same outputs, and is timed beside."""
         got = kern(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -316,6 +374,10 @@ def check_kernels(torch, np, dev, report):
                 raise AssertionError(f"{name}{shape}: output {i} differs "
                                      "from the plain version")
             err = max(err, int((g.long() - w.long()).abs().max()))
+        if gathered is not None and not all(
+                torch.equal(g, w) for g, w in zip(got, gathered())):
+            raise AssertionError(f"{name}{shape}: the old call path "
+                                 "differs")
         ms = device_ms(torch, lambda: kern(*args))
         plain_ms = device_ms(torch, lambda: plain(*args))
         nbytes, ops = bound
@@ -327,22 +389,74 @@ def check_kernels(torch, np, dev, report):
         more = ""
         if gathered is not None:
             row["gathered_ms"] = device_ms(torch, gathered)
-            more = f", gathered {row['gathered_ms'] * 1e3:.2f} us"
+            more = (f", old call path (gathers + gathered launch) "
+                    f"{row['gathered_ms'] * 1e3:.2f} us")
         report.setdefault(name, []).append(row)
         log(f"  {name}{shape}: exact; kernel {ms * 1e3:.2f} us, plain "
             f"{plain_ms * 1e3:.2f} us{more}, bound "
             f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']})")
 
+    # lease_probe as the fast read calls it: replica 1's 1024 sets read in
+    # place at each lane's row, its one clock, no grant; beside it the
+    # call it replaced (a fill of the replica index, a zero grant, the two
+    # [N, W+1] set-row gathers and the clock gather, then the gathered
+    # launch)
     for N in (1, 64, 4096):
         for W in (2, 8):
-            tag, rts, *vecs = probe_case(rng, N, W)
-            args = (T(tag)[:, :-1], T(rts)[:, :-1], *map(T, vecs))
-            compare("lease_probe", lease_probe, ref.lease_probe_ref, args,
-                    probe_bound(tag, vecs[1]), [N, W])
-    rows, vecs = miss_case(rng, 256, 8, 8, 1024)
+            tag, rts, row, cts, addr = probe_case(rng, 1024, N, W)
+            tt, rt, ct, at, rowt = map(T, (tag, rts, cts, addr, row))
+
+            def old(N=N, tt=tt, rt=rt, ct=ct, at=at, rowt=rowt):
+                reps = torch.full((N,), 1, dtype=torch.int32, device=dev)
+                z = torch.zeros((N,), dtype=torch.int32, device=dev)
+                return lease_probe(tt[reps, rowt][..., :-1],
+                                   rt[reps, rowt][..., :-1], ct[reps], at,
+                                   z, z)
+            compare("lease_probe", functools.partial(lease_probe, row=rowt),
+                    functools.partial(ref.lease_probe_ref, row=rowt),
+                    (tt[1][:, :-1], rt[1][:, :-1], ct[1:2], at),
+                    probe_bound(tag[1, row, :-1], addr), [N, W], old)
+    # miss_round as the miss pass calls it: replica 1's and node 1's sets
+    # and the 8 TSU rows read in place, M lanes naming them (the lane
+    # counts phase 3's replay launches: 32 and 64 a round, 8192 in the
+    # warm-up read), beside the round's old call (seven set-row gathers,
+    # two clock gathers, act cast, rd filled, the gathered launch); the
+    # gathered form at 256 lanes; TSU rows of 20000 ways, hits in the last
+    # tile
+    rd = 8
+    for M, C, match_at in ((32, 1024, None), (64, 1024, None),
+                           (8192, 1024, None), (64, 20000, 19997)):
+        tables, rows, vecs = miss_case(rng, M, C, match_at=match_at)
+        full = [T(a) for a in tables]
+        rowt = tuple(map(T, rows))
+        c1, c2, at, act = map(T, vecs)
+        views = [t[1][:, :-1] for t in full[:5]] + \
+            [t[:, 0, :-1] for t in full[5:]]
+        reps = torch.full((M,), 1, dtype=torch.int32, device=dev)
+
+        def old(M=M, full=full, rowt=rowt, c1=c1, c2=c2, at=at, act=act,
+                reps=reps):
+            s1, s2, sh = rowt
+            return miss_round(
+                *(t[reps, s1][:, :-1] for t in full[:2]),
+                *(t[reps, s2][:, :-1] for t in full[2:5]),
+                *(t[sh, 0][:, :-1] for t in full[5:]), c1[reps], c2[reps],
+                at, act.to(torch.int32),
+                torch.full((M,), rd, dtype=torch.int32, device=dev))
+        compare("miss_round", functools.partial(miss_round, rows=rowt),
+                functools.partial(ref.miss_round_ref, rows=rowt),
+                views + [c1[1:2], c2[1:2], at, act, rd],
+                miss_bound(tables, rows, vecs[2], True), [8, M, C], old)
+    tables, rows, vecs = miss_case(rng, 256, 1024)
+    g = [t[1, s, :-1] for t, s in zip(tables[:5], rows[:1] * 2 + rows[1:2] * 3)]
+    g += [t[rows[2], 0, :-1] for t in tables[5:]]
+    N = 256
     compare("miss_round", miss_round, ref.miss_round_ref,
-            [T(a)[:, :-1] for a in rows] + [T(v) for v in vecs],
-            miss_bound(rows, vecs), [256, 8, 8, 1024])
+            [T(a) for a in g] + [T(np.full(N, vecs[0][1], np.int32)),
+                                 T(np.full(N, vecs[1][1], np.int32)),
+                                 T(vecs[2]), T(vecs[3].astype(np.int32)),
+                                 T(np.full(N, rd, np.int32))],
+            miss_bound(tables, rows, vecs[2], False), [N, 8, 8, 1024])
     # gathered form: 256 lanes, each on its own row (lane i reads row i)
     tables = grant_case(rng, 256, 1024)
     lanes = np.arange(256, dtype=np.int32)
@@ -681,7 +795,72 @@ def count_rounds(fab):
     return n
 
 
-def replay_modeled(device, trace):
+class CallSites:
+    """Phase 3's kernel calls by call site, while it is entered: each
+    ``lease_probe`` call on the card under the innermost of the fast read
+    (``arrays._fast_read``), the op scan's read, write, publish and
+    ``drain1`` (a posted write's drain, run by a write or a fence), and
+    each ``miss_round`` call's lane count.  Counts only: nothing waits for
+    the card."""
+
+    SITES = (("fast read", None, "_fast_read"), ("read", "_OpScan", "read"),
+             ("write", "_OpScan", "write"),
+             ("publish", "_OpScan", "mm_write"),
+             ("drain1", "_OpScan", "drain1"))
+
+    def __init__(self):
+        self.probe = collections.Counter()
+        self.miss_lanes = collections.Counter()
+        self._stack, self._undo = [], []
+
+    def __enter__(self):
+        from repro_torch.coherence.fabric import arrays
+        from repro_torch.kernels import ops
+
+        def patch(owner, attr, new):
+            self._undo.append((owner, attr, getattr(owner, attr)))
+            setattr(owner, attr, new)
+
+        def enter(site, fn):
+            def wrapped(*a, **kw):
+                self._stack.append(site)
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self._stack.pop()
+            return wrapped
+
+        for site, cls, attr in self.SITES:
+            owner = arrays if cls is None else getattr(arrays, cls)
+            patch(owner, attr, enter(site, getattr(owner, attr)))
+        probe, miss = ops._lease_probe, ops._miss_round
+
+        def probe_at(*a, **kw):
+            if a[3].shape[0]:                            # addr: [N]
+                self.probe[self._stack[-1] if self._stack else "other"] += 1
+            return probe(*a, **kw)
+
+        def miss_at(*a, **kw):
+            if a[9].shape[0]:                            # addr: [M]
+                self.miss_lanes[a[9].shape[0]] += 1
+            return miss(*a, **kw)
+
+        patch(ops, "_lease_probe", probe_at)
+        patch(ops, "_miss_round", miss_at)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, old in reversed(self._undo):
+            setattr(owner, attr, old)
+        self._undo.clear()
+
+    def report(self):
+        return {"lease_probe_by_site": dict(self.probe),
+                "miss_round_lanes": {str(k): v for k, v in
+                                     sorted(self.miss_lanes.items())}}
+
+
+def replay_modeled(device, trace, sites=None):
     """Warm a fresh fabric on ``device`` and replay ``trace`` with the
     deterministic service model; also returns the write and fence passes'
     round counts."""
@@ -689,17 +868,19 @@ def replay_modeled(device, trace):
     fab = build_fabric(device)
     rounds = count_rounds(fab)
     serving = Serving(fab)
-    t0 = time.perf_counter()
-    warm(serving)
-    t1 = time.perf_counter()
-    wave = service_model(MAX_BATCH)
-    pol = scheduler.BatchPolicy(mode="continuous", max_batch=MAX_BATCH,
-                                min_bucket=8, max_wait_s=1.5 * wave)
-    tr = trace.scaled(0.7 * (MAX_BATCH / wave) / trace.offered_rps)
-    res = scheduler.replay(serving, tr, pol, republish_every=REPUBLISH_EVERY,
-                           republish_n=REPUBLISH_N,
-                           service_model=service_model)
-    t2 = time.perf_counter()
+    with sites or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        warm(serving)
+        t1 = time.perf_counter()
+        wave = service_model(MAX_BATCH)
+        pol = scheduler.BatchPolicy(mode="continuous", max_batch=MAX_BATCH,
+                                    min_bucket=8, max_wait_s=1.5 * wave)
+        tr = trace.scaled(0.7 * (MAX_BATCH / wave) / trace.offered_rps)
+        res = scheduler.replay(serving, tr, pol,
+                               republish_every=REPUBLISH_EVERY,
+                               republish_n=REPUBLISH_N,
+                               service_model=service_model)
+        t2 = time.perf_counter()
     return fab, serving, res, t1 - t0, t2 - t1, rounds
 
 
@@ -992,15 +1173,18 @@ def kernel_wrappers():
             lease_probe, miss_round, write_grant)
 
 
-def forward_layers(torch, cfg, params, tokens):
+def forward_layers(torch, cfg, params, tokens, inputs=None):
     """``models.forward`` with the hidden state after every block
-    recorded: (h_final, [h after block 0, 1, ...])."""
+    recorded: (h_final, [h after block 0, 1, ...]).  ``inputs``, a list,
+    also gets each block's (kind, params, input)."""
     from repro_torch.models import forward
     from repro_torch.models import model as model_mod
     hs, apply = [], model_mod._apply_block
 
-    def record(*args, **kw):
-        h, nc = apply(*args, **kw)
+    def record(cfg_, desc, bp, h, **kw):
+        if inputs is not None:
+            inputs.append((desc.kind, bp, h))
+        h, nc = apply(cfg_, desc, bp, h, **kw)
         hs.append(h)
         return h, nc
 
@@ -1013,15 +1197,21 @@ def forward_layers(torch, cfg, params, tokens):
 
 
 def ssd_variants():
-    """The card's ``ssd_chunk`` arithmetic for ``layer_errors``: the routed
-    kernel with y in f32 (the model's call), the CUDA-core kernels with y
-    in f32, and the earlier arithmetic (the CUDA-core kernels, y rounded
-    to x's dtype before the inter-chunk part is added).  Each is a
-    stand-in for ``kernels.ops._ssd_chunk``."""
+    """The card's arithmetic for ``layer_errors``, each a stand-in for
+    ``kernels.ops._ssd_chunk`` and a setting of cuBLAS's bf16 products
+    (``allow_bf16_reduced_precision_reduction``): the routed kernel with y
+    in f32 (the model's call) with reduced-precision reductions allowed
+    (PyTorch's default) and refused (the reference's XLA ``dot`` sums in
+    f32 and rounds once), the CUDA-core kernels with y in f32, and the
+    earlier arithmetic (the CUDA-core kernels, y rounded to x's dtype
+    before the inter-chunk part is added)."""
     from repro_torch.kernels.ssd_chunk import ssd_chunk
-    return {"wgmma, y f32": ssd_chunk,
-            "simt, y f32": lambda *a, **kw: ssd_chunk(*a, path="simt", **kw),
-            "simt, y bf16": lambda *a, **kw: ssd_chunk(*a, path="simt")}
+    simt = lambda *a, **kw: ssd_chunk(*a, path="simt", **kw)
+    return {"wgmma, y f32": (ssd_chunk, True),
+            "wgmma, y f32, bf16 sums in f32": (ssd_chunk, False),
+            "simt, y f32": (simt, True),
+            "simt, y bf16": (lambda *a, **kw: ssd_chunk(*a, path="simt"),
+                             True)}
 
 
 def layer_errors(torch, cfg, params, tokens, h_host, hs_host):
@@ -1029,16 +1219,80 @@ def layer_errors(torch, cfg, params, tokens, h_host, hs_host):
     layer, for each of ``ssd_variants``' arithmetic on the card (the CPU
     side is the plain version, y in f32)."""
     from repro_torch.kernels import ops
-    routed = ops._ssd_chunk
+    mm = torch.backends.cuda.matmul
+    routed, flag = ops._ssd_chunk, mm.allow_bf16_reduced_precision_reduction
     out = {}
     try:
-        for name, fn in ssd_variants().items():
+        for name, (fn, reduced) in ssd_variants().items():
             ops._ssd_chunk = fn
+            mm.allow_bf16_reduced_precision_reduction = reduced
             h, hs = forward_layers(torch, cfg, params, tokens.to("cuda"))
             out[name] = [rel_l2(a, b) for a, b in zip(hs, hs_host)] \
                 + [rel_l2(h, h_host)]
     finally:
         ops._ssd_chunk = routed
+        mm.allow_bf16_reduced_precision_reduction = flag
+    return out
+
+
+def ssm_step_errors(torch, cfg, bp, h, dev="cuda"):
+    """F2: one SSM block (``bp``, the CPU's parameters; ``h``, its bf16
+    input on the CPU) split into the steps of ``models.ssm.ssm_apply``'s
+    prefill, each run on the CPU and on the card.  Three rows of the
+    card's relative L2 against the CPU after each step: ``own``, each
+    step from the SAME input (the CPU's output of the step before, copied
+    to the card), the step's own difference; ``chained``, the card's
+    steps fed their own outputs from the same block input, the
+    difference as it builds up inside the block; ``chained, the CPU's
+    dt`` the same with the card's dt replaced by the CPU's, which shows
+    how much of it comes in through the decay exponent (cum = cumsum(dt
+    A) over a chunk, about -50: a relative change of dt moves exp(cum)
+    by about 50 times as much)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import ssm as S
+    from repro_torch.models.layers import rmsnorm
+    p, cd = bp["ssm"], h.dtype
+    d_in, H, Pd, G, N = S.ssm_dims(cfg)
+    B_, S_ = h.shape[:2]
+    xw = d_in + 2 * G * N
+    steps = (
+        ("pre-norm", ("h", "ln"), lambda x, w: rmsnorm(x, w, cfg.rms_eps),
+         "hn"),
+        ("in_proj", ("hn", "in_proj"), lambda x, w: x @ w.to(cd), "zx"),
+        ("conv", ("zx", "conv_w", "conv_b"), lambda zx, w, b:
+         S._causal_conv(zx[..., d_in:d_in + xw], w.to(cd), b.to(cd)), "conv"),
+        ("silu", ("conv",), lambda x: F.silu(x.float()).to(cd), "xc"),
+        ("softplus", ("zx", "dt_bias"), lambda zx, b: F.softplus(
+            zx[..., d_in + xw:].float() + b.float()), "dt"),
+        ("ssd_chunked", ("xc", "dt", "A_log"), lambda xc, dt, a: S.ssd_chunked(
+            xc[..., :d_in].reshape(B_, S_, H, Pd), dt, -torch.exp(a.float()),
+            xc[..., d_in:d_in + G * N].reshape(B_, S_, G, N),
+            xc[..., d_in + G * N:].reshape(B_, S_, G, N),
+            min(cfg.ssd_chunk, S_))[0], "y4"),
+        ("skip", ("y4", "xc", "D_skip"), lambda y4, xc, d: (
+            y4.float() + d.float()[None, None, :, None]
+            * xc[..., :d_in].reshape(B_, S_, H, Pd).float()
+        ).reshape(B_, S_, d_in).to(cd), "y"),
+        ("gate", ("y", "zx"), lambda y, zx: (
+            y.float() * F.silu(zx[..., :d_in].float())).to(cd), "g"),
+        ("gated norm", ("g", "norm_w"),
+         lambda g, w: rmsnorm(g, w, cfg.rms_eps), "gn"),
+        ("out_proj", ("gn", "out_proj"), lambda g, w: g @ w.to(cd), "o"),
+        ("residual", ("h", "o"), lambda h, o: h + o, "out"))
+    cpu = {"h": h, "ln": bp["ln"], **p}
+    for _, ins, fn, name in steps:
+        cpu[name] = fn(*(cpu[k] for k in ins))
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    out = {"own": {}, "chained": {}, "chained, the CPU's dt": {}}
+    for step, ins, fn, name in steps:
+        out["own"][step] = rel_l2(fn(*(card[k] for k in ins)), cpu[name])
+    for row, keep in (("chained", ()), ("chained, the CPU's dt", ("dt",))):
+        env = {k: card[k] for k in ("h", "ln", *p)}
+        for step, ins, fn, name in steps:
+            env[name] = card[name] if name in keep else \
+                fn(*(env[k] for k in ins))
+            out[row][step] = rel_l2(env[name], cpu[name])
     return out
 
 
@@ -1172,7 +1426,8 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     tok4 = tok[:CPU_MODEL_BATCH]
     t0 = time.perf_counter()
     h_c, _ = forward(cfg4, p4, tok4.to(dev))
-    h_h, hs_h = forward_layers(torch, cfg4, p4h, tok4)
+    blocks = []
+    h_h, hs_h = forward_layers(torch, cfg4, p4h, tok4, blocks)
     lg_c = h_c[:, -1] @ unembed_matrix(cfg4, p4)
     lg_h = h_h[:, -1] @ unembed_matrix(cfg4, p4h)
     errs = {"hidden_rel_l2": rel_l2(h_c, h_h),
@@ -1196,6 +1451,17 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
             "the final norm, by the card's ssd_chunk arithmetic:")
         for name, errs_l in per.items():
             log(f"    {name}: {', '.join(f'{e:.5f}' for e in errs_l)}")
+        # the second SSM block, split into its steps, each from the CPU's
+        # input to it
+        _, bp, h_in = [b for b in blocks if b[0] == "ssm"][1]
+        steps = ssm_step_errors(torch, cfg4, bp, h_in)
+        rep["ssm_step_errs"] = steps
+        log("  card vs CPU relative L2 after each step of SSM block 2 "
+            "(own: from the same input; chained: from the same block "
+            "input):")
+        for row, errs_s in steps.items():
+            log(f"    {row}: " + ", ".join(f"{k} {v:.5f}"
+                                          for k, v in errs_s.items()))
 
     tm = serve_timings(torch, np, cfg, srv, tok.to(dev), max_new)
     tm["decode_device_idle_share"] = \
@@ -1300,12 +1566,22 @@ def main() -> None:
     counters = (lease_probe, miss_round, write_grant)
     for fn in counters:
         fn.launches = 0
-    fab_c, serv_c, res_c, warm_c, rep_c, rounds = replay_modeled(dev, trace)
+    sites = CallSites()
+    fab_c, serv_c, res_c, warm_c, rep_c, rounds = replay_modeled(dev, trace,
+                                                                 sites)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
     log(f"  card: warm {warm_c:.1f} s, replay {rep_c:.1f} s, "
         f"{len(res_c.batch_sizes)} waves; launches {launches}; write and "
         f"fence pass rounds {dict(rounds)}")
+    calls = sites.report()
+    log(f"  lease_probe launches by call site {calls['lease_probe_by_site']}"
+        f"; miss_round launches by lane count {calls['miss_round_lanes']}")
+    if sum(calls["lease_probe_by_site"].values()) != launches["lease_probe"] \
+            or sum(calls["miss_round_lanes"].values()) != \
+            launches["miss_round"]:
+        raise AssertionError(f"call sites {calls} do not add up to the "
+                             f"launches {launches}")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if launches["write_grant"] != sum(rounds.values()):
@@ -1324,6 +1600,7 @@ def main() -> None:
         "counters, memts of every key, whole fabric state")
     st = fab_c.stats()
     report["main_path"] = {"launches": launches, "rounds": dict(rounds),
+                           "call_sites": calls,
                            "warm_s": warm_c,
                            "replay_s": rep_c,
                            "waves": len(res_c.batch_sizes),
@@ -1378,7 +1655,8 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     # ---- 6. summary lines: each kernel's row at the main path's shapes
-    main_shape = {"lease_probe": [64, 8], "write_grant": [8, 64, 1024],
+    main_shape = {"lease_probe": [64, 8], "miss_round": [8, 64, 1024],
+                  "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
                   "flash_attention": [SERVE_B, PROMPT_LEN, 15, 5, 64],
                   "decode_attention": [SERVE_B, MAX_LEN, 15, 5, 64,

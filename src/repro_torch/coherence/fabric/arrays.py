@@ -171,14 +171,21 @@ class _OpScan:
         self.W1, self.W2, self.KS, self.CAP = W1, W2, KS, CAP
         self.NN, self.NR, self.Q, self.MAXIF = NN, NR, Q, MAXIF
         self.dev = device
-        self.zero1 = torch.zeros((1,), dtype=_i32, device=device)
+        self.ids = torch.arange(64, dtype=_i32, device=device)
 
     # ------------------------------------------------------- lane helpers
     def key1(self, kid: int) -> torch.Tensor:
-        return torch.full((1,), kid, dtype=_i32, device=self.dev)
+        """Key id ``kid`` as a [1] device tensor: a view of ``ids``, the
+        ids counted up once (no allocation and no fill per op), grown by
+        doubling past the largest id asked for."""
+        if kid >= self.ids.shape[0]:
+            self.ids = torch.arange(max(kid + 1, 2 * self.ids.shape[0]),
+                                    dtype=_i32, device=self.dev)
+        return self.ids[kid:kid + 1]
 
-    def probe1(self, tier, idx, st, key, mwts, mrts):
-        """One-lane ``state.tier_probe``: the set row is a [1, W] view."""
+    def probe1(self, tier, idx, st, key, mwts=None, mrts=None):
+        """One-lane ``state.tier_probe``: the set row is a [1, W] view;
+        ``mwts``/``mrts`` None read as 0."""
         return K.lease_probe(tier.tag[idx, st, :-1][None],
                              tier.rts[idx, st, :-1][None],
                              tier.cts[idx:idx + 1], key, mwts, mrts)
@@ -187,8 +194,7 @@ class _OpScan:
         """Host probe semantics: on a tag match, bump the store tick and
         refresh the line's LRU (even if the lease is dead).  ``active`` is
         True or a [1] device mask."""
-        th, hit, way, _, _, _, _ = self.probe1(tier, idx, st, key,
-                                               self.zero1, self.zero1)
+        th, hit, way, _, _, _, _ = self.probe1(tier, idx, st, key)
         if active is not True:
             th, hit = th & active, hit & active
         tick[idx:idx + 1] += b2i(th)
@@ -369,8 +375,7 @@ class _OpScan:
               queues):
         key = self.key1(kid)
         # pending line (store-buffer forwarding): wts=rts=cts, ver=-1
-        thP, _, wayP, _, _, _, _ = self.probe1(af.rp, rep, s1, key,
-                                               self.zero1, self.zero1)
+        thP, _, wayP, _, _, _, _ = self.probe1(af.rp, rep, s1, key)
         cts = af.rp.cts[rep:rep + 1]
         evP = self.install_at(af.rp, af.rp_gseq, af.rp_tick, rep, s1, key,
                               cts, cts, -1, -1, thP, wayP, True)
@@ -487,24 +492,19 @@ def _fast_read(af: _AF, meta_s1, kids, rep: int):
     hit, with sequential touch semantics (op i's LRU = tick + its rank
     among the batch's hits), IN PLACE.  Returns the packed [3, B]
     (hit, version, gseq) block."""
-    B = kids.shape[0]
-    dev = kids.device
-    z = torch.zeros((B,), dtype=_i32, device=dev)
-    reps = torch.full((B,), rep, dtype=_i32, device=dev)
     s1s = meta_s1[kids]
-    _, hit, way, _, _, _, _ = S.tier_probe(af.rp, reps, s1s, kids, z, z)
+    _, hit, way, _, _, _, _ = S.tier_probe(af.rp, rep, s1s, kids)
     hi = b2i(hit)
     rank = torch.cumsum(hi, 0).to(_i32)   # hit rank (one replica per call)
     w = torch.where(hit, way, af.rp.n_ways)
     # scatter-max == sequential set here: lru values are past ticks, and a
     # duplicate key's later touch carries the larger rank; misses land on
     # the trash way
-    lin = (reps.long() * af.rp.lru.shape[1] + s1s.long()) \
-        * af.rp.lru.shape[2] + w.long()
-    af.rp.lru.view(-1).scatter_reduce_(0, lin, af.rp_tick[rep] + rank,
-                                       "amax")
-    ver = af.rp.ver[reps, s1s, way]
-    gseq = af.rp_gseq[reps, s1s, way]
+    lru = af.rp.lru[rep]
+    lru.view(-1).scatter_reduce_(0, s1s.long() * lru.shape[1] + w.long(),
+                                 af.rp_tick[rep] + rank, "amax")
+    ver = af.rp.ver[rep][s1s, way]
+    gseq = af.rp_gseq[rep][s1s, way]
     nh = hi.sum(dtype=_i32)
     af.rp_tick[rep] += nh
     P_.counter_add(af.g, reads=nh, l1_hits=nh)

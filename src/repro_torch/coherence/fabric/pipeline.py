@@ -422,23 +422,23 @@ def make_miss_pass(W1: int, W2: int, KS: int):
         return evicted
 
     def round_body(af, out, act, kids, s1, s2, shard, rep, node, rd):
+        # ---- fused per-lane round math (kernels.ops.miss_round): replica
+        # probe, shared probe, Algorithm 3 TSU read grant and both install
+        # levels over the tier tables in place, each lane's sets and shard
+        # by index; the cross-lane state scatters stay here
+        (th1, h1, way1, th2, h2, way2, fndF, tway, mwts, mrts, nmem, ovf,
+         nwA, nrA, nw1, nr1) = K.miss_round(
+            af.rp.tag[rep][:, :-1], af.rp.rts[rep][:, :-1],
+            af.sh.tag[node][:, :-1], af.sh.rts[node][:, :-1],
+            af.sh.wts[node][:, :-1],
+            af.tsu.tag[:, 0, :-1], af.tsu.memts[:, 0, :-1],
+            af.rp.cts[rep:rep + 1], af.sh.cts[node:node + 1], kids, act, rd,
+            rows=(s1, s2, shard))
         M = kids.shape[0]
         dev = kids.device
         reps = torch.full((M,), rep, dtype=_i32, device=dev)
         nodes = torch.full((M,), node, dtype=_i32, device=dev)
         zt = torch.zeros_like(shard)
-
-        # ---- fused per-lane round math (kernels.ops.miss_round): replica
-        # probe, shared probe, Algorithm 3 TSU read grant and both install
-        # levels; the cross-lane state scatters stay here
-        (th1, h1, way1, th2, h2, way2, fndF, tway, mwts, mrts, nmem, ovf,
-         nwA, nrA, nw1, nr1) = K.miss_round(
-            af.rp.tag[rep, s1][:, :-1], af.rp.rts[rep, s1][:, :-1],
-            af.sh.tag[node, s2][:, :-1], af.sh.rts[node, s2][:, :-1],
-            af.sh.wts[node, s2][:, :-1],
-            af.tsu.tag[shard, 0][:, :-1], af.tsu.memts[shard, 0][:, :-1],
-            af.rp.cts[reps], af.sh.cts[nodes], kids, b2i(act),
-            torch.full((M,), rd, dtype=_i32, device=dev))
 
         # ---- replica classification + self-invalidate
         hit_ver = af.rp.ver[reps, s1, way1]

@@ -214,14 +214,24 @@ def install_lease(cts, wts_resp, rts_resp):
     return lease.wts, lease.rts, protocol.cts_after_write(cts, lease.wts)
 
 
-def tier_probe(tier: TierState, idx, set_idx, addr, mwts, mrts):
+def tier_probe(tier: TierState, idx, set_idx, addr, mwts=None, mrts=None):
     """Fused probe + install math for one tier, served by the lease-probe
-    kernel over each request's gathered set row (trash way sliced off: a
-    strided view whose row stride the kernel takes).  Returns (tag_hit,
-    hit, way, row_rts, new_wts, new_rts, new_cts)."""
-    return K.lease_probe(tier.tag[idx, set_idx][..., :-1],
-                         tier.rts[idx, set_idx][..., :-1],
-                         tier.cts[idx], addr, mwts, mrts)
+    kernel reading the tier's tables in place (trash way sliced off: a
+    view whose row stride the kernel takes) at each request's set: with
+    ``idx`` a host int, that cache's ``[S, W]`` sets at rows ``set_idx`` and
+    its one clock; with an ``[N]`` ``idx``, every cache's sets as one
+    ``[I*S, W]`` table at rows ``idx*S + set_idx``.  ``mwts``/``mrts``
+    None read as 0.  Returns (tag_hit, hit, way, row_rts, new_wts,
+    new_rts, new_cts)."""
+    if not isinstance(idx, torch.Tensor):
+        idx = int(idx)
+        return K.lease_probe(tier.tag[idx][:, :-1], tier.rts[idx][:, :-1],
+                             tier.cts[idx:idx + 1], addr, mwts, mrts,
+                             row=set_idx)
+    flat = lambda a: a.view(-1, a.shape[-1])[:, :-1]
+    return K.lease_probe(flat(tier.tag), flat(tier.rts), tier.cts[idx], addr,
+                         mwts, mrts,
+                         row=(idx * tier.tag.shape[1] + set_idx).to(_i32))
 
 
 # ------------------------------------------------- packed contiguous buffers

@@ -22,20 +22,23 @@ __device__ __forceinline__ int add32(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 
-// Lowest way index j < W with row[j] == a, or INT_MAX when none, reduced
-// over the calling warp: lane l scans ways l, l+32, ... (coalesced loads)
-// and keeps its first hit, then the warp takes the minimum.  Every lane
-// of the warp must call it.
-__device__ __forceinline__ int warp_first_match(const int* __restrict__ row,
-                                                int W, int a, int lane) {
-  int m = INT_MAX;
-  for (int j = lane; j < W; j += 32) {
-    if (row[j] == a) {
-      m = j;
-      break;
+// First way j < W of `row` holding a, or -1.  The compares of 32 ways
+// at a time fold into a bit mask with no branch, so every load of them
+// is in flight at once (a loop that stops at the first match would wait
+// for each load before issuing the next); the mask's lowest set bit is
+// the reference's first match.
+__device__ __forceinline__ int first_way(const int* __restrict__ row, int W,
+                                         int a) {
+  for (int j0 = 0; j0 < W; j0 += 32) {
+    const int n = min(W - j0, 32);
+    unsigned m = 0;
+#pragma unroll 8
+    for (int j = 0; j < n; ++j) {
+      m |= static_cast<unsigned>(row[j0 + j] == a) << j;
     }
+    if (m != 0) return j0 + __ffs(m) - 1;
   }
-  return __reduce_min_sync(kFull, m);
+  return -1;
 }
 
 }  // namespace halcone

@@ -161,8 +161,8 @@ def check_table(tables, row, n: int, device):
                          f"{tuple(first.shape)}")
     K, C = first.shape
     if row is None and K != n:
-        raise ValueError(f"{name}: {K} rows for {n} lanes; without `row` "
-                         "lane i reads row i")
+        raise ValueError(f"{name}: shape {tuple(first.shape)} has {K} rows "
+                         f"for {n} lanes; without `row` lane i reads row i")
     if row is not None:
         check_vec("row", row, n, device)
         if n and K < 1:
@@ -182,6 +182,39 @@ def check_vec(name: str, t: torch.Tensor, n: int, device) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous vector")
+
+
+def check_flags(name: str, t: torch.Tensor, n: int, device) -> None:
+    """Validate a contiguous ``[n]`` bool vector on ``device``."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.bool:
+        raise TypeError(f"{name}: expected a bool tensor")
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor on "
+                         f"{device}, got one on {t.device}")
+    if t.dim() != 1 or t.shape[0] != n or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous vector of shape "
+                         f"[{n}], got {tuple(t.shape)}")
+
+
+def int32_value(name: str, v) -> int:
+    """``v`` as a Python int that an int32 holds; raises otherwise."""
+    if isinstance(v, bool) or not isinstance(v, int) \
+            or not -2 ** 31 <= v < 2 ** 31:
+        raise TypeError(f"{name}: expected an int32 value or tensor, got "
+                        f"{v!r}")
+    return v
+
+
+def check_lane_or_one(name: str, t: torch.Tensor, n: int, device) -> int:
+    """Validate a contiguous int32 vector of ``n`` lanes, or of one value
+    that every lane reads; returns its step (1 or 0)."""
+    _check_cuda_i32(name, t, device)
+    if t.dim() != 1 or t.shape[0] not in (n, 1):
+        raise ValueError(f"{name}: expected shape [{n}] or [1], got "
+                         f"{tuple(t.shape)}")
+    if t.shape[0] > 1 and t.stride(0) != 1:
+        raise ValueError(f"{name}: expected a contiguous vector")
+    return int(t.shape[0] == n)
 
 
 def launch(fn, args, device) -> None:

@@ -23,16 +23,16 @@ def _on_cpu(t) -> bool:
     return t.device.type == "cpu"
 
 
-def lease_probe(tag_rows, rts_rows, cts, addr, mwts, mrts):
+def lease_probe(tag, rts, cts, addr, mwts=None, mrts=None, *, row=None):
     if _on_cpu(addr):
-        return ref.lease_probe_ref(tag_rows, rts_rows, cts, addr, mwts, mrts)
-    return _lease_probe(tag_rows, rts_rows, cts, addr, mwts, mrts)
+        return ref.lease_probe_ref(tag, rts, cts, addr, mwts, mrts, row=row)
+    return _lease_probe(tag, rts, cts, addr, mwts, mrts, row=row)
 
 
-def miss_round(*args):
+def miss_round(*args, rows=None):
     if _on_cpu(args[9]):                       # addr
-        return ref.miss_round_ref(*args)
-    return _miss_round(*args)
+        return ref.miss_round_ref(*args, rows=rows)
+    return _miss_round(*args, rows=rows)
 
 
 def write_grant(ts_tag, ts_mem, ts_seq, addr, wl, row=None):

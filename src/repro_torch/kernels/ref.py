@@ -29,11 +29,19 @@ def _first_index(eq):
     return torch.argmax(eq.to(_i32), -1).to(_i32)
 
 
-def lease_probe_ref(tag_rows, rts_rows, cts, addr, mwts, mrts):
-    """HALCONE probe+install math over gathered set rows.
+def lease_probe_ref(tag_rows, rts_rows, cts, addr, mwts=None, mrts=None,
+                    *, row=None):
+    """HALCONE probe+install math over set rows.
 
-    tag_rows/rts_rows: [N,W]; cts/addr/mwts/mrts: [N].
-    Returns (tag_hit, hit, way, row_rts, new_wts, new_rts, new_cts)."""
+    tag_rows/rts_rows: [N,W], or a tier's [K,W] tables with ``row`` ([N])
+    naming each lane's set; cts: [N] or [1]; addr: [N]; mwts/mrts: [N] or
+    None for 0.  Returns (tag_hit, hit, way, row_rts, new_wts, new_rts,
+    new_cts)."""
+    if row is not None:
+        tag_rows, rts_rows = tag_rows[row], rts_rows[row]
+    zero = torch.zeros_like(addr)
+    mwts = zero if mwts is None else mwts
+    mrts = zero if mrts is None else mrts
     eq = tag_rows == addr[:, None]
     tag_hit = eq.any(-1)
     way = _first_index(eq)
@@ -64,10 +72,18 @@ def _tsu_grant_ref(memts, is_write, lease_v):
 
 
 def miss_round_ref(rp_tag, rp_rts, sh_tag, sh_rts, sh_wts, ts_tag, ts_mem,
-                   cts1, cts2, addr, act, rd):
+                   cts1, cts2, addr, act, rd, *, rows=None):
     """Read-side round math (``kernels.tier_pass.miss_round``): replica
     probe, shared probe, TSU read grant and both install levels — the 16
-    per-lane intermediates of ``pipeline.make_miss_pass``'s round body."""
+    per-lane intermediates of ``pipeline.make_miss_pass``'s round body.
+    The rows are ``[N, W]`` (lane i on row i), or with ``rows = (s1, s2,
+    shard)`` the tiers' ``[K, W]`` tables, each lane's row named by its
+    entry; cts1/cts2 are [N] or [1], act int or bool, rd [N] or an int."""
+    if rows is not None:
+        s1, s2, shard = rows
+        rp_tag, rp_rts = rp_tag[s1], rp_rts[s1]
+        sh_tag, sh_rts, sh_wts = sh_tag[s2], sh_rts[s2], sh_wts[s2]
+        ts_tag, ts_mem = ts_tag[shard], ts_mem[shard]
     act = act != 0
     eq1 = rp_tag == addr[:, None]
     th1 = eq1.any(-1)

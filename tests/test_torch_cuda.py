@@ -22,6 +22,7 @@ from repro_torch.core.protocol import TS_MAX
 from repro_torch.kernels import ref
 from repro_torch.kernels.lease_probe import lease_probe
 from repro_torch.kernels.tier_pass import miss_round, write_grant
+from tier_inputs import gathered, miss_tables, probe_tables
 
 
 @pytest.fixture
@@ -112,6 +113,124 @@ def test_cuda_miss_round_equals_plain(cuda_device, N, W1, W2, C, seed):
     got = miss_round(*args)
     _assert_equal(got, ref.miss_round_ref(*args))
     assert got[11].any()                               # a reinit fired
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 64, 4096])
+@pytest.mark.parametrize("W", [2, 8])
+def test_cuda_lease_probe_indexed_equals_plain(cuda_device, N, W):
+    """The indexed form at the fast read's shape: a replica tier's 1024
+    sets read in place at ``row``, one clock, no grant (read as 0), and
+    with a clock and a grant per lane; exact, one launch each."""
+    for one_clock, grant in ((True, False), (False, True)):
+        (tag, rts), row, cts, addr, mwts, mrts = probe_tables(
+            1024, N, W, N + W, one_clock)
+        args = (_vec(cuda_device, tag)[:, :-1], _vec(cuda_device, rts)[:, :-1],
+                _vec(cuda_device, cts), _vec(cuda_device, addr))
+        more = (_vec(cuda_device, mwts), _vec(cuda_device, mrts)) if grant \
+            else ()
+        rowt = _vec(cuda_device, row)
+        before = lease_probe.launches
+        got = lease_probe(*args, *more, row=rowt)
+        assert lease_probe.launches == before + 1
+        _assert_equal(got, ref.lease_probe_ref(*args, *more, row=rowt))
+        assert got[0][0] and got[2][0] == 0     # lane 0: the first duplicate
+
+
+def _miss_args(dev, tables, rows, vecs):
+    views = [_vec(dev, t)[:, :-1] for t in tables[:5]] + \
+        [_vec(dev, t)[:, 0, :-1] for t in tables[5:]]
+    return views + [_vec(dev, v) for v in vecs], \
+        tuple(_vec(dev, r) for r in rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [32, 64, 256])
+def test_cuda_miss_round_indexed_equals_plain(cuda_device, M):
+    """The indexed form at the miss pass's shape: 8 TSU rows of 1024 ways,
+    a replica's 1024 and a node's 2048 sets of 8 ways read in place, M
+    lanes naming them (padded lanes on shard 0), one clock a tier, act
+    bool, rd an int; exact in one launch, and equal to the gathered
+    form."""
+    tables, rows, vecs, rd = miss_tables(1024, 2048, 8, M, 8, 8, 1024, M)
+    args, rowt = _miss_args(cuda_device, tables, rows, vecs)
+    before = miss_round.launches
+    got = miss_round(*args, rd, rows=rowt)
+    assert miss_round.launches == before + 1
+    _assert_equal(got, ref.miss_round_ref(*args, rd, rows=rowt))
+    _assert_equal(got, miss_round(*(_vec(cuda_device, a) for a in gathered(
+        tables, rows, vecs, rd))))
+    assert got[6].any() and got[11].any()           # grants, and a reinit
+
+
+@pytest.mark.cuda
+def test_cuda_miss_round_indexed_past_one_tile(cuda_device):
+    """TSU rows of 20000 ways, walked in tiles: every hit lies in the last
+    tile."""
+    C = 20000
+    tables, rows, vecs, rd = miss_tables(1024, 2048, 8, 64, 8, 8, C, 7,
+                                         match_at=C - 3)
+    args, rowt = _miss_args(cuda_device, tables, rows, vecs)
+    got = miss_round(*args, rd, rows=rowt)
+    _assert_equal(got, ref.miss_round_ref(*args, rd, rows=rowt))
+    tway = got[7].cpu().numpy()
+    assert (tway[got[6].cpu().numpy()] == C - 3).all() and got[6].any()
+
+
+@pytest.mark.cuda
+def test_cuda_indexed_wrappers_check_their_inputs(cuda_device):
+    """The indexed wrappers refuse ways that are not contiguous, a CPU
+    tensor and a wrong clock shape."""
+    (tag, rts), row, cts, addr, _, _ = probe_tables(16, 8, 4, 0, True)
+    t, r = _vec(cuda_device, tag), _vec(cuda_device, rts)
+    a, c, rowt = (_vec(cuda_device, v) for v in (addr, cts, row))
+    with pytest.raises(ValueError, match="contiguous"):
+        lease_probe(t[:, ::2], r[:, ::2], c, a, row=rowt)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lease_probe(t[:, :-1], r[:, :-1], c, a, row=rowt.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        lease_probe(t[:, :-1], r[:, :-1], c.expand(2).contiguous(), a,
+                    row=rowt)
+    tables, rows, vecs, rd = miss_tables(16, 16, 4, 8, 2, 2, 64, 0)
+    args, rowm = _miss_args(cuda_device, tables, rows, vecs)
+    with pytest.raises(ValueError, match="contiguous"):
+        miss_round(*args[:5], args[5][:, ::2], args[6][:, ::2], *args[7:],
+                   rd, rows=rowm)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        miss_round(*args[:5], args[5].cpu(), *args[6:], rd, rows=rowm)
+    with pytest.raises(ValueError, match="lane i reads row i"):
+        miss_round(*args, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lease_probe", "miss_round"])
+def test_cuda_indexed_kernels_trap_on_a_row_out_of_range(cuda_device,
+                                                         kernel):
+    """A lane naming a row outside its table stops the kernel with a
+    device error: never a silent wrong answer."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    call = {"lease_probe": "lease_probe(t, t, v[:1], v, row=row)",
+            "miss_round": "miss_round(t, t, t, t, t, t[:2], t[:2], v[:1], "
+                          "v[:1], v, v, 8, rows=(v, v, row))"}[kernel]
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.lease_probe import lease_probe\n"
+        "from repro_torch.kernels.tier_pass import miss_round\n"
+        "d = torch.device('cuda')\n"
+        "t = torch.zeros((8, 64), dtype=torch.int32, device=d)\n"
+        "v = torch.zeros(4, dtype=torch.int32, device=d)\n"
+        "row = torch.tensor([0, 1, 8, 1], dtype=torch.int32, device=d)\n"
+        f"{call}\n"
+        "torch.cuda.synchronize()\n"
+        "print('no error')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert out.returncode != 0 and "no error" not in out.stdout
+    assert "CUDA" in out.stderr or "cuda" in out.stderr
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ from repro_torch.kernels.tier_pass import miss_round as cuda_miss_round
 from repro_torch.kernels.tier_pass import write_grant as cuda_write_grant
 
 from test_kernels import _lease_probe_inputs, _miss_round_inputs
+from tier_inputs import gathered, miss_tables, probe_tables
 
 
 def _t(a):
@@ -137,6 +138,29 @@ def test_lease_probe_matches_protocol(seed):
             jnp.asarray(cts), rlease.wts)))
 
 
+@pytest.mark.parametrize("K,N,W,one_clock,grant", [
+    (16, 64, 8, True, False), (5, 1, 2, True, True), (64, 100, 4, False, True),
+    (3, 40, 8, False, False)])
+def test_lease_probe_ref_indexed_matches_pallas(K, N, W, one_clock, grant):
+    """The indexed plain version (a tier's [K, W] tables read at ``row``,
+    cts one clock or per lane, no grant read as 0) equals the Pallas
+    kernel on the rows it indexes: duplicate tags, empty rows, lanes
+    sharing rows, clocks near TS_MAX."""
+    (tag, rts), row, cts, addr, mwts, mrts = probe_tables(K, N, W, K + N,
+                                                          one_clock)
+    if not grant:
+        mwts = mrts = np.zeros(N, np.int32)
+    got = ref.lease_probe_ref(_t(tag)[:, :-1], _t(rts)[:, :-1], _t(cts),
+                              _t(addr), *((_t(mwts), _t(mrts)) if grant
+                                          else ()), row=_t(row))
+    want = pallas_lease_probe(
+        jnp.asarray(tag[row, :-1]), jnp.asarray(rts[row, :-1]),
+        jnp.asarray(np.broadcast_to(cts, (N,))), jnp.asarray(addr),
+        jnp.asarray(mwts), jnp.asarray(mrts), interpret=True)
+    _assert_outs_equal(got, want, _PROBE_OUTS)
+    assert got[0][0] and got[2][0] == 0         # lane 0: the first duplicate
+
+
 # ------------------------------------------------------------- miss_round
 @pytest.mark.parametrize("N,W1,W2,C,seed", [
     (64, 4, 8, 16, 0), (256, 2, 4, 64, 1), (96, 8, 2, 8, 2)])
@@ -195,6 +219,27 @@ def test_miss_round_matches_state_rules(seed):
     assert not (h1 & ~th1).any() and not (h2 & ~th2).any()
     assert not (th1.numpy() & ~act).any()
     assert not (th2 & h1).any() and not (fnd & h2).any()
+
+
+@pytest.mark.parametrize("KT,N,C,W1,W2", [
+    (8, 32, 64, 8, 8), (8, 64, 1024, 8, 8), (4, 17, 20, 2, 4),
+    (2, 64, 128, 4, 2)])
+def test_miss_round_ref_indexed_matches_pallas(KT, N, C, W1, W2):
+    """The indexed plain version (the tiers' tables in place, each lane's
+    rows by index, one clock a tier, act bool, rd an int) equals the
+    Pallas kernel on the rows it indexes: lanes sharing TSU rows, padded
+    lanes on shard 0, duplicate tags, an empty TSU row, clocks within rd
+    of TS_MAX."""
+    tables, rows, vecs, rd = miss_tables(64, 128, KT, N, W1, W2, C, KT + N)
+    views = [_t(t)[:, :-1] for t in tables[:5]] + \
+        [_t(t)[:, 0, :-1] for t in tables[5:]]
+    got = ref.miss_round_ref(*views, *map(_t, vecs), rd,
+                             rows=tuple(map(_t, rows)))
+    want = pallas_miss_round(*map(jnp.asarray, gathered(tables, rows, vecs,
+                                                         rd)),
+                             interpret=True)
+    _assert_outs_equal(got, want, _MISS_OUTS)
+    assert got[6].any() and got[11].any()       # grants, and a reinit
 
 
 # ------------------------------------------------------------ write_grant
@@ -292,6 +337,83 @@ def test_dispatcher_sends_indexed_write_grant_to_plain_version():
     _assert_outs_equal(ops.write_grant(*args, _t(row)),
                        ref.write_grant_ref(*args, row=_t(row)), _GRANT_OUTS)
     assert cuda_write_grant.launches == before
+
+
+def test_dispatcher_sends_indexed_probe_and_miss_round_to_plain_versions():
+    (tag, rts), row, cts, addr, _, _ = probe_tables(8, 16, 4, 0, True)
+    args = (_t(tag)[:, :-1], _t(rts)[:, :-1], _t(cts), _t(addr))
+    before = cuda_lease_probe.launches
+    _assert_outs_equal(ops.lease_probe(*args, row=_t(row)),
+                       ref.lease_probe_ref(*args, row=_t(row)), _PROBE_OUTS)
+    assert cuda_lease_probe.launches == before
+    tables, rows, vecs, rd = miss_tables(8, 8, 4, 16, 2, 2, 8, 0)
+    margs = [_t(t)[:, :-1] for t in tables[:5]] + \
+        [_t(t)[:, 0, :-1] for t in tables[5:]] + [*map(_t, vecs), rd]
+    rows = tuple(map(_t, rows))
+    before = cuda_miss_round.launches
+    _assert_outs_equal(ops.miss_round(*margs, rows=rows),
+                       ref.miss_round_ref(*margs, rows=rows), _MISS_OUTS)
+    assert cuda_miss_round.launches == before
+
+
+def _shares_storage(view, table):
+    return view.untyped_storage().data_ptr() == \
+        table.untyped_storage().data_ptr()
+
+
+def test_miss_pass_and_fast_read_read_the_tier_tables_in_place(monkeypatch):
+    """The miss pass hands ``miss_round`` the tiers' tables as views of
+    the fabric's storage (``[K, W]`` and ``[KT, C]``, never a gathered
+    ``[M, ...]`` row block) with each lane's rows as ``rows``; the fast
+    read hands ``lease_probe`` the replica tier's tables in place with
+    ``row``."""
+    from repro_torch.coherence.fabric import ArrayFabric, FabricConfig
+    from repro_torch.coherence.fabric import pipeline as PL
+    cfg = FabricConfig(n_shards=4, rd_lease=8, wr_lease=4, tsu_capacity=16,
+                       shared_sets=8, shared_ways=2, replica_sets=4,
+                       replica_ways=2)
+    fab = ArrayFabric(cfg, n_nodes=2, replicas_per_node=2, device="cpu")
+    af = fab._af
+    misses, probes = [], []
+    miss, probe = PL.K.miss_round, TS.K.lease_probe
+
+    def spy_miss(*args, **kw):
+        misses.append((args, kw))
+        return miss(*args, **kw)
+
+    def spy_probe(*args, **kw):
+        probes.append((args, kw))
+        return probe(*args, **kw)
+
+    monkeypatch.setattr(PL.K, "miss_round", spy_miss)
+    monkeypatch.setattr(TS.K, "lease_probe", spy_probe)
+    keys = [f"k{i}" for i in range(12)]
+    fab.write_batch([(k, "v") for k in keys], replica=0)
+    fab.fence()
+    assert fab.read_batch(keys, replica=1)           # misses: the miss pass
+    fast = [(a, kw) for a, kw in probes if kw.get("row") is not None]
+    assert misses and fast
+    for args, kw in misses:
+        M = args[9].shape[0]
+        for t, table, W in zip(args[:7], (af.rp.tag, af.rp.rts, af.sh.tag,
+                                          af.sh.rts, af.sh.wts, af.tsu.tag,
+                                          af.tsu.memts),
+                               (cfg.replica_ways,) * 2
+                               + (cfg.shared_ways,) * 3
+                               + (cfg.tsu_capacity,) * 2):
+            assert _shares_storage(t, table) and t.shape[1] == W
+        assert args[0].shape[0] == cfg.replica_sets
+        assert args[5].shape[0] == cfg.n_shards
+        assert _shares_storage(args[7], af.rp.cts) and args[7].shape == (1,)
+        assert _shares_storage(args[8], af.sh.cts) and args[8].shape == (1,)
+        assert args[10].dtype == torch.bool and isinstance(args[11], int)
+        assert [r.shape for r in kw["rows"]] == [(M,)] * 3
+    for args, kw in fast:
+        assert _shares_storage(args[0], af.rp.tag)
+        assert _shares_storage(args[1], af.rp.rts)
+        assert args[0].shape == (cfg.replica_sets, cfg.replica_ways)
+        assert args[2].shape == (1,) and args[4:] == (None, None)
+        assert kw["row"].shape == args[3].shape
 
 
 def test_write_batch_grants_from_the_tsu_tables_in_place(monkeypatch):

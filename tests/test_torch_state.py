@@ -267,6 +267,29 @@ def test_tsu_lease_batch_matches_reference():
     _eq(got[6].memts, want[6].memts)
 
 
+@pytest.mark.parametrize("idx", [0, 1, np.int64(1)])
+def test_tier_probe_of_one_cache_matches_reference(idx):
+    """``tier_probe`` with a host cache index reads that cache's sets in
+    place at ``set_idx`` with its one clock, and no grant reads as 0: the
+    reference's probe of the same rows with an index vector and zero
+    grants."""
+    rng = np.random.default_rng(int(idx) + 3)
+    n, sets, ways, N = 2, 8, 4, 24
+    arrs = [rng.integers(-1, 8, (n, sets, ways + 1)).astype(np.int32)
+            for _ in range(5)]
+    cts = rng.integers(0, 8, n).astype(np.int32)
+    tier = TS.TierState(*map(_t, arrs), _t(cts))
+    rtier = RS.TierState(*map(jnp.asarray, arrs), jnp.asarray(cts))
+    st = rng.integers(0, sets, N).astype(np.int32)
+    addr = rng.integers(0, 8, N).astype(np.int32)
+    got = TS.tier_probe(tier, idx, _t(st), _t(addr))
+    z = jnp.zeros(N, jnp.int32)
+    want = RS.tier_probe(rtier, np.full(N, int(idx), np.int32), st,
+                         jnp.asarray(addr), z, z)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
 def test_tier_probe_pack_and_link_bytes_match_reference():
     rng = np.random.default_rng(13)
     n, sets, ways = 2, 4, 3
