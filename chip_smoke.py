@@ -14,7 +14,10 @@ Phases (any failure raises and the script exits non-zero):
      empty ways, full and partly-full TSU rows and clocks near ``TS_MAX``
      — exact equality on every output; each in the indexed form its
      caller uses, the tier tables read in place at each lane's row
-     (``lease_probe`` on a replica's 1024 sets at N = 1, 64, 4096 lanes;
+     (``lease_probe`` on a replica's 1024 sets at N = 1, 64, 4096 lanes,
+     and at the figure engine's shapes: W = 4 on an L1 of N x 64 sets and
+     W = 16 on an L2 of 256 sets a bank, N = 1408 and 5632 lanes, a
+     clock and a grant per lane;
      ``miss_round`` on the 8 TSU rows of 1024 ways with 32, 64 and 8192
      lanes, the counts phase 3 launches, and on rows of 20000 ways;
      ``write_grant`` on the 8 shard rows with 16 or 64 lanes), beside the
@@ -82,8 +85,25 @@ Phases (any failure raises and the script exits non-zero):
      CUDA-core kernels, and on those with y rounded to bf16 before the
      inter-chunk part (the earlier arithmetic); then the second SSM
      block split into its steps, each step's card-vs-CPU error from the
-     same input and chained from the same block input (F2);
-  6. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
+     same input and chained from the same block input; and both bf16
+     models, card and CPU, against the same model in f32 on the CPU,
+     after each layer (F2);
+  6. the figure engine (``core.engine``) at the figure drivers' own
+     settings: Fig. 7's 5 systems x 11 benchmarks at 4 GPUs x 32 CUs
+     (``pcie_lat`` 1000, 2048 rounds) in one ``sweep`` on the card, Fig.
+     8's 16-GPU point (11 x 512 lanes, 256 rounds) and Fig. 9's Xtreme
+     suite (9 traces, HALCONE and SM-WT-NC, one ``sweep`` as
+     ``fig9_xtreme.py`` runs it), each equal to the port on the CPU
+     (counters equal, cycles within rtol 1e-6); ``simulate`` on the card
+     of Xtreme 1 at 192 KB and Fig. 5's litmus traces, the whole state
+     and the logs equal to the CPU's and the read logs
+     ``tests/test_protocol_litmus.py`` asserts; ``lease_probe`` launched
+     twice a round per static group (three times under HMG); each group's
+     loop run under ``set_sync_debug_mode("error")``; the Fig. 7 cycles
+     and geomean speedups over RDMA-WB-NC beside the paper's (simulated
+     cycles of the modelled system), seconds, round steps and cell-rounds
+     per second, and one group under ``torch.profiler``;
+  7. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
@@ -237,13 +257,45 @@ def _scanned(tags, addr):
         int((f >= 0).sum())
 
 
-def probe_bound(tags, addr):
+def probe_bound(tags, addr, lane_words=0):
     """The indexed form: per lane its set's tags up to the first match,
     the rts of a hit, its address and row and the outputs (5 int32 + 2
-    bool), and the one clock; operations, the compares and 8 a lane."""
+    bool), and the one clock (``lane_words`` more int32 a lane where each
+    lane has its own clock and grant); operations, the compares and 8 a
+    lane."""
     N = len(addr)
     scanned, hits = _scanned(tags, addr)
-    return 4 * scanned + 4 * hits + 30 * N + 4, scanned + 8 * N
+    return (4 * scanned + 4 * hits + (30 + 4 * lane_words) * N + 4,
+            scanned + 8 * N)
+
+
+def engine_probe_case(rng, tier, N, W):
+    """lease_probe as the figure engine's round calls it, N = E*NC lanes of
+    E cells of 4 GPUs: ``tier`` "l1", each lane on its own CU's 64 sets of
+    an ``[N*64, W+1]`` table; "l2", a GPU's CUs sharing their bank's 256
+    sets of an ``[E*32*256, W+1]`` table (8 banks a GPU).  Every lane
+    has its own clock and its TSU grant; hits on about half, clocks and
+    grants near ``TS_MAX``.  Returns the tables, rows and the lanes'
+    vectors."""
+    import numpy as np
+    if tier == "l1":
+        K, row = N * 64, np.arange(N) * 64 + rng.integers(0, 64, N)
+    else:
+        cus = 32
+        K = N // cus * 8 * 256
+        bank = np.arange(N) // cus * 8 + rng.integers(0, 8, N)
+        row = bank * 256 + rng.integers(0, 256, N)
+    tag = rng.integers(-1, 1 << 20, (K, W + 1)).astype(np.int32)
+    tag[rng.random(K) < 0.2] = -1                  # empty sets
+    rts = rng.integers(65500, 65535, (K, W + 1)).astype(np.int32)
+    addr = rng.integers(0, 1 << 20, N).astype(np.int32)
+    hit = rng.random(N) < 0.5
+    addr[hit] = tag[row[hit], rng.integers(0, W, N)[hit]]
+    addr[addr == -1] = 1 << 20
+    cts = rng.integers(65500, 65535, N).astype(np.int32)
+    mwts = rng.integers(65500, 65535, N).astype(np.int32)
+    mrts = (mwts + rng.integers(1, 9, N)).astype(np.int32)
+    return tag, rts, row.astype(np.int32), cts, addr, mwts, mrts
 
 
 def miss_case(rng, M, C, K1=1024, K2=2048, KT=8, W=8, match_at=None):
@@ -416,6 +468,21 @@ def check_kernels(torch, np, dev, report):
                     functools.partial(ref.lease_probe_ref, row=rowt),
                     (tt[1][:, :-1], rt[1][:, :-1], ct[1:2], at),
                     probe_bound(tag[1, row, :-1], addr), [N, W], old)
+    # lease_probe as the figure engine's round calls it: the L1 (W = 4)
+    # and the L2 (W = 16) tables of Fig. 7's 11 cells of 4 x 32 CUs (1408
+    # lanes) and of Fig. 8's 16-GPU point (5632 lanes), read in place at
+    # each lane's row, a clock and a grant per lane
+    for N in (1408, 5632):
+        for tier, W in (("l1", 4), ("l2", 16)):
+            tag, rts, row, cts, addr, mwts, mrts = engine_probe_case(
+                rng, tier, N, W)
+            tt, rt = T(tag)[:, :-1], T(rts)[:, :-1]
+            rowt = T(row)
+            compare("lease_probe", functools.partial(lease_probe, row=rowt),
+                    functools.partial(ref.lease_probe_ref, row=rowt),
+                    (tt, rt, *map(T, (cts, addr, mwts, mrts))),
+                    probe_bound(tag[row, :-1], addr, lane_words=3),
+                    [N, W, tier])
     # miss_round as the miss pass calls it: replica 1's and node 1's sets
     # and the 8 TSU rows read in place, M lanes naming them (the lane
     # counts phase 3's replay launches: 32 and 64 a round, 8192 in the
@@ -1235,6 +1302,29 @@ def layer_errors(torch, cfg, params, tokens, h_host, hs_host):
     return out
 
 
+def f32_reference(torch, cfg, params, params_host, tokens, hs_host):
+    """F2: the bf16 model on the card and on the CPU (``hs_host``: the
+    CPU's hidden state after each block, then after the final norm), each
+    against the same model, its weights the bf16 ones upcast, computed in
+    f32 on the CPU: relative L2 after each layer and the final norm.
+    Which device is nearer the exact arithmetic."""
+    import dataclasses
+
+    from repro_torch.models.model import tree_map
+    f32 = torch.float32
+    cfg32 = dataclasses.replace(cfg, policy=dataclasses.replace(
+        cfg.policy, compute_dtype=f32, cache_dtype=f32))
+    p32 = tree_map(lambda t: t.to(f32) if t.is_floating_point() else t,
+                   params_host)
+    h32, hs32 = forward_layers(torch, cfg32, p32, tokens)
+    h_c, hs_c = forward_layers(torch, cfg, params, tokens.to("cuda"))
+    want = hs32 + [h32]
+    return {"card bf16 vs CPU f32": [rel_l2(a, b) for a, b in
+                                     zip(hs_c + [h_c], want)],
+            "CPU bf16 vs CPU f32": [rel_l2(a, b) for a, b in
+                                    zip(hs_host, want)]}
+
+
 def ssm_step_errors(torch, cfg, bp, h, dev="cuda"):
     """F2: one SSM block (``bp``, the CPU's parameters; ``h``, its bf16
     input on the CPU) split into the steps of ``models.ssm.ssm_apply``'s
@@ -1451,6 +1541,12 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
             "the final norm, by the card's ssd_chunk arithmetic:")
         for name, errs_l in per.items():
             log(f"    {name}: {', '.join(f'{e:.5f}' for e in errs_l)}")
+        f32 = f32_reference(torch, cfg4, p4, p4h, tok4, hs_h + [h_h])
+        rep["f32_layer_errs"] = f32
+        log("  F2: relative L2 against the same model in f32 on the CPU "
+            "after each layer and the final norm:")
+        for name, errs_l in f32.items():
+            log(f"    {name}: {', '.join(f'{e:.5f}' for e in errs_l)}")
         # the second SSM block, split into its steps, each from the CPU's
         # input to it
         _, bp, h_in = [b for b in blocks if b[0] == "ssm"][1]
@@ -1497,6 +1593,327 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
             f" device events; device by kernel: {top}; ported kernels per "
             f"call {ported}; host by op (self): {host}")
     return launches, rep
+
+
+# ------------------------------------------------------------- phase 6
+# The figure engine at the figure drivers' own settings, copied here (the
+# script imports nothing of the JAX package): benchmarks/fig7_speedup.py's
+# ROUNDS and GEOM, fig8_scaling.py's 16-GPU point (32 CUs a GPU,
+# max(128, BASE_ROUNDS * 4 // 16) rounds with BASE_ROUNDS = 1024) and
+# fig9_xtreme.py's SIZES at 4 x 32 CUs
+FIG7_ROUNDS = 2048
+FIG7_GEOM = dict(pcie_lat=1000.0)
+FIG8_GPUS, FIG8_ROUNDS = 16, max(128, 1024 * 4 // 16)
+XTREME_SIZES = ((24, 10, "192KB"), (96, 4, "768KB"), (384, 2, "3MB"))
+# the paper's simulated geomean speedups over RDMA-WB-NC (Fig. 7, 4 GPUs)
+FIG7_PAPER = {"RDMA-WB-C-HMG": 1.5, "SM-WB-NC": 3.9, "SM-WT-NC": 4.6,
+              "SM-WT-C-HALCONE": 4.6}
+# rounds of the HALCONE group profiled
+PROFILE_ROUNDS = 512
+
+
+def h2d_setup_cycles(cfg, touched_blocks: int) -> float:
+    """RDMA systems pay explicit host->device copies (the paper's first
+    reason shared memory wins, §5.1), prorated to the simulated slice
+    (copied from benchmarks/fig7_speedup.py)."""
+    if cfg.topology != "rdma":
+        return 0.0
+    return touched_blocks * 64 / 32.0  # 32 B/cycle PCIe4
+
+
+class GroupRuns:
+    """While entered, each static group ``engine.sweep`` or ``simulate``
+    runs: its config names, rounds, cells, ``lease_probe`` launches and the
+    host's time to enqueue its loop (the loop does not wait for the
+    card)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        from repro_torch.core import engine
+        from repro_torch.kernels.lease_probe import lease_probe
+        self._run = run = engine._run
+
+        def counted(cfg, C, ops_t, *a, **kw):
+            before, t0 = lease_probe.launches, time.perf_counter()
+            out = run(cfg, C, ops_t, *a, **kw)
+            self.rows.append({
+                "configs": cfg.name, "protocol": cfg.protocol,
+                "rounds": ops_t.shape[0], "cells": C * ops_t.shape[1],
+                "lease_probe": lease_probe.launches - before,
+                "enqueue_s": time.perf_counter() - t0})
+            return out
+
+        engine._run = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import engine
+        engine._run = self._run
+
+    def check(self):
+        """``lease_probe`` twice a round per group (L2, L1), three times
+        under HMG (the home probe)."""
+        for r in self.rows:
+            want = (3 if r["protocol"] == "hmg" else 2) * r["rounds"]
+            if r["lease_probe"] != want:
+                raise AssertionError(f"{r['configs']}: lease_probe launched "
+                                     f"{r['lease_probe']} times over "
+                                     f"{r['rounds']} rounds, not {want}")
+
+
+def compare_sweeps(np, a, b, what) -> None:
+    """Card against CPU: counters equal, cycles within rtol 1e-6 (a per-GPU
+    mean summed in another order)."""
+    for k in a["counters"]:
+        if not np.array_equal(a["counters"][k], b["counters"][k]):
+            raise AssertionError(f"{what}: counter {k} differs card vs CPU")
+    for k in ("cycles", "makespan_max"):
+        if not np.allclose(a[k], b[k], rtol=1e-6, atol=0) or \
+                not np.isfinite(a[k]).all() or (a[k] <= 0).any():
+            raise AssertionError(f"{what}: {k} differs card vs CPU")
+
+
+def compare_runs(np, torch, a, b, what) -> None:
+    """Two ``simulate`` results: read and result logs and every state leaf
+    bit-equal, counters equal."""
+    if not np.array_equal(a["read_log"], b["read_log"]) or any(
+            not np.array_equal(a["res_log"][k], b["res_log"][k])
+            for k in a["res_log"]):
+        raise AssertionError(f"{what}: logs differ card vs CPU")
+    sa, sb = a["state"], b["state"]
+    leaves = [(n, getattr(sa, n), getattr(sb, n)) for n in
+              ("l2_dirty", "mm_ver", "dir_sharers", "time")]
+    leaves += [(f"{t}.{f}", x, y) for t in ("l1", "l2", "tsu")
+               for f, x, y in zip(getattr(sa, t)._fields, getattr(sa, t),
+                                  getattr(sb, t))]
+    bad = [n for n, x, y in leaves if not torch.equal(x.cpu(), y.cpu())]
+    if bad or a["counters"] != b["counters"]:
+        raise AssertionError(f"{what}: state {bad} or counters differ")
+
+
+def card_sweep(engine, cfgs, ops, addrs):
+    """One ``sweep`` on the card (``device=None``), with its groups'
+    ``lease_probe`` launches (checked) and times."""
+    runs = GroupRuns()
+    with runs:
+        t0 = time.perf_counter()
+        card = engine.sweep(cfgs, ops, addrs)
+        card_s = time.perf_counter() - t0
+    runs.check()
+    steps = sum(r["rounds"] for r in runs.rows)
+    cell_rounds = sum(r["rounds"] * r["cells"] for r in runs.rows)
+    return card, {"card_s": card_s, "groups": runs.rows,
+                  "round_steps_per_s": steps / card_s,
+                  "cell_rounds_per_s": cell_rounds / card_s,
+                  "lease_probe_launches": [r["lease_probe"]
+                                           for r in runs.rows]}
+
+
+def log_sweep(what, rep) -> None:
+    steps = sum(r["rounds"] for r in rep["groups"])
+    enq = ", ".join(f"{r['enqueue_s']:.1f}" for r in rep["groups"])
+    log(f"  {what}: card {rep['card_s']:.1f} s ({len(rep['groups'])} "
+        f"groups, {steps} round steps, {rep['round_steps_per_s']:.0f} "
+        f"round steps/s, {rep['cell_rounds_per_s']:.0f} cell-rounds/s; "
+        f"host enqueue {enq} s), cpu {rep['cpu_s']:.1f} s; card == cpu "
+        "(counters equal, cycles rtol 1e-6); lease_probe "
+        f"{rep['lease_probe_launches']} launches = 2 a round per group, 3 "
+        "under HMG")
+
+
+def cpu_engine_side(jobs, threads):
+    """Phase 6's CPU side, run in a worker process beside the card runs:
+    each job ``(kind, cfg or cfgs, ops, addrs)`` through ``sweep`` or
+    ``simulate`` on the CPU with ``threads`` intra-op threads; returns
+    ``{name: (result, seconds)}`` (a ``simulate`` state as CPU
+    tensors)."""
+    import torch
+
+    from repro_torch.core import engine
+    torch.set_num_threads(threads)
+    out = {}
+    for name, (kind, cfg, ops, addrs) in jobs.items():
+        t0 = time.perf_counter()
+        fn = engine.sweep if kind == "sweep" else engine.simulate
+        out[name] = (fn(cfg, ops, addrs, device="cpu"),
+                     time.perf_counter() - t0)
+    return out
+
+
+def geomeans(np, cycles, names):
+    base = cycles[names.index("RDMA-WB-NC")]
+    return {n: float(np.exp(np.mean(np.log(base / cycles[i]))))
+            for i, n in enumerate(names) if n != "RDMA-WB-NC"}
+
+
+def check_engine_no_sync(torch, engine, sc, ops, addrs) -> None:
+    """The round loop enqueues its device work with no host sync: each
+    Fig. 7 group's loop and a ``simulate`` loop (with its result log) run
+    8 rounds under ``set_sync_debug_mode("error")``, their inputs on the
+    card already."""
+    from repro_torch.coherence.fabric.backend import to_device
+    dev = torch.device("cuda")
+    n_addr = engine._next_pow2(int(addrs.max()) + 2)
+    ops_t = to_device(ops[:, :, :8].transpose(2, 0, 1), dev)
+    addrs_t = to_device(addrs[:, :, :8].transpose(2, 0, 1), dev)
+    groups = [sc.stack_configs([mk(**FIG7_GEOM)]) for mk in sc.ALL_CONFIGS]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in groups:
+            engine._run(g, 1, ops_t, addrs_t, n_addr, False)
+        engine._run(groups[-1], 1, ops_t[:, :1], addrs_t[:, :1], n_addr,
+                    True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def check_litmus(np, torch, engine, sc, traces) -> None:
+    """Fig. 5's litmus traces with ``simulate`` on the card, at the litmus
+    tests' 2 GPUs x 2 CUs and at 4 x 32: card == CPU, and the read logs
+    and clocks ``tests/test_protocol_litmus.py`` asserts."""
+    for kw in (dict(n_gpus=2, cus_per_gpu=2), {}):
+        cfg = sc.sm_wt_halcone(**kw)
+        a = engine.simulate(cfg, *traces.litmus_intra(cfg))
+        compare_runs(np, torch, a, engine.simulate(
+            cfg, *traces.litmus_intra(cfg), device="cpu"), "Fig. 5(a)")
+        log0, log1 = a["read_log"][0], a["read_log"][1]
+        cts = a["state"].l1_cts[:2].tolist()
+        if (log0[0], log0[3], log1[1], log1[5]) != (0, 0, 0, 1) or \
+                cts != [11, 11]:
+            raise AssertionError(f"Fig. 5(a): read logs {log0} {log1}, "
+                                 f"clocks {cts}")
+        b = engine.simulate(cfg, *traces.litmus_inter(cfg))
+        compare_runs(np, torch, b, engine.simulate(
+            cfg, *traces.litmus_inter(cfg), device="cpu"), "Fig. 5(b)")
+        g0, g1 = b["read_log"][0], b["read_log"][cfg.cus_per_gpu]
+        if (g0[0], g1[1], g0[3], g1[5]) != (0, 0, 0, 1) or \
+                float(b["counters"]["l2_to_mm"]) < 4:
+            raise AssertionError(f"Fig. 5(b): read logs {g0} {g1}")
+    log("  Fig. 5 litmus with simulate on the card at 2x2 and 4x32 CUs: "
+        "card == CPU (whole state, logs); (a) reads X 0, 0 at CU0, Y 0 "
+        "then 1 at CU1 (the coherency miss), both clocks 11; (b) GPU1 "
+        "re-reads Y = 1 from MM")
+
+
+def check_engine(torch, np):
+    """Phase 6: the figure engine on the card against the port on the
+    CPU (see the module docstring).  The CPU side runs in one worker
+    process (4 threads) while the card runs; the profile comes after it
+    has ended."""
+    import concurrent.futures
+    import multiprocessing
+
+    from repro_torch.core import engine, sysconfig as sc, traces
+    out = {}
+    benches = list(traces.STANDARD)
+    cfgs = [mk(**FIG7_GEOM) for mk in sc.ALL_CONFIGS]
+    names = [c.name for c in cfgs]
+    t0 = time.perf_counter()
+    named = [traces.standard_trace(cfgs[-1], traces.STANDARD[b],
+                                   FIG7_ROUNDS) for b in benches]
+    ops, addrs = traces.pack_batch(named)
+    cfg16 = sc.sm_wt_halcone(n_gpus=FIG8_GPUS, cus_per_gpu=32)
+    t16 = traces.pack_batch([traces.standard_trace(
+        cfg16, traces.STANDARD[b], FIG8_ROUNDS) for b in benches])
+    xcfgs = [sc.sm_wt_halcone(), sc.sm_wt_nc()]
+    xnamed = {f"X{v}/{label}": traces.xtreme(
+        xcfgs[0], traces.XtremeSpec(v, nb, reps))
+        for v in (1, 2, 3) for nb, reps, label in XTREME_SIZES}
+    xops, xaddrs = traces.pack_batch(list(xnamed.values()))
+    x1 = f"X1/{XTREME_SIZES[0][2]}"
+    log(f"  traces: Fig. 7 11 benchmarks x {cfgs[0].n_cus} CUs x "
+        f"{FIG7_ROUNDS} rounds, Fig. 8 x {cfg16.n_cus} CUs x {FIG8_ROUNDS}, "
+        f"9 Xtreme of {xops.shape[2]} rounds, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    jobs = {"fig7": ("sweep", cfgs, ops, addrs),
+            "fig8_16gpu": ("sweep", [cfg16], *t16),
+            "fig9": ("sweep", xcfgs, xops, xaddrs),
+            "x1": ("simulate", xcfgs[0], *xnamed[x1])}
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_future = pool.submit(cpu_engine_side, jobs, 4)
+        check_engine_no_sync(torch, engine, sc, ops, addrs)
+        log("  the round loop enqueues with no host sync (sync debug mode, "
+            "every Fig. 7 group and a simulate loop)")
+        card = {k: card_sweep(engine, *job[1:]) for k, job in jobs.items()
+                if job[0] == "sweep"}
+        t0 = time.perf_counter()
+        card_x1 = engine.simulate(xcfgs[0], *xnamed[x1])
+        x1_s = time.perf_counter() - t0
+        check_litmus(np, torch, engine, sc, traces)
+        cpu = cpu_future.result()
+    log("  (the card's times below were taken while the CPU side ran in a "
+        "second process)")
+    for k, (res, rep) in card.items():
+        compare_sweeps(np, res, cpu[k][0], k)
+        rep["cpu_s"] = cpu[k][1]
+        out[k] = rep
+    compare_runs(np, torch, card_x1, cpu["x1"][0], f"{x1} {xcfgs[0].name}")
+
+    # ---- Fig. 7: 5 systems x 11 benchmarks, one sweep
+    log_sweep(f"Fig. 7, 5 x 11 cells, {FIG7_ROUNDS} rounds", out["fig7"])
+    cyc = card["fig7"][0]["cycles"].astype(np.float64)
+    touched = [len(np.unique(a[(o == 1) | (o == 2)])) for o, a in named]
+    cyc_h2d = cyc + np.array([[h2d_setup_cycles(c, t) for t in touched]
+                              for c in cfgs])
+    gm, gm_h2d = geomeans(np, cyc, names), geomeans(np, cyc_h2d, names)
+    out["fig7"].update({
+        "benchmarks": benches, "configs": names, "cycles": cyc.tolist(),
+        "cycles_h2d": cyc_h2d.tolist(), "geomean": gm, "geomean_h2d": gm_h2d,
+        "counters": {k: v.tolist() for k, v in
+                     card["fig7"][0]["counters"].items()}})
+    log("  Fig. 7 simulated cycles (the modelled 4-GPU system's, not a "
+        f"speed of any chip), kcycles, benchmarks {benches}:")
+    for n, row in zip(names, cyc):
+        log(f"    {n:16s} " + " ".join(f"{x / 1e3:8.1f}" for x in row))
+    log("  geomean speedup over RDMA-WB-NC: raw / with the h2d staging "
+        "term / the paper's: " + "; ".join(
+            f"{n} {gm[n]:.2f}x / {gm_h2d[n]:.2f}x / {FIG7_PAPER[n]}x"
+            for n in gm))
+
+    # ---- Fig. 8's 16-GPU point: 11 x 512 lanes
+    log_sweep(f"Fig. 8 at {FIG8_GPUS} GPUs x 32 CUs, 11 x {cfg16.n_cus} "
+              f"lanes, {FIG8_ROUNDS} rounds", out["fig8_16gpu"])
+    cyc16 = card["fig8_16gpu"][0]["cycles"][0]
+    out["fig8_16gpu"]["cycles"] = cyc16.tolist()
+    log("  Fig. 8 16-GPU cycles, kcycles: " + " ".join(
+        f"{b} {x / 1e3:.1f}" for b, x in zip(benches, cyc16)))
+
+    # ---- Fig. 9's Xtreme suite as fig9_xtreme.py runs it: 9 traces in
+    # one batch, HALCONE and SM-WT-NC
+    log_sweep(f"Fig. 9, 2 x 9 Xtreme cells, {xops.shape[2]} rounds",
+              out["fig9"])
+    xc = card["fig9"][0]["cycles"]
+    slow = (xc[0] / xc[1] - 1) * 100
+    out["fig9"]["slowdown_pct"] = dict(zip(xnamed, slow.tolist()))
+    log("  Fig. 9 HALCONE slowdown over SM-WT-NC, %: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in zip(xnamed, slow))
+        + " (the paper's worst: 14.3 / 12.1 / 16.8 at 192KB)")
+    out["simulate_x1"] = {"card_s": x1_s, "cpu_s": cpu["x1"][1]}
+    log(f"  simulate {x1} on {xcfgs[0].name}, {xnamed[x1][0].shape[1]} "
+        f"rounds: card {x1_s:.1f} s, cpu {cpu['x1'][1]:.1f} s, card == "
+        "CPU (whole state, logs)")
+
+    # ---- one group under the profiler: the device's share of the loop
+    prof = profile_calls(torch, lambda: engine.sweep(
+        [cfgs[-1]], ops[:, :, :PROFILE_ROUNDS],
+        addrs[:, :, :PROFILE_ROUNDS]), 1)
+    out["profile_halcone"] = prof
+    lp = prof["ported_kernels"]["lease_probe"]
+    top = ", ".join(f"{r['name'][:40]} {r['us']:.0f} us x {r['count']}"
+                    for r in prof["device_by_name"][:5])
+    log(f"  profiled: the HALCONE group, 11 cells, {PROFILE_ROUNDS} rounds: "
+        f"wall {prof['wall_us'] / 1e3:.1f} ms, device busy "
+        f"{prof['device_busy_us'] / 1e3:.1f} ms, idle share "
+        f"{prof['device_idle_share']:.3f}, "
+        f"{prof['device_events'] / PROFILE_ROUNDS:.0f} device events a "
+        f"round; lease_probe {lp['us'] / 1e3:.2f} ms in {lp['count']} "
+        f"launches; device by kernel: {top}")
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -1650,11 +2067,16 @@ def main() -> None:
             f"{rep['prefill_device_ms']:.2f} ms")
     report["ssm_serving"] = {SSM_ARCH: ssm, HYBRID_ARCH: hyb}
 
+    # ---- 6. the figure engine, card vs CPU
+    log("phase 6: the figure engine (Fig. 7 matrix, Fig. 8's 16-GPU point, "
+        "Fig. 9's Xtreme suite, Fig. 5's litmus), card vs CPU")
+    report["engine"] = check_engine(torch, np)
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # ---- 6. summary lines: each kernel's row at the main path's shapes
+    # ---- 7. summary lines: each kernel's row at the main path's shapes
     main_shape = {"lease_probe": [64, 8], "miss_round": [8, 64, 1024],
                   "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],

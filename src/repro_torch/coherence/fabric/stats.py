@@ -1,9 +1,9 @@
 """Unified coherence telemetry: one counter block for simulator and service.
 
 The port's copy of ``repro.coherence.fabric.stats``: the fabric reports
-the exact counter names of the hierarchy simulator (``COUNTERS``, copied
-from ``repro.core.engine.COUNTERS``) plus a few service-level extras, so a
-production trace and a simulated trace compare row for row.
+the exact counter names of the hierarchy simulator
+(``repro_torch.core.engine.COUNTERS``) plus a few service-level extras, so
+a production trace and a simulated trace compare row for row.
 
 Name mapping (service <-> simulator):
   l1_*  = replica tier (the CU's L1)
@@ -15,11 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-# the hierarchy simulator's counter names (repro.core.engine.COUNTERS)
-COUNTERS = ("l1_to_l2", "l2_to_mm", "l1_hits", "l2_hits", "coh_miss_l1",
-            "coh_miss_l2", "wb_evictions", "inval_msgs", "pcie_blocks",
-            "reads", "writes", "bytes_l1_l2", "bytes_l2_mm",
-            "bytes_inter_gpu")
+from repro_torch.core.engine import COUNTERS
 
 
 @dataclasses.dataclass

@@ -168,26 +168,53 @@ def tsu_lease(memts, is_write, rd_lease, wr_lease) -> TSUGrant:
     return TSUGrant(wts, rts, new_memts, ovf)
 
 
-def _flat(a, idx, set_idx, way):
+def flat_index(a, idx, set_idx, way):
     """Linear offsets of ``a[idx, set_idx, way]`` in a contiguous [H, S, W]."""
     _, S, W = a.shape
     return ((idx.long() * S + set_idx.long()) * W + way.long())
 
 
+def last_lane(lin, n: int, scratch=None):
+    """For each lane, the highest lane with the same flat target ``lin``
+    (int64, each in ``[0, n)``): the lane whose value the reference's
+    ``.at[].set`` keeps where targets repeat (XLA applies duplicate
+    updates in lane order).  ``index_put_`` leaves that winner undefined
+    on CUDA, so the port picks it the same way on both devices and writes
+    every target from its winner alone.  ``scratch``: an int32 ``[n]``
+    buffer of -1s, left as it was found (None allocates one)."""
+    lanes_ = torch.arange(lin.shape[0], dtype=_i32, device=lin.device)
+    own = scratch is None
+    if own:
+        scratch = torch.full((n,), -1, dtype=_i32, device=lin.device)
+    win = scratch.scatter_reduce_(0, lin, lanes_, "amax")[lin]
+    if not own:
+        scratch.index_fill_(0, lin, -1)
+    return win
+
+
+def set_last(a, lin, value, win):
+    """``a.view(-1)[lin] = value`` with the highest lane winning each
+    repeated target (``win`` from ``last_lane``), IN PLACE: every lane
+    writes its target's winning value, so repeats carry equal values."""
+    a.view(-1).index_put_((lin,), value[win])
+
+
 def tsu_commit_scatter(tsu: TSUState, idx, set_idx, way, addr, new_memts,
-                       active, tag_hit) -> TSUState:
+                       active, tag_hit, scratch=None) -> TSUState:
     """The simulator's TSU update, IN PLACE: same-round requests to one
     slot resolve by scatter-max (the largest extension wins; on an
-    eviction-install the largest tag keeps the slot).  Inactive requests go
-    to the trash way."""
+    eviction-install the largest tag keeps the slot); the clear before it
+    is a set, where the highest lane wins as in the reference.  Inactive
+    requests go to the trash way.  ``scratch``: ``last_lane``'s."""
     tw = torch.where(active, way, tsu.n_ways)
-    lin = _flat(tsu.tag, idx, set_idx, tw)
+    lin = flat_index(tsu.tag, idx, set_idx, tw)
+    old = tsu.memts.view(-1)[lin]
     tsu.tag.view(-1).scatter_reduce_(
         0, lin, torch.where(active, addr, INVALID), "amax")
-    old = tsu.memts[idx, set_idx, tw]
     cleared = torch.where(active & ~tag_hit, 0, old)
-    tsu.memts.index_put_((idx, set_idx, tw), torch.where(
-        active, torch.clamp_min(cleared, 0), cleared))
+    set_last(tsu.memts, lin, torch.where(active, torch.clamp_min(cleared, 0),
+                                         cleared),
+             last_lane(lin, tsu.memts.numel(), scratch))
     tsu.memts.view(-1).scatter_reduce_(
         0, lin, torch.where(active, new_memts, 0), "amax")
     return tsu

@@ -19,10 +19,10 @@
 // i on row i.  `cts` is per lane or one clock for every lane (cts_step 0:
 // a tier's replica clock), and a null mwts / mrts reads as 0, so the
 // caller gathers, fills and allocates nothing before the launch.  The
-// set is short (W <= 8 in the repo's geometries) and all its ways are
-// loaded at once (halcone::first_way); the first match is exactly the
-// reference's `eq & (cumsum(eq) == 1)`; way and row_rts are 0 when no way
-// matches.
+// set is short (W = 2-8 in the fabric's tiers, 4 and 16 in the figure
+// engine's L1 and L2) and its ways are loaded 32 at a time, all at once
+// (halcone::first_way); the first match is exactly the reference's
+// `eq & (cumsum(eq) == 1)`; way and row_rts are 0 when no way matches.
 #include "halcone.cuh"
 
 namespace {

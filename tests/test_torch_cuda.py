@@ -117,11 +117,12 @@ def test_cuda_miss_round_equals_plain(cuda_device, N, W1, W2, C, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [1, 64, 4096])
-@pytest.mark.parametrize("W", [2, 8])
+@pytest.mark.parametrize("W", [2, 4, 8, 16])
 def test_cuda_lease_probe_indexed_equals_plain(cuda_device, N, W):
     """The indexed form at the fast read's shape: a replica tier's 1024
     sets read in place at ``row``, one clock, no grant (read as 0), and
-    with a clock and a grant per lane; exact, one launch each."""
+    with a clock and a grant per lane; exact, one launch each.  W = 4 and
+    16 are the figure engine's L1 and L2 ways."""
     for one_clock, grant in ((True, False), (False, True)):
         (tag, rts), row, cts, addr, mwts, mrts = probe_tables(
             1024, N, W, N + W, one_clock)
@@ -469,6 +470,50 @@ def test_cuda_fabric_equals_cpu_fabric(cuda_device):
     xa, ha = a.export_state()
     xb, hb = b.export_state()
     assert all(np.array_equal(xa[k], xb[k]) for k in xa)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_equals_cpu_engine(cuda_device):
+    """The figure engine on the card (``device=None``) against the port on
+    the CPU: all five systems at 2 GPUs x 4 CUs over two benchmarks of 96
+    rounds (one cut to 79, so NOP padding shows) with equal counters and
+    cycles within rtol 1e-6 (a per-GPU mean summed in another order);
+    ``lease_probe`` launched twice a round per static group, three times
+    under HMG; the litmus trace's whole state, read log and result log
+    bit-equal."""
+    from repro_torch.core import engine, sysconfig, traces
+
+    kw = dict(n_gpus=2, cus_per_gpu=4)
+    base = sysconfig.sm_wt_halcone(**kw)
+    tl = [traces.standard_trace(base, traces.STANDARD[b], 96)
+          for b in ("aes", "bs")]
+    tl[0] = (tl[0][0][:, :79], tl[0][1][:, :79])
+    ops, addrs = traces.pack_batch(tl)
+    cfgs = [make(**kw) for make in sysconfig.ALL_CONFIGS]
+    for cfg in cfgs:
+        before = lease_probe.launches
+        engine.sweep([cfg], ops, addrs, device=cuda_device)
+        assert lease_probe.launches - before == \
+            (3 if cfg.protocol == "hmg" else 2) * 96, cfg.name
+    got = engine.sweep(cfgs, ops, addrs)
+    want = engine.sweep(cfgs, ops, addrs, device="cpu")
+    np.testing.assert_allclose(got["cycles"], want["cycles"], rtol=1e-6)
+    for k in engine.COUNTERS:
+        np.testing.assert_array_equal(got["counters"][k], want["counters"][k],
+                                      err_msg=k)
+    lit = traces.litmus_intra(base)
+    a, b = engine.simulate(base, *lit), engine.simulate(base, *lit,
+                                                        device="cpu")
+    assert a["state"].l1.tag.device.type == "cuda"
+    np.testing.assert_array_equal(a["read_log"], b["read_log"])
+    for k in a["res_log"]:
+        np.testing.assert_array_equal(a["res_log"][k], b["res_log"][k])
+    for name in ("l1", "l2", "tsu"):
+        for x, y in zip(getattr(a["state"], name), getattr(b["state"], name)):
+            assert torch.equal(x.cpu(), y), name
+    for name in ("l2_dirty", "mm_ver", "dir_sharers", "time"):
+        assert torch.equal(getattr(a["state"], name).cpu(),
+                           getattr(b["state"], name)), name
 
 
 # ------------------------------------------------------------ float kernels
