@@ -103,7 +103,19 @@ Phases (any failure raises and the script exits non-zero):
      and geomean speedups over RDMA-WB-NC beside the paper's (simulated
      cycles of the modelled system), seconds, round steps and cell-rounds
      per second, and one group under ``torch.profiler``;
-  7. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
+  7. the sharded fabric: phase 3's warm and trace through
+     ``BatchedKVLease`` on ``ShardedArrayFabric`` over a fabric group,
+     in a world of one over NCCL and a world of two ranks sharing the
+     card over gloo with CUDA tensors (``--fabric-rank`` starts a rank),
+     each rank equal to phase 3's CPU replay bit for bit (results, grant
+     log, counters, replica counters, every key's ``memts``, the whole
+     state) and to the port's ``HostFabric`` on the same trace; each
+     rank's ``c10d`` collectives by pass (``obs.xprof``: 1 a TSU-touching
+     pass, 0 an all-hit read batch), its TSU rows, the coherence kernels'
+     launches, bytes gathered a wave, capacity, the host time of the
+     exchange a pass, and under ``torch.profiler`` the idle share and the
+     all-gather's host and device time;
+  8. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
@@ -139,6 +151,14 @@ MAX_BATCH = 64
 REPUBLISH_EVERY = 4 * MAX_BATCH
 REPUBLISH_N = 16
 WARM_CHUNK = MAX_BATCH
+# phase 7: the sharded fabric, (backend, ranks) per world; the two ranks
+# share the one card over gloo with CUDA tensors (NCCL refuses two ranks
+# on one device)
+FABRIC_WORLDS = (("nccl", 1), ("gloo", 2))
+FABRIC_RANK_TIMEOUT_S = 300
+# the profiled closed-loop replay of phase 7 takes the trace's first
+# requests: the profiler's own cost grows with the events it records
+FABRIC_PROFILE_REQUESTS = 512
 # tensor-core peak in bf16 (data sheet, dense); f32 math runs on the
 # CUDA cores at the 67 TFLOP/s above
 BF16_FLOPS_PER_S = 989e12
@@ -796,11 +816,28 @@ class Serving:
         self.reader = BatchedKVLease(fab, replica=1)
         self.writer = BatchedKVLease(fab, replica=0)
         self.served = []
+        # {pass: [c10d collectives of each call]} while counted (phase 7)
+        self.collectives = None
+
+    def _call(self, kind, fn):
+        """Run one fabric call; while counted, tally the ``c10d``
+        collectives it issues (``obs.xprof``) under its pass: a read batch
+        is "read, all hit" when the replica tier served it alone."""
+        if self.collectives is None:
+            return fn()
+        from repro_torch.obs.xprof import collective_counts
+        fast = self.fab.fast_read_batches
+        out, c = collective_counts(fn)
+        if kind == "read":
+            kind = ("read, all hit" if self.fab.fast_read_batches > fast
+                    else "read, misses")
+        self.collectives[kind].append(c["total"])
+        return out
 
     def read_batch_async(self, keys, replica):
         from repro_torch.coherence.fabric import ReadBatchHandle
         assert replica == self.reader.replica
-        h = self.reader.get_batch_async(keys)
+        h = self._call("read", lambda: self.reader.get_batch_async(keys))
         return ReadBatchHandle(lambda: self._record(h.result()))
 
     def _record(self, out):
@@ -809,23 +846,33 @@ class Serving:
 
     def write_batch(self, items, replica):
         assert replica == self.writer.replica
-        self.writer.put_batch(items)
+        self._call("write", lambda: self.writer.put_batch(items))
 
     def fence(self):
-        return self.writer.fence()
+        return self._call("fence", self.writer.fence)
 
 
 def key_of(k: int) -> str:
     return f"prefix/{k}"
 
 
+def fabric_config():
+    """The serving bench's geometry: 8 TSU shards x 1024 entries."""
+    from repro_torch.coherence.fabric import FabricConfig
+    return FabricConfig(n_shards=8, rd_lease=8, wr_lease=4,
+                        replica_sets=1024, replica_ways=8,
+                        shared_sets=2048, shared_ways=8)
+
+
 def build_fabric(device):
-    from repro_torch.coherence.fabric import FabricConfig, default_fabric
-    cfg = FabricConfig(n_shards=8, rd_lease=8, wr_lease=4,
-                       replica_sets=1024, replica_ways=8,
-                       shared_sets=2048, shared_ways=8)
-    return default_fabric(cfg, n_nodes=2, replicas_per_node=2,
+    from repro_torch.coherence.fabric import default_fabric
+    return default_fabric(fabric_config(), n_nodes=2, replicas_per_node=2,
                           device=device)
+
+
+def phase3_trace(loadgen):
+    return loadgen.synthesize(N_REQUESTS, N_KEYS, a=1.2, process="diurnal",
+                              rate=1.0, amplitude=0.9, cycles=3.0, seed=7)
 
 
 def warm(serving) -> None:
@@ -847,9 +894,12 @@ def service_model(n: int) -> float:
 def count_rounds(fab):
     """Wrap ``fab``'s write and fence passes to count the rounds each runs
     (the rows of its round matrix with a live lane): each round makes one
-    TSU write grant.  Returns the running counts."""
+    TSU write grant.  Returns the running counts (none for the host-object
+    fabric, which has no passes)."""
     import numpy as np
     n = collections.Counter()
+    if not hasattr(fab, "_write_run"):
+        return n
 
     def wrap(kind, run, masks_at):
         def counted(*args):
@@ -927,17 +977,20 @@ class CallSites:
                                      sorted(self.miss_lanes.items())}}
 
 
-def replay_modeled(device, trace, sites=None):
-    """Warm a fresh fabric on ``device`` and replay ``trace`` with the
-    deterministic service model; also returns the write and fence passes'
-    round counts."""
+def replay_modeled(device, trace, sites=None, fab=None, count=False):
+    """Warm a fresh fabric (``fab``, else one built on ``device``) and
+    replay ``trace`` with the deterministic service model; also returns
+    the write and fence passes' round counts.  ``count``: tally the
+    replay's ``c10d`` collectives by pass (``Serving.collectives``)."""
     from repro_torch.runtime import scheduler
-    fab = build_fabric(device)
+    fab = build_fabric(device) if fab is None else fab
     rounds = count_rounds(fab)
     serving = Serving(fab)
     with sites or contextlib.nullcontext():
         t0 = time.perf_counter()
         warm(serving)
+        if count:
+            serving.collectives = collections.defaultdict(list)
         t1 = time.perf_counter()
         wave = service_model(MAX_BATCH)
         pol = scheduler.BatchPolicy(mode="continuous", max_batch=MAX_BATCH,
@@ -1013,8 +1066,9 @@ def check_no_sync(torch, np) -> None:
         raise AssertionError("the miss pass did not serve the batch")
 
 
-def wall_replays(torch, np, fab, trace):
-    """Closed-loop capacity, then open-loop at 0.7x capacity, wall clock."""
+def capacity_replay(torch, np, fab, trace):
+    """Closed-loop capacity on the wall clock: every request arrives at
+    once, so the waves are the same on every rank of a fabric group."""
     from repro_torch.runtime import scheduler
     serving = Serving(fab)
     pol = scheduler.BatchPolicy(mode="continuous", max_batch=MAX_BATCH,
@@ -1023,8 +1077,23 @@ def wall_replays(torch, np, fab, trace):
     cap = scheduler.replay(serving, trace.scaled(1e9), pol,
                            republish_every=REPUBLISH_EVERY,
                            republish_n=REPUBLISH_N)
+    torch.cuda.synchronize()
     cap_rps = cap.n_requests / max(cap.t_end, 1e-9)
+    return cap, {"capacity_rps": cap_rps,
+                 "capacity_p50_us": float(np.percentile(cap.latency_s * 1e6,
+                                                        50)),
+                 "capacity_p99_us": float(np.percentile(cap.latency_s * 1e6,
+                                                        99)),
+                 "capacity_waves": len(cap.batch_sizes)}
+
+
+def wall_replays(torch, np, fab, trace):
+    """Closed-loop capacity, then open-loop at 0.7x capacity, wall clock."""
+    from repro_torch.runtime import scheduler
+    cap, out = capacity_replay(torch, np, fab, trace)
+    cap_rps = out["capacity_rps"]
     svc_wave = cap.t_end / max(len(cap.batch_sizes), 1)
+    serving = Serving(fab)
     pol = scheduler.BatchPolicy(mode="continuous", max_batch=MAX_BATCH,
                                 min_bucket=8,
                                 max_wait_s=max(1.5 * svc_wave, 1e-3))
@@ -1033,16 +1102,13 @@ def wall_replays(torch, np, fab, trace):
                            republish_n=REPUBLISH_N)
     torch.cuda.synchronize()
     lat = res.latency_s * 1e6
-    out = {"capacity_rps": cap_rps,
-           "capacity_p50_us": float(np.percentile(cap.latency_s * 1e6, 50)),
-           "capacity_p99_us": float(np.percentile(cap.latency_s * 1e6, 99)),
-           "offered_rps": 0.7 * cap_rps,
-           "achieved_rps": res.n_requests / max(res.t_end, 1e-9),
-           "p50_us": float(np.percentile(lat, 50)),
-           "p99_us": float(np.percentile(lat, 99)),
-           "waves": len(res.batch_sizes),
-           "mean_batch": float(np.mean(res.batch_sizes)),
-           "svc_wave_us": svc_wave * 1e6}
+    out.update({"offered_rps": 0.7 * cap_rps,
+                "achieved_rps": res.n_requests / max(res.t_end, 1e-9),
+                "p50_us": float(np.percentile(lat, 50)),
+                "p99_us": float(np.percentile(lat, 99)),
+                "waves": len(res.batch_sizes),
+                "mean_batch": float(np.mean(res.batch_sizes)),
+                "svc_wave_us": svc_wave * 1e6})
     return out
 
 
@@ -1107,13 +1173,23 @@ def device_breakdown(prof, wall_us):
     for e in dev:
         by_name[e.name][0] += 1
         by_name[e.name][1] += e.time_range.elapsed_us()
+    averages = prof.key_averages()
     top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     ported = {name: [n for n in by_name if any(sym in n for sym in syms)]
               for name, syms in KERNEL_SYMBOLS.items()}
     top_host = sorted(((a.key, a.count, a.self_cpu_time_total)
-                       for a in prof.key_averages()
-                       if a.self_cpu_time_total > 0),
+                       for a in averages if a.self_cpu_time_total > 0),
                       key=lambda r: -r[2])[:15]
+    # the all-gathers: c10d calls, their host time, NCCL's kernels (gloo's
+    # copies are not told apart from the others)
+    gathers = [a for a in averages if a.key == "c10d::allgather_"]
+    calls = sum(a.count for a in gathers)
+    coll = {"calls": calls,
+            "host_us": sum(a.cpu_time_total for a in gathers),
+            "device_us": sum(us for n, (_, us) in by_name.items()
+                             if "nccl" in n.lower())}
+    coll["host_us_per_call"] = coll["host_us"] / max(calls, 1)
+    coll["device_us_per_call"] = coll["device_us"] / max(calls, 1)
     return {"wall_us": wall_us, "device_busy_us": busy_us,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "device_events": len(dev),
@@ -1125,7 +1201,8 @@ def device_breakdown(prof, wall_us):
                     "symbols": [n[:120] for n in names]}
                 for k, names in ported.items()},
             "host_by_op": [{"op": k[:120], "count": c, "self_us": us}
-                           for k, c, us in top_host]}
+                           for k, c, us in top_host],
+            "collective_us": coll}
 
 
 def profile_calls(torch, fn, calls):
@@ -1916,6 +1993,296 @@ def check_engine(torch, np):
     return out
 
 
+# ------------------------------------------------------------- phase 7
+def tsu_shapes(fab) -> dict:
+    a = fab._af
+    return {"tsu": tuple(a.tsu.tag.shape), "tsu_memts":
+            tuple(a.tsu.memts.shape), "tsu_ver": tuple(a.tsu_ver.shape),
+            "tsu_gseq": tuple(a.tsu_gseq.shape),
+            "tsu_seq": tuple(a.tsu_seq.shape),
+            "tsu_nseq": tuple(a.tsu_nseq.shape)}
+
+
+def observables(fab, serving) -> dict:
+    """What phase 7 holds against phase 3's CPU replay: served results,
+    grant log, counters, replica counters, every key's ``memts``."""
+    return {"served": list(serving.served), "grant_log": list(fab.grant_log),
+            "stats": fab.stats(),
+            "replica_stats": [fab.replica_stats(r)
+                              for r in range(fab.n_replicas)],
+            "memts": [fab.memts(key_of(k)) for k in range(N_KEYS)]}
+
+
+class ExchangeClock:
+    """Host seconds a sharded fabric spends entering and leaving its
+    passes (``_xin``: wait for the gathered table; ``_xout``: keep the
+    owned rows, issue the next gather), and the number of passes."""
+
+    def __init__(self, fab):
+        self.s, self.passes = 0.0, 0
+        xin, xout = fab._xin, fab._xout
+
+        def timed_in():
+            t = time.perf_counter()
+            out = xin()
+            self.s += time.perf_counter() - t
+            self.passes += 1
+            return out
+
+        def timed_out():
+            t = time.perf_counter()
+            xout()
+            self.s += time.perf_counter() - t
+
+        fab._xin, fab._xout = timed_in, timed_out
+
+
+def fabric_rank(rank: int, world: int, backend: str, rdzv: str,
+                out_path: str) -> None:
+    """One rank of a phase-7 world (``chip_smoke.py --fabric-rank``): phase
+    3's warm and modeled replay through ``BatchedKVLease`` on the sharded
+    fabric over a fabric group on the card, the ``c10d`` collectives of
+    each replay call by pass, the coherence kernels' launches on this
+    rank; then the wall-clock replays and one closed-loop replay under
+    ``torch.profiler`` over the trace's first ``FABRIC_PROFILE_REQUESTS``.
+    Pickles what it saw to ``out_path``."""
+    stage = {"begin": time.perf_counter()}
+    import dataclasses
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.coherence.fabric import (ShardedArrayFabric,
+                                              default_fabric)
+    from repro_torch.kernels.lease_probe import lease_probe
+    from repro_torch.kernels.tier_pass import miss_round, write_grant
+    from repro_torch.launch.mesh import make_fabric_group
+    from repro_torch.runtime import loadgen
+
+    if backend == "nccl":
+        torch.cuda.set_device(rank)
+    # ranks that share the host split its CPU threads
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // world))
+    dist.init_process_group(
+        backend, init_method=f"file://{rdzv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=FABRIC_RANK_TIMEOUT_S))
+    group = make_fabric_group(8, backend=backend)
+    # a world of one is the degenerate layout (default_fabric picks the
+    # single-device fabric there, as the reference does on one device)
+    fab = (default_fabric(fabric_config(), 2, 2, group=group) if world > 1
+           else ShardedArrayFabric(fabric_config(), 2, 2, group=group))
+    kernels = (lease_probe, miss_round, write_grant)
+    for fn in kernels:
+        fn.launches = 0
+    trace = phase3_trace(loadgen)
+    stage["start"] = time.perf_counter()
+    _, serving, res, warm_s, rep_s, rounds = replay_modeled(
+        None, trace, fab=fab, count=True)
+    torch.cuda.synchronize()
+    stage["replay"] = time.perf_counter()
+    arrays, host = fab.export_state()
+    out = {"type": type(fab).__name__, "n_shard_devices": fab.n_shard_devices,
+           "device": str(fab.device), "shapes": tsu_shapes(fab),
+           "launches": {fn.__name__: fn.launches for fn in kernels},
+           "rounds": dict(rounds), "warm_s": warm_s, "replay_s": rep_s,
+           "waves": len(res.batch_sizes), "n_requests": res.n_requests,
+           "collectives": dict(serving.collectives),
+           "export": (arrays, host), **observables(fab, serving)}
+    # then, outside phase 3's trace: the found keys of one wave read twice
+    # by the reader; the second batch is served by the replica tier alone
+    keys = [key_of(k) for k in range(MAX_BATCH)]
+    found = [k for k, r in zip(keys, fab.read_batch(keys, replica=1))
+             if r is not None]
+    serving.read_batch_async(found, 1).result()
+    out["collectives"] = dict(serving.collectives)
+    stage["observe"] = time.perf_counter()
+    # the open-loop replay forms its waves from each rank's own clock, so
+    # ranks of a world of two would diverge: they replay closed-loop only,
+    # and check that their waves agree
+    clock = ExchangeClock(fab)
+    if world == 1:
+        out["wall"] = wall_replays(torch, np, fab, trace)
+    else:
+        cap, out["wall"] = capacity_replay(torch, np, fab, trace)
+        waves = [None] * world
+        dist.all_gather_object(waves, cap.batch_sizes, group=group)
+        if any(w != waves[0] for w in waves):
+            raise AssertionError("ranks formed different capacity waves")
+    out["exchange_s"], out["exchange_passes"] = clock.s, clock.passes
+    stage["wall"] = time.perf_counter()
+    n = FABRIC_PROFILE_REQUESTS
+    prof = profile_replay(torch, fab, dataclasses.replace(
+        trace, t=trace.t[:n], kid=trace.kid[:n]))
+    stage["profile"] = time.perf_counter()
+    names = list(stage)
+    out["stage_s"] = {b: stage[b] - stage[a] for a, b in zip(names, names[1:])}
+    out["profile"] = {k: prof[k] for k in ("wall_us", "device_busy_us",
+                                          "device_idle_share", "waves",
+                                          "device_events_per_wave",
+                                          "device_by_name", "host_by_op")}
+    out["profile"]["collective_us"] = prof["collective_us"]
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn_fabric_world(backend: str, world: int, tmp: pathlib.Path):
+    """Run ``world`` ranks of ``fabric_rank``; every rank's results.  A
+    rank that fails or outlasts ``FABRIC_RANK_TIMEOUT_S`` plus the replay
+    fails the phase, and every rank is stopped."""
+    import pickle
+    tmp.mkdir(parents=True, exist_ok=True)
+    rdzv = tmp / "rdzv"
+    rdzv.unlink(missing_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--fabric-rank",
+         str(r), str(world), backend, str(rdzv), str(tmp / f"out{r}.pkl")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + 2 * FABRIC_RANK_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 7: a {backend} rank of {world} did "
+                             "not finish in time")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 7: {backend} rank {r} of {world} "
+                                 f"exited {p.returncode}:\n{text[-4000:]}")
+    return [pickle.loads((tmp / f"out{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def compare_observables(got, want, what) -> None:
+    for key in ("served", "grant_log", "stats", "replica_stats", "memts"):
+        if got[key] != want[key]:
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def check_sharded(torch, np, fab_h, serv_h, rounds_h):
+    """Phase 7: the sharded fabric on the card in each of
+    ``FABRIC_WORLDS``, each rank held bit for bit against phase 3's CPU
+    replay (whole state included) and the port's ``HostFabric`` on the
+    same trace; collectives by pass, bytes gathered, capacity, idle share
+    and time in the exchange per pass."""
+    from repro_torch.coherence.fabric import HostFabric
+    from repro_torch.runtime import loadgen
+    want = observables(fab_h, serv_h)
+    xw, hw = fab_h.export_state()
+    t0 = time.perf_counter()
+    host = HostFabric(fabric_config(), n_nodes=2, replicas_per_node=2)
+    _, serv_o, _, _, _, _ = replay_modeled(None, phase3_trace(loadgen),
+                                           fab=host)
+    oracle = observables(host, serv_o)
+    host_s = time.perf_counter() - t0
+    compare_observables(oracle, want, "HostFabric vs phase 3's CPU "
+                        "replay")
+    log(f"  HostFabric replays phase 3's trace in {host_s:.1f} s on the "
+        "host: equal to phase 3's CPU replay")
+    # one gather moves the packed owned rows of every rank: 6 planes of
+    # [8, 1, 1025] int32 in all
+    gathered_bytes = 6 * 8 * (1024 + 1) * 4
+    report = {"host_fabric_s": host_s, "worlds": {}}
+    tmp = ROOT / "build" / "phase7"
+    for backend, world in FABRIC_WORLDS:
+        t0 = time.perf_counter()
+        ranks = spawn_fabric_world(backend, world, tmp / f"{backend}{world}")
+        wall_s = time.perf_counter() - t0
+        rows = []
+        for r, got in enumerate(ranks):
+            what = f"{backend} world of {world}, rank {r}"
+            if (got["type"], got["n_shard_devices"]) != (
+                    "ShardedArrayFabric", world):
+                raise AssertionError(f"{what}: {got['type']} over "
+                                     f"{got['n_shard_devices']} ranks")
+            compare_observables(got, want, what + " vs phase 3's CPU")
+            compare_observables(got, oracle, what + " vs HostFabric")
+            xg, hg = got["export"]
+            bad = [k for k in xw if not np.array_equal(xg[k], xw[k])]
+            if bad:
+                raise AssertionError(f"{what}: fabric state differs: {bad}")
+            # the write pass runs the same rounds; fences run the fence
+            # pass here (phase 3's single-device fabric: the op scan)
+            if got["rounds"].get("write") != rounds_h["write"]:
+                raise AssertionError(f"{what}: rounds {got['rounds']}")
+            want_shape = (8 // world, 1, 1025)
+            if got["shapes"]["tsu"] != want_shape or \
+                    got["shapes"]["tsu_nseq"] != (8 // world,):
+                raise AssertionError(f"{what}: TSU rows {got['shapes']}")
+            if min(got["launches"].values()) < 1:
+                raise AssertionError(f"{what}: launches {got['launches']}")
+            coll = got["collectives"]
+            want_per = {"read, misses": 1, "read, all hit": 0, "write": 1,
+                        "fence": 1}
+            if len(coll.get("read, all hit", ())) != 1:
+                raise AssertionError(f"{what}: the all-hit read batch was "
+                                     f"not served by the replica tier")
+            for kind, counts in coll.items():
+                if set(counts) != {want_per[kind]}:
+                    raise AssertionError(f"{what}: {kind} collectives per "
+                                         f"call {sorted(set(counts))}")
+            passes = sum(len(v) for k, v in coll.items()
+                         if want_per[k] == 1)
+            prof = got["profile"]
+            row = {"rank": r, "device": got["device"],
+                   "launches": got["launches"],
+                   "collectives_per_call": {k: (len(v), sum(v))
+                                            for k, v in coll.items()},
+                   "passes_per_wave": passes / got["waves"],
+                   "gathered_bytes_per_pass": gathered_bytes,
+                   "gathered_bytes_per_wave": gathered_bytes * passes
+                   / got["waves"],
+                   "warm_s": got["warm_s"], "replay_s": got["replay_s"],
+                   "wall": got["wall"],
+                   "exchange_ms_per_pass": got["exchange_s"] * 1e3
+                   / max(got["exchange_passes"], 1),
+                   "device_idle_share": prof["device_idle_share"],
+                   "collective_us": prof["collective_us"],
+                   "profile": prof}
+            rows.append(row)
+            log(f"  {what} on {got['device']}: == phase 3's CPU replay and "
+                "HostFabric (results, grant log, counters, replica "
+                "counters, memts, whole state); TSU rows "
+                f"{got['shapes']['tsu']}; launches {got['launches']}")
+            log("    c10d collectives by pass (calls, collectives): "
+                + ", ".join(f"{k} {n} / {c}" for k, (n, c) in
+                            sorted(row["collectives_per_call"].items()))
+                + f"; {row['passes_per_wave']:.2f} gathers a wave of "
+                f"{gathered_bytes} B ({row['gathered_bytes_per_wave']:.0f}"
+                " B a wave)")
+            wall = got["wall"]
+            open_loop = (f"; at 0.7x: p50 {wall['p50_us']:.0f} us, p99 "
+                         f"{wall['p99_us']:.0f} us" if "p50_us" in wall
+                         else "")
+            log(f"    capacity {wall['capacity_rps']:.0f} req/s (closed "
+                f"loop p50 {wall['capacity_p50_us']:.0f} us, p99 "
+                f"{wall['capacity_p99_us']:.0f} us){open_loop}; exchange "
+                f"{row['exchange_ms_per_pass']:.3f} ms of "
+                "host a pass; profiled: idle share "
+                f"{row['device_idle_share']:.3f}, collective "
+                f"{prof['collective_us']['host_us_per_call']:.1f} us of host"
+                f" and {prof['collective_us']['device_us_per_call']:.1f} us "
+                "of device a call")
+        report["worlds"][f"{backend}x{world}"] = {"wall_s": wall_s,
+                                                 "ranks": rows}
+        log(f"  {backend} world of {world}: {wall_s:.1f} s (rank 0: "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in
+                        ranks[0]["stage_s"].items()) + ")")
+    return report
+
+
 # ------------------------------------------------------------------ main
 def main() -> None:
     import torch
@@ -1978,8 +2345,7 @@ def main() -> None:
 
     # ---- 3. the main path, card vs CPU
     log(f"phase 3: main path, {N_KEYS} keys, {N_REQUESTS} requests")
-    trace = loadgen.synthesize(N_REQUESTS, N_KEYS, a=1.2, process="diurnal",
-                               rate=1.0, amplitude=0.9, cycles=3.0, seed=7)
+    trace = phase3_trace(loadgen)
     counters = (lease_probe, miss_round, write_grant)
     for fn in counters:
         fn.launches = 0
@@ -2072,11 +2438,16 @@ def main() -> None:
         "Fig. 9's Xtreme suite, Fig. 5's litmus), card vs CPU")
     report["engine"] = check_engine(torch, np)
 
+    # ---- 7. the sharded fabric on the card, card vs phase 3's CPU replay
+    log("phase 7: the sharded fabric (phase 3's trace over a fabric group: "
+        + ", ".join(f"{b} x {w}" for b, w in FABRIC_WORLDS) + ")")
+    report["sharded"] = check_sharded(torch, np, fab_h, serv_h, rounds_h)
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # ---- 7. summary lines: each kernel's row at the main path's shapes
+    # ---- 8. summary lines: each kernel's row at the main path's shapes
     main_shape = {"lease_probe": [64, 8], "miss_round": [8, 64, 1024],
                   "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
@@ -2106,4 +2477,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--fabric-rank"]:
+        r, w, b, z, o = sys.argv[2:7]
+        fabric_rank(int(r), int(w), b, z, o)
+    else:
+        main()

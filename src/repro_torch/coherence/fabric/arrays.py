@@ -36,6 +36,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.coherence.fabric import pipeline as P_
 from repro_torch.coherence.fabric.backend import (GRANT_LOG_LEN,
@@ -51,6 +52,7 @@ from repro_torch.core import protocol
 from repro_torch.core import state as S
 from repro_torch.core.state import TSUState, TierState, b2i
 from repro_torch.kernels import ops as K
+from repro_torch.launch.mesh import fabric_ranks, make_fabric_group
 from repro_torch.obs import trace as obs
 
 _NOP, _READ, _WRITE, _FENCE, _MM_WRITE, _PUBLISH, _MM_READ = range(7)
@@ -243,6 +245,17 @@ class _OpScan:
         """TSUShard.mm_write: allocate (evicting the min-(memts,
         alloc-seq) entry when the shard is full), grant via Algorithm 3 +
         overflow reinit, bump the version."""
+        gs = af.gseq_next.reshape(1).clone()
+        wts, rts, ver, evict, ovf = self.tsu_write(af, key, shard, gs, wl,
+                                                   rd, wr)
+        af.gseq_next.add_(1)
+        acc.g(tsu_evictions=evict, overflow_reinits=ovf)
+        return wts, rts, ver, gs
+
+    def tsu_write(self, af, key, shard: int, gs, wl, rd, wr):
+        """The TSU row's half of ``mm_write1``, IN PLACE on ``af``'s TSU
+        leaves at row ``shard``: stamps write sequence ``gs`` and returns
+        ``(wts, rts, ver, evict, overflow)`` as [1] tensors."""
         th, way = S.probe(af.tsu.tag, shard, 0, key)
         vic = S.victim_lex(af.tsu.tag, af.tsu.memts, af.tsu_seq, shard, 0)
         full = (af.tsu.tag[shard, 0, :self.CAP] != S.INVALID).all()
@@ -255,20 +268,25 @@ class _OpScan:
         ver = torch.where(th, af.tsu_ver[shard, 0, w0] + 1, 1)
         seqv = torch.where(th, af.tsu_seq[shard, 0, w0],
                            af.tsu_nseq[shard:shard + 1])
-        gs = af.gseq_next.reshape(1).clone()
         af.tsu.tag[shard, 0, w0] = key                # exact commit
         af.tsu.memts[shard, 0, w0] = gr.new_memts
         af.tsu_ver[shard, 0, w0] = ver
         af.tsu_gseq[shard, 0, w0] = gs
         af.tsu_seq[shard, 0, w0] = seqv
         af.tsu_nseq[shard:shard + 1] += b2i(~th)
-        af.gseq_next.add_(1)
-        acc.g(tsu_evictions=evict, overflow_reinits=gr.overflow)
-        return gr.wts, gr.rts, ver, gs
+        return gr.wts, gr.rts, ver, evict, gr.overflow
 
     def mm_read1(self, af, acc, key, shard, rd, wr, active):
         """TSUShard.mm_read: grant only if the entry exists (``active``:
         True or a [1] mask)."""
+        found, wts, rts, ver, gs, ovf = self.tsu_read(af, key, shard, rd, wr,
+                                                      active)
+        acc.g(overflow_reinits=ovf)
+        return found, wts, rts, ver, gs
+
+    def tsu_read(self, af, key, shard: int, rd, wr, active):
+        """The TSU row's half of ``mm_read1``, IN PLACE at row ``shard``:
+        returns ``(found, wts, rts, ver, gs, overflow)`` as [1] tensors."""
         th, way = S.probe(af.tsu.tag, shard, 0, key)
         found = th if active is True else active & th
         memts = torch.where(th, af.tsu.memts[shard, 0, way], 0)
@@ -281,8 +299,7 @@ class _OpScan:
         af.tsu.memts[shard, 0, tw] = torch.where(found, gr.new_memts, old_mem)
         ver = torch.where(found, af.tsu_ver[shard, 0, way], -1)
         gs = torch.where(found, af.tsu_gseq[shard, 0, way], -1)
-        acc.g(overflow_reinits=found & gr.overflow)
-        return found, gr.wts, gr.rts, ver, gs
+        return found, gr.wts, gr.rts, ver, gs, found & gr.overflow
 
     def drain1(self, af, acc, node, rd, wr, queues):
         """WriteQueue._drain_one: pop the oldest posted write, write
@@ -541,9 +558,7 @@ class ArrayFabric(FabricBackend):
         self._KS = cfg.n_shards
         self._CAP = cfg.tsu_capacity
         self._Q = cfg.max_in_flight + 2
-        self._scan = _OpScan(self._W1, self._W2, self._KS, self._CAP,
-                             n_nodes, self.n_replicas, self._Q,
-                             cfg.max_in_flight, self.device)
+        self._scan = self._make_scan()
         self._miss_run = P_.make_miss_pass(self._W1, self._W2, self._KS)
         self._write_run = P_.make_write_pass(
             self._W1, self._W2, self._KS, n_nodes, self.n_replicas, self._Q,
@@ -564,6 +579,26 @@ class ArrayFabric(FabricBackend):
         self._fast_read_batches = 0     # all-hit batches (FabricStats field)
         self._write_batches = 0         # non-empty write_batch calls
         self._writes_since_prune = 0
+
+    def _make_scan(self) -> "_OpScan":
+        return _OpScan(self._W1, self._W2, self._KS, self._CAP, self.n_nodes,
+                       self.n_replicas, self._Q, self.cfg.max_in_flight,
+                       self.device)
+
+    # --------------------------------------------------- grant exchange
+    def _xin(self) -> _AF:
+        """Enter a device pass that touches the TSU: the state it runs on,
+        the whole TSU table included.  Identity here; the sharded fabric
+        assembles the table from every rank's rows."""
+        return self._af
+
+    def _xout(self) -> None:
+        """Leave a device pass (after ``_xin``).  No-op here."""
+
+    def _full_state(self) -> _AF:
+        """The state with the whole TSU table, for views outside a pass
+        (``memts``, ``prune_payloads``, ``export_state``)."""
+        return self._af
 
     def _init_af(self) -> _AF:
         dev = self.device
@@ -588,8 +623,8 @@ class ArrayFabric(FabricBackend):
         """The whole fabric as ``(arrays, host)``: ``arrays`` maps every
         state leaf's field path to an int32 numpy array; ``host`` holds
         the plain-Python tables.  ``load_state`` is the inverse."""
-        arrays = {k: v.cpu().numpy()
-                  for k, v in state_leaves(self._af).items()}
+        arrays = {k: v.cpu().numpy().copy()   # never a view of live state
+                  for k, v in state_leaves(self._full_state()).items()}
         host = {"key_list": list(self._key_list),
                 "meta": self._meta.copy(),
                 "vals": dict(self._vals),
@@ -670,9 +705,12 @@ class ArrayFabric(FabricBackend):
                         else op.replica // self._rpn)
                 enc.append((kind, op.replica, node, kid, s1, s2, shard,
                             -1 if op.wr_lease is None else op.wr_lease))
+        with obs.span("fabric.exchange"):
+            af = self._xin()
         with obs.span("fabric.scan", n_ops=len(ops)):
-            res = self._scan.run(self._af, enc, self.cfg.rd_lease,
+            res = self._scan.run(af, enc, self.cfg.rd_lease,
                                  self.cfg.wr_lease, self._queues())
+            self._xout()
         with obs.span("fabric.decode", n_ops=len(ops)):
             out = [(op, self._decode(op, res, i))
                    for i, op in enumerate(ops)]
@@ -683,8 +721,9 @@ class ArrayFabric(FabricBackend):
     def prune_payloads(self) -> None:
         """Drop payload versions no longer referenced by any device-side
         line or TSU entry (payloads are named by gseq handles)."""
+        af = self._full_state()
         live = set()
-        for a in (self._af.rp_gseq, self._af.sh_gseq, self._af.tsu_gseq):
+        for a in (af.rp_gseq, af.sh_gseq, af.tsu_gseq):
             live.update(torch.unique(a).cpu().tolist())
         self._vals = {g: v for g, v in self._vals.items() if g in live}
         self._writes_since_prune = 0
@@ -873,9 +912,12 @@ class ArrayFabric(FabricBackend):
             ops[2, :m] = meta[:, 1]
             ops[3, :m] = meta[:, 2]
             node = replica // self._rpn
+        with obs.span("fabric.exchange"):
+            af = self._xin()
         with obs.span("fabric.scan", misses=int(m)):
-            _, res = self._miss_run(self._af, ops, masks, replica, node,
+            _, res = self._miss_run(af, ops, masks, replica, node,
                                     self.cfg.rd_lease, self.cfg.wr_lease)
+            self._xout()
             obs.fence(res, "fabric.scan.device")
 
         def decode():
@@ -944,10 +986,13 @@ class ArrayFabric(FabricBackend):
             ops[2, :B] = meta[:, 1]
             ops[3, :B] = meta[:, 2]
             sched = np.pad(sched, ((0, 0), (0, M - B)))
+        with obs.span("fabric.exchange"):
+            af = self._xin()
         with obs.span("fabric.scan", n_ops=B):
-            _, res = self._write_run(self._af, ops, sched, masks, replica,
+            _, res = self._write_run(af, ops, sched, masks, replica,
                                      node, wl, self.cfg.rd_lease,
                                      self.cfg.wr_lease)
+            self._xout()
             obs.fence(res, "fabric.scan.device")
         with obs.span("fabric.decode", n_ops=B):
             f = dict(zip(P_.WRITE_RES_FIELDS, res.cpu().numpy()))
@@ -999,8 +1044,11 @@ class ArrayFabric(FabricBackend):
         R = max(4, _next_pow2(len(rounds)))
         sched = np.pad(sched, ((0, 0), (0, D - D0)))
         masks = P_.round_masks(rounds, R, D)
-        _, res, gmax = self._fence_run(self._af, sched, masks,
+        with obs.span("fabric.exchange"):
+            af = self._xin()
+        _, res, gmax = self._fence_run(af, sched, masks,
                                        self.cfg.rd_lease, self.cfg.wr_lease)
+        self._xout()
         f = dict(zip(P_.WRITE_RES_FIELDS, res.cpu().numpy()))
         # ONE fence op draining D0 entries: the whole lane axis is row 0
         rd = {"dcount": np.asarray([D0], np.int32)}
@@ -1027,11 +1075,12 @@ class ArrayFabric(FabricBackend):
         if kid is None:
             return 0
         shard = int(self._meta[kid][2])
-        tags = self._af.tsu.tag[shard, 0].cpu().numpy()
+        tsu = self._full_state().tsu
+        tags = tsu.tag[shard, 0].cpu().numpy()
         hit = np.nonzero(tags == kid)[0]
         if hit.size == 0:
             return 0
-        return int(self._af.tsu.memts[shard, 0, int(hit[0])])
+        return int(tsu.memts[shard, 0, int(hit[0])])
 
     @property
     def fast_read_batches(self) -> int:
@@ -1053,11 +1102,218 @@ class ArrayFabric(FabricBackend):
         return out
 
 
+class _ShardedOpScan(_OpScan):
+    """The op scan under ``pipeline="scan"`` on a fabric group: the TSU
+    leaves it is handed are this rank's owned rows, each op's TSU
+    transition runs on its key's owning rank against them, and the grant
+    hops back to the group in one broadcast — one collective per
+    TSU-touching op, the ordering-sensitive debugging schedule."""
+
+    def __init__(self, *args, group, rows: int, me: int, ranks):
+        super().__init__(*args)
+        self.group, self.rows, self.me, self.ranks = group, rows, me, ranks
+
+    def _at_owner(self, shard: int, run, is_bool):
+        """Run ``run(local_row)`` on the rank owning ``shard`` and
+        broadcast its [1] outputs (bools as 0/1) to every rank."""
+        owner, row = divmod(shard, self.rows)
+        if owner == self.me:
+            buf = torch.cat([v.reshape(1).to(_i32) for v in run(row)])
+        else:
+            buf = torch.empty((len(is_bool),), dtype=_i32, device=self.dev)
+        dist.broadcast(buf, src=self.ranks[owner], group=self.group)
+        return tuple(buf[i:i + 1] != 0 if b else buf[i:i + 1]
+                     for i, b in enumerate(is_bool))
+
+    def tsu_write(self, af, key, shard, gs, wl, rd, wr):
+        local = super().tsu_write
+        return self._at_owner(shard, lambda row: local(af, key, row, gs, wl,
+                                                       rd, wr),
+                              (False, False, False, True, True))
+
+    def tsu_read(self, af, key, shard, rd, wr, active):
+        local = super().tsu_read
+        return self._at_owner(shard, lambda row: local(af, key, row, rd, wr,
+                                                       active),
+                              (True, False, False, False, False, True))
+
+
+class ShardedArrayFabric(ArrayFabric):
+    """The group-placed fabric: TSU shards on the ranks of a
+    ``torch.distributed`` group.
+
+    HALCONE's TSU is physically distributed — one timestamp storage unit
+    per HBM stack, each coherence action executed beside the memory it
+    guards.  Between batches each rank holds ONLY its owned rows of the
+    ``[n_shards, 1, capacity+1]`` TSU table (``tsu``, ``tsu_ver``,
+    ``tsu_gseq``, ``tsu_seq`` as ``[n_shards/D, 1, capacity+1]``,
+    ``tsu_nseq`` as ``[n_shards/D]``); shard ``s`` lives on group rank
+    ``s // (n_shards / D)``.  The client tiers and write-queue rings are
+    replicated: the fabric is SPMD, every rank runs the same op stream
+    through the same entry points and the same passes on identical
+    tables.
+
+    Under the default ``pipeline="batched"`` every device pass that
+    touches the TSU (``apply``'s op scan, the miss, write and fence
+    passes) starts with ONE ``state.owner_gather`` of the packed owned
+    rows into a full-table buffer, runs on that buffer in place, and
+    keeps its own rows with ``state.owner_take``; the next pass's gather
+    is then issued asynchronously, to overlap the host's decode.  An
+    all-hit read batch touches no TSU and issues no collective.  Under
+    ``pipeline="scan"`` each op's TSU transition runs on its owning rank
+    and the grant hops back in one broadcast.  ``bytes_inter_gpu`` counts
+    home-shard misses (``node_id % n_shards``), not messages, so every
+    counter is identical across group sizes and pipelines, and to the
+    single-device ``ArrayFabric``.
+
+    ``group`` defaults to ``launch.mesh.make_fabric_group(n_shards)``
+    (NCCL on the card, gloo for ``device="cpu"``); ``n_shards`` must be
+    divisible by its size.  ``device=None`` is the rank's card
+    (``backend.resolve_device``).
+    """
+
+    def __init__(self, cfg: FabricConfig = FabricConfig(),
+                 n_nodes: int = 1, replicas_per_node: int = 1, group=None,
+                 pipeline: str = "batched", device=None):
+        cfg = _bounded(cfg)
+        if group is None:
+            group = make_fabric_group(cfg.n_shards,
+                                      backend=_backend_for(device))
+        if group == dist.GroupMember.NON_GROUP_MEMBER:
+            raise ValueError("this rank is not a member of the fabric group")
+        D = dist.get_world_size(group)
+        if cfg.n_shards % D:
+            raise ValueError(
+                f"n_shards={cfg.n_shards} must be divisible by the fabric "
+                f"group's {D} ranks")
+        self.group = group
+        self._D = D
+        self._me = dist.get_rank(group)
+        self._rows = cfg.n_shards // D
+        self._ranks = dist.get_process_group_ranks(group)
+        self._prefetch = None       # the next pass's gather, in flight
+        self._full = None           # the table a pass runs on
+        super().__init__(cfg, n_nodes, replicas_per_node, pipeline=pipeline,
+                         device=device)
+        if pipeline == "batched":
+            self._prefetch = self._gather(async_op=True)
+
+    @property
+    def n_shard_devices(self) -> int:
+        return self._D
+
+    def _make_scan(self) -> _OpScan:
+        if self.pipeline != "scan":
+            return super()._make_scan()
+        return _ShardedOpScan(self._W1, self._W2, self._KS, self._CAP,
+                              self.n_nodes, self.n_replicas, self._Q,
+                              self.cfg.max_in_flight, self.device,
+                              group=self.group, rows=self._rows, me=self._me,
+                              ranks=self._ranks)
+
+    @property
+    def _owned(self) -> slice:
+        """This rank's rows of the full table."""
+        return slice(self._me * self._rows, (self._me + 1) * self._rows)
+
+    def _init_af(self) -> _AF:
+        af = super()._init_af()
+        own = self._owned
+        return af._replace(
+            tsu=TSUState(tag=af.tsu.tag[own].clone(),
+                         memts=af.tsu.memts[own].clone()),
+            tsu_ver=af.tsu_ver[own].clone(), tsu_gseq=af.tsu_gseq[own].clone(),
+            tsu_seq=af.tsu_seq[own].clone(), tsu_nseq=af.tsu_nseq[own].clone())
+
+    # --------------------------------------------------- grant exchange
+    def _gather(self, async_op: bool):
+        """ONE all-gather of this rank's packed rows into the full table."""
+        a = self._af
+        return S.owner_gather(
+            S.pack_tsu(a.tsu, a.tsu_ver, a.tsu_gseq, a.tsu_seq, a.tsu_nseq),
+            self.group, async_op=async_op)
+
+    def _with_table(self, full: torch.Tensor) -> _AF:
+        tsu, ver, gseq, seq, nseq = S.unpack_tsu(full)
+        return self._af._replace(tsu=tsu, tsu_ver=ver, tsu_gseq=gseq,
+                                 tsu_seq=seq, tsu_nseq=nseq)
+
+    def _xin(self) -> _AF:
+        """The state a pass runs on: the replicated leaves as they are and
+        the TSU leaves as views of the gathered full table, which the pass
+        updates in place (never the owned rows by global index).  Under
+        ``pipeline="scan"`` the owned rows themselves."""
+        if self.pipeline != "batched":
+            return self._af
+        self._full = self._prefetch.wait()
+        self._prefetch = None
+        return self._with_table(self._full)
+
+    def _xout(self) -> None:
+        """Keep this rank's rows of the table the pass updated, then issue
+        the next pass's gather asynchronously."""
+        if self.pipeline != "batched":
+            return
+        with obs.span("fabric.exchange"):
+            a = self._af
+            mine = S.unpack_tsu(S.owner_take(self._full, self._me,
+                                             self._rows))
+            for dst, src in zip((a.tsu.tag, a.tsu.memts, a.tsu_ver,
+                                 a.tsu_gseq, a.tsu_seq, a.tsu_nseq),
+                                (mine[0].tag, mine[0].memts) + mine[1:]):
+                dst.copy_(src)
+            self._full = None
+            self._prefetch = self._gather(async_op=True)
+
+    def _full_state(self) -> _AF:
+        """The state with the whole table, for views outside a pass.  Under
+        the batched pipeline the gather in flight already holds it: it was
+        issued right after the last pass kept its rows, and only a pass
+        changes the TSU.  Under ``pipeline="scan"``, one gather."""
+        if self.pipeline == "batched":
+            return self._with_table(self._prefetch.wait())
+        return self._with_table(self._gather(async_op=False))
+
+    def fence(self) -> int:
+        """The vectorized fence pass (one collective) under the batched
+        pipeline, as the reference's sharded fabric runs it; the op scan
+        otherwise, or when the drain set is too conflict-ridden."""
+        if self.pipeline == "batched":
+            out = self._fence_batched()
+            if out is not None:
+                return out
+        return super().fence()
+
+
+def _backend_for(device) -> Optional[str]:
+    """The fabric group's backend for an entry point's ``device``: gloo
+    for the CPU, else the default (NCCL where CUDA is available)."""
+    return "gloo" if device is not None and \
+        torch.device(device).type == "cpu" else None
+
+
 def default_fabric(cfg: FabricConfig = FabricConfig(),
                    n_nodes: int = 1,
                    replicas_per_node: int = 1,
-                   pipeline: str = "batched", device=None) -> ArrayFabric:
-    """The production entry point: the single-device ``ArrayFabric``, on
-    the CUDA card unless ``device`` says otherwise."""
+                   pipeline: str = "batched", device=None,
+                   group=None) -> ArrayFabric:
+    """The production entry point: the ``ShardedArrayFabric`` when a
+    ``torch.distributed`` group is initialised and the shards can spread
+    over more than one of its ranks (``group``, else the largest leading
+    run of the world's ranks that divides ``n_shards``), the
+    single-device ``ArrayFabric`` otherwise — also on a rank outside that
+    run, which then holds the whole table itself and joins no collective.
+    Both on the CUDA card unless ``device`` says otherwise.  Under a group
+    every rank calls it."""
+    cfg = _bounded(cfg)
+    if group is None and dist.is_available() and dist.is_initialized() \
+            and len(fabric_ranks(cfg.n_shards,
+                                 range(dist.get_world_size()))) > 1:
+        group = make_fabric_group(cfg.n_shards, backend=_backend_for(device))
+    if group is not None and group != dist.GroupMember.NON_GROUP_MEMBER \
+            and dist.get_world_size(group) > 1:
+        return ShardedArrayFabric(cfg, n_nodes, replicas_per_node,
+                                  group=group, pipeline=pipeline,
+                                  device=device)
     return ArrayFabric(cfg, n_nodes, replicas_per_node, pipeline=pipeline,
                        device=device)

@@ -1,10 +1,14 @@
 """The backend contract: one lease API for every fabric implementation.
 
-The port's copy of the jax-free part of ``repro.coherence.fabric.backend``:
-``Op``, ``ReadBatchHandle``, the ``FabricBackend`` ABC, ``_bounded``,
-``DEFAULT_TSU_CAPACITY`` and ``GRANT_LOG_LEN``.  The host-object oracle
-(``HostFabric``) stays in ``repro``; the tests hold the port's
-``ArrayFabric`` to it.
+The port's copy of ``repro.coherence.fabric.backend``.  Every
+implementation must be bit-identical on any op trace:
+
+  * ``HostFabric`` (this file) — the host-object fabric (``TSUShard``
+    dicts, ``_SetAssoc`` lists): slow, obvious, the differential-test
+    oracle.  One Python call per key, no device.
+  * ``ArrayFabric`` / ``ShardedArrayFabric`` (arrays.py) — the state as
+    ``core.state`` tensors on the card, the TSU rows of the sharded one
+    spread over the ranks of a ``torch.distributed`` group.
 
 Op vocabulary:
 
@@ -21,13 +25,17 @@ Every backend also exposes ``grant_log`` — the ordered list of
 from __future__ import annotations
 
 import abc
+import collections
 import dataclasses
+import os
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.coherence.fabric.tsu import FabricConfig
+from repro_torch.coherence.fabric.cache import ReplicaCache, SharedCache
+from repro_torch.coherence.fabric.tsu import FabricConfig, TSUFabric
 
 # A bounded TSU is part of the contract: the array backend is a fixed
 # [n_shards, capacity] table, so the oracle must run with the same bound.
@@ -38,14 +46,27 @@ GRANT_LOG_LEN = 65536
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``None`` means the CUDA card.
-    Raises when CUDA is asked for and absent — never falls back to the CPU
-    silently; callers that want the CPU pass ``device="cpu"``."""
+    """The device an entry point runs on: ``None`` means the CUDA card —
+    under an initialised ``torch.distributed`` group the rank's own,
+    ``cuda:LOCAL_RANK`` (the group rank when ``LOCAL_RANK`` is unset), and
+    ``cuda:0`` for every rank when the host has one card (a one-card world
+    over gloo).  Raises when CUDA is asked for and absent — never falls
+    back to the CPU silently; callers that want the CPU pass
+    ``device="cpu"``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the fabric runs on the GPU by default; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
+    if device is None and dist.is_available() and dist.is_initialized():
+        idx = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        n = torch.cuda.device_count()
+        if n == 1:
+            idx = 0
+        elif idx >= n:
+            raise RuntimeError(f"local rank {idx} has no card of its own: "
+                               f"{n} are visible")
+        dev = torch.device("cuda", idx)
     return dev
 
 
@@ -211,3 +232,88 @@ class FabricBackend(abc.ABC):
                 raise ValueError(f"unknown op kind {op.kind!r}")
             out.append((op, r))
         return out
+
+
+class HostFabric(FabricBackend):
+    """The host-object fabric behind the backend contract — the oracle.
+
+    Wraps one ``TSUFabric`` + ``n_nodes`` shared tiers + ``n_nodes *
+    replicas_per_node`` replica tiers (replica r lives on node
+    ``r // replicas_per_node``), and records every authority grant in
+    ``grant_log`` in execution order.
+    """
+
+    def __init__(self, cfg: FabricConfig = FabricConfig(),
+                 n_nodes: int = 1, replicas_per_node: int = 1):
+        self.cfg = _bounded(cfg)
+        self.n_nodes = n_nodes
+        self.n_replicas = n_nodes * replicas_per_node
+        self.fabric = TSUFabric(self.cfg)
+        self.nodes = [SharedCache(self.fabric, node_id=i)
+                      for i in range(n_nodes)]
+        self.replicas = [ReplicaCache(self.nodes[r // replicas_per_node])
+                         for r in range(self.n_replicas)]
+        self.grant_log = collections.deque(maxlen=GRANT_LOG_LEN)
+        self._tap_grants()
+
+    def _tap_grants(self) -> None:
+        fab, log = self.fabric, self.grant_log
+        orig_read, orig_write = fab.read, fab.write
+
+        def read(key, home_shard=None):
+            g = orig_read(key, home_shard=home_shard)
+            if g is not None:
+                log.append((key, g.wts, g.rts, g.version))
+            return g
+
+        def write(key, value, *, wr_lease=None, home_shard=None):
+            g = orig_write(key, value, wr_lease=wr_lease,
+                           home_shard=home_shard)
+            log.append((key, g.wts, g.rts, g.version))
+            return g
+
+        fab.read, fab.write = read, write
+
+    # ------------------------------------------------------------- ops
+    def _note_fast_read_batch(self) -> None:
+        self.fabric.stats.bump("fast_read_batches")
+
+    def _note_write_batch(self) -> None:
+        self.fabric.stats.bump("write_batches")
+
+    def peek(self, key, replica: int = 0) -> bool:
+        return self.replicas[replica].peek(key)
+
+    def read(self, key, replica: int = 0):
+        return self.replicas[replica].get(key)
+
+    def write(self, key, value, replica: int = 0, wr_lease=None) -> None:
+        self.replicas[replica].put(key, value, wr_lease=wr_lease)
+
+    def fence(self) -> int:
+        return self.fabric.barrier()
+
+    def mm_write(self, key, value, wr_lease=None):
+        g = self.fabric.write(key, value, wr_lease=wr_lease)
+        return g.wts, g.rts, g.version
+
+    def publish(self, key, value, node: int = 0, wr_lease=None):
+        g = self.fabric.write(key, value, wr_lease=wr_lease)
+        self.nodes[node].adopt(key, value, g)
+        return g.wts, g.rts
+
+    def mm_read(self, key):
+        g = self.fabric.read(key)
+        if g is None:
+            return None
+        return g.value, g.version, g.wts, g.rts
+
+    # ------------------------------------------------------------ views
+    def memts(self, key) -> int:
+        return self.fabric.memts(key)
+
+    def stats(self) -> Dict[str, int]:
+        return self.fabric.stats.to_dict()
+
+    def replica_stats(self, replica: int = 0) -> Dict[str, int]:
+        return self.replicas[replica].stats.to_dict()

@@ -15,8 +15,8 @@ Timestamp conventions (validated against the paper's Fig.5 walkthrough):
   cts advances only on writes: cts' = max(cts, Bwts).
   Validity (hit): tag match AND cts <= rts.
 
-``mm_read``/``mm_write``/``valid`` also take Python ints; ``install``,
-``cts_after_write`` and ``overflow_reinit`` take tensors.
+Every rule takes int32 tensors (the array fabric, the engine) or Python
+ints (the host-object oracle, ``coherence.fabric.tsu``/``cache``).
 """
 from __future__ import annotations
 
@@ -47,15 +47,22 @@ def mm_write(memts, wr_lease):
     return Lease(wts, rts), rts
 
 
+def _maximum(a, b):
+    """Elementwise max: ``torch.maximum`` on tensors, ``max`` on ints."""
+    if isinstance(a, torch.Tensor):
+        return torch.maximum(a, b)
+    return max(a, b)
+
+
 def install(cts, wts_resp, rts_resp):
     """Cache-block timestamp update on a fill/response (Algorithms 1,2,4,5)."""
-    bwts = torch.maximum(cts, wts_resp)
-    brts = torch.maximum(bwts + 1, rts_resp)
+    bwts = _maximum(cts, wts_resp)
+    brts = _maximum(bwts + 1, rts_resp)
     return Lease(bwts, brts)
 
 
 def cts_after_write(cts, bwts):
-    return torch.maximum(cts, bwts)
+    return _maximum(cts, bwts)
 
 
 def valid(cts, rts):
@@ -65,4 +72,6 @@ def valid(cts, rts):
 
 def overflow_reinit(ts):
     """16-bit overflow: re-initialize to 0 instead of flushing."""
+    if not isinstance(ts, torch.Tensor):
+        return 0 if ts > TS_MAX else ts
     return torch.where(ts > TS_MAX, torch.zeros_like(ts), ts)

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import protocol
 from repro_torch.kernels import ops as K
@@ -288,6 +289,59 @@ def unpack_tsu(buf: torch.Tensor) -> Tuple:
     """Inverse of ``pack_tsu``: (TSUState, ver, gseq, seq, nseq)."""
     return (TSUState(tag=buf[0], memts=buf[1]), buf[2], buf[3], buf[4],
             buf[5][:, 0, 0])
+
+
+class PendingGather:
+    """An ``owner_gather`` in flight: ``wait()`` returns the full
+    shard-major buffer once every rank's rows have landed (the same
+    tensor on every call)."""
+
+    __slots__ = ("_buf", "_work", "_src", "_full")
+
+    def __init__(self, buf: torch.Tensor, work, src: torch.Tensor):
+        self._buf, self._work, self._src, self._full = buf, work, src, None
+
+    def wait(self) -> torch.Tensor:
+        if self._full is None:
+            if self._work is not None:
+                self._work.wait()
+            self._full = _shard_major(self._buf)
+            self._buf = self._work = self._src = None
+        return self._full
+
+
+def _shard_major(buf: torch.Tensor) -> torch.Tensor:
+    """``[D, F, H_local, ...]`` -> ``[F, D * H_local, ...]``."""
+    full = buf.movedim(0, 1)
+    return full.reshape((full.shape[0], full.shape[1] * full.shape[2])
+                        + tuple(full.shape[3:]))
+
+
+def owner_gather(packed: torch.Tensor, group=None, async_op: bool = False):
+    """Grouped-by-owner gather: assemble the full shard-major buffer from
+    every rank's contiguous owned rows — ONE ``torch.distributed``
+    all-gather over ``group``, the batched pipeline's single collective a
+    pass.
+
+    packed: ``[F, H_local, ...]`` (this rank's rows).  Returns ``[F,
+    H_local * D, ...]`` with rank ``d``'s rows at ``[d*H_local,
+    (d+1)*H_local)`` — the reference's layout; with ``async_op=True`` a
+    ``PendingGather`` whose ``wait()`` returns it.  The list form of
+    ``all_gather`` writes each rank's rows into a view of one buffer."""
+    D = dist.get_world_size(group)
+    src = packed.contiguous()
+    buf = torch.empty((D,) + tuple(src.shape), dtype=src.dtype,
+                      device=src.device)
+    work = dist.all_gather(list(buf.unbind(0)), src, group=group,
+                           async_op=async_op)
+    pending = PendingGather(buf, work, src)
+    return pending if async_op else pending.wait()
+
+
+def owner_take(packed_full: torch.Tensor, me: int, rows: int) -> torch.Tensor:
+    """Grouped-by-owner scatter (the no-communication half): this rank's
+    contiguous ``rows`` shard rows of the full buffer, as a view."""
+    return packed_full[:, me * rows:(me + 1) * rows]
 
 
 def tsu_commit_batch(tsu: TSUState, idx, set_idx, way, addr, new_memts,

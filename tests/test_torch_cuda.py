@@ -472,6 +472,95 @@ def test_cuda_fabric_equals_cpu_fabric(cuda_device):
     assert all(np.array_equal(xa[k], xb[k]) for k in xa)
 
 
+def _sharded_script(seed=9, n_keys=24, steps=12):
+    """A mixed stream as ``tests/torch_sharded_worker.py`` script steps:
+    write storms, read batches (sync and all-hit), op-scan batches with
+    every op kind, fences, and the views."""
+    rng = np.random.default_rng(seed)
+    keys = [f"k{i}" for i in range(n_keys)]
+    script = []
+    for step in range(steps):
+        batch = [keys[int(i)] for i in rng.integers(0, n_keys, 24)]
+        rep = int(rng.integers(4))
+        script.append(("write_batch", [(k, f"{k}@{step}")
+                                       for k in batch[:6]], rep))
+        script.append(("read_batch", batch, (rep + 1) % 4))
+        script.append(("apply", [("read", batch[0], None, rep, 0, None),
+                                 ("mm_write", batch[1], f"m{step}", 0, 0,
+                                  None),
+                                 ("publish", batch[2], f"p{step}", 0,
+                                  step % 2, None),
+                                 ("mm_read", batch[3], None, 0, 0, None)]))
+        if step % 4 == 3:
+            script += [("fence",), ("read_batch", batch[:4], 0),
+                       ("read_batch", batch[:4], 0)]
+    return script + [("memts", keys), ("stats",)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_cuda_sharded_fabric_equals_cpu_fabric(cuda_device, tmp_path, world,
+                                               backend):
+    """The sharded fabric on the card — a world of one over NCCL, and two
+    ranks sharing the one card over gloo with CUDA tensors — equals the
+    single-device fabric on the CPU: results, grant log, counters, state;
+    one collective per TSU-touching pass, each rank's own TSU rows."""
+    import os
+    import pathlib
+    import pickle
+    import subprocess
+    import sys
+    if world > torch.cuda.device_count() and backend == "nccl":
+        pytest.skip("NCCL needs a card per rank")
+    sys.path.insert(0, str(pathlib.Path(__file__).parent))
+    from torch_sharded_worker import run_script
+    cfg_kw = dict(n_shards=8, rd_lease=8, wr_lease=4, tsu_capacity=8,
+                  shared_sets=8, shared_ways=2, replica_sets=4,
+                  replica_ways=2, max_in_flight=2)
+    sc = {"name": "card", "cfg": cfg_kw, "n_nodes": 2, "rpn": 2,
+          "script": _sharded_script()}
+    (tmp_path / "job.pkl").write_bytes(pickle.dumps(
+        {"scenarios": [sc], "backend": backend, "device": None}))
+    root = pathlib.Path(__file__).resolve().parent.parent
+    worker = root / "tests" / "torch_sharded_worker.py"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), str(r), str(world),
+         str(tmp_path / "rdzv"), str(tmp_path / "job.pkl"),
+         str(tmp_path / f"out{r}.pkl")], env=env, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+    errs = []
+    for p in procs:
+        try:
+            errs.append(p.communicate(timeout=600)[1])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("a rank did not finish in 600 s")
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        e[-3000:] for e in errs)
+    arr = ArrayFabric(FabricConfig(**cfg_kw), 2, 2, device="cpu")
+    want = run_script(arr, sc["script"], Op)
+    xw, hw = arr.export_state()
+    for r in range(world):
+        res = pickle.loads((tmp_path / f"out{r}.pkl").read_bytes())
+        for pipe in ("batched", "scan"):
+            got = res["scenarios"]["card"][pipe]
+            assert got["device"] == "cuda:0"
+            assert got["outs"] == want, (r, pipe)
+            assert got["grant_log"] == list(arr.grant_log), (r, pipe)
+            xg, hg = got["export"]
+            assert all(np.array_equal(xg[k], xw[k]) for k in xw), (r, pipe)
+            assert all(s["tsu.tag"] == (8 // world, 1, 9)
+                       for s in got["shapes"])
+        counts = res["scenarios"]["card"]["batched"]["counts"]
+        for step, c in zip(sc["script"], counts):
+            if step[0] in ("write_batch", "apply", "fence"):
+                assert c["total"] == 1, (step[0], c)
+            elif step[0] in ("memts", "stats"):
+                assert c["total"] == 0, (step[0], c)
+
+
 @pytest.mark.cuda
 def test_cuda_engine_equals_cpu_engine(cuda_device):
     """The figure engine on the card (``device=None``) against the port on

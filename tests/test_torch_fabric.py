@@ -299,8 +299,18 @@ def test_copied_definitions_match_reference():
 
 
 # ------------------------------------------------------------ guards
+# the modules that carry the sharded fabric and its host oracle: each must
+# be among those the guards scan
+SHARDED_SLICE = ("coherence/fabric/tsu.py", "coherence/fabric/cache.py",
+                 "coherence/fabric/writeq.py", "launch/mesh.py",
+                 "obs/xprof.py")
+
+
 def _modules():
-    return sorted((SRC / "repro_torch").rglob("*.py"))
+    mods = sorted((SRC / "repro_torch").rglob("*.py"))
+    for m in SHARDED_SLICE:
+        assert SRC / "repro_torch" / m in mods, f"{m} is missing"
+    return mods
 
 
 def test_port_imports_neither_jax_nor_repro_ast():
