@@ -115,7 +115,23 @@ Phases (any failure raises and the script exits non-zero):
      launches, bytes gathered a wave, capacity, the host time of the
      exchange a pass, and under ``torch.profiler`` the idle share and the
      all-gather's host and device time;
-  8. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
+  8. the training path at full width: ``runtime.trainer.Trainer`` with
+     smollm-360m (seeded f32 master weights and moments, bf16 compute,
+     remat) on the card, 12 steps of 8 x 512 tokens, a checkpoint every
+     4 steps published on the fabric, a simulated failure at step 10 and
+     a resume: the resumed steps equal the first run's losses bit for
+     bit, the losses are finite and fall, ``rmsnorm``,
+     ``flash_attention``, their backward kernels and ``lease_probe`` (the
+     publish's op scan) launched, and the events, fabric counters and grant log equal a
+     2-layer CPU trainer's; the card's loss and gradients at 2 layers
+     equal the CPU's within a relative L2 of 2e-2; ``VmappedWorkers`` at
+     4 layers (W = 1 equal workers, W = 4 at least 3x fewer collective
+     bytes); a step's wall, host enqueue and device time, tokens/s, idle
+     share, the backward kernels' share, the model-flops share and a
+     checkpoint save's time.  Phase 2 also holds the backward kernels
+     against autograd of the plain versions (at the training shapes and
+     odd ones, beside the library's backward);
+  9. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
@@ -177,7 +193,15 @@ KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:63"),
            ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_chunk_wgmma.cu",
-            "src/repro/kernels/ssd_chunk.py:45"))
+            "src/repro/kernels/ssd_chunk.py:45"),
+           # the backward kernels of the two float kernels training runs
+           # (the reference differentiates jnp layers and has no backward
+           # Pallas kernel; each row names the forward it differentiates)
+           ("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+            "src/repro/kernels/rmsnorm.py:31"),
+           ("flash_attention_bwd",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:79"))
 # phase 4: the LLM serving path
 ARCH = "smollm-360m"
 SERVE_B, PROMPT_LEN, MAX_NEW = 8, 512, 64
@@ -202,6 +226,19 @@ SSM_ARCH, HYBRID_ARCH = "mamba2-130m", "zamba2-1.2b"
 HYBRID_WAVES, HYBRID_MAX_NEW, HYBRID_MODEL_LAYERS = 2, 16, 6
 # the cache length zamba2's traffic needs: phase 2 times decode there
 HYBRID_MAX_LEN = PROMPT_LEN + HYBRID_MAX_NEW + 8
+# phase 8: training smollm-360m at full width on the card: batch, sequence,
+# steps, checkpoint period and the step of the simulated failure; the CPU
+# trainer that checks the fabric runs 2 layers on short rows (the fabric
+# sees only the parameter keys, the same at every depth and width), the
+# card-vs-CPU gradient check 2 layers on one 512-token row, the lease
+# workers 4 layers
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 8, 512, 12, 4, 10
+TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S = 2, 2, 64
+TRAIN_WORKER_LAYERS, TRAIN_WORKER_STEPS = 4, 8
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+# backward kernel vs autograd of the plain version: f32 sums over up to
+# 4096 rows (or every query of a key) in another order; bf16 rounds once
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -804,6 +841,119 @@ def check_ssd_kernel(torch, np, dev, report):
                 f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
 
 
+# ------------------------------------------ phase 2, the backward kernels
+def check_backward_kernels(torch, np, dev, report):
+    """rmsnorm_bwd and flash_attention_bwd against autograd of their plain
+    versions on the card, at the training shapes (rmsnorm: R = B S = 4096
+    rows of 960; flash: B = 8, S = 512, 15 over 5 heads of 64, causal)
+    and odd ones (a few rows, odd widths, a window with rows that see no
+    key), bf16 and f32; each row with the kernel's time, the plain
+    backward's and the library's (autograd of ``F.rms_norm`` and of SDPA,
+    each on a graph built once), and the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+
+    def randn(shape, dtype, seed):
+        a = np.random.default_rng(seed).standard_normal(shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    def backward_of(out, inputs, grad):
+        """A timed call: the backward of a graph built once."""
+        return lambda: torch.autograd.grad(out, inputs, grad,
+                                           retain_graph=True)
+
+    def compare(name, kern, plain, library, nbytes, flops, dtype, shape):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        tol = GRAD_TOL[str(dtype).split(".")[-1]]
+        err = 0.0
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"{name}{shape}: dtype/shape differ")
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name}{shape}: non-finite output")
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            if not torch.allclose(g.float(), w.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"{name}{shape} {dtype}: max |err| "
+                                     f"{err} beyond rtol=atol={tol}")
+        again = kern()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}{shape}: differs from run to run")
+        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
+        bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
+               "route": "cuda", "max_abs_err": err, "tol": tol,
+               "ms": device_ms(torch, kern),
+               "plain_ms": device_ms(torch, plain, n=5, trials=3),
+               "library_ms": device_ms(torch, library),
+               "bound_ms": max(bt, ot),
+               "bound_by": "bytes" if bt >= ot else "operations",
+               "bytes": nbytes, "flops": flops}
+        report.setdefault(name, []).append(row)
+        log(f"  {name}{shape} {row['dtype']}: max |err| {err:.3g} <= {tol}, "
+            f"same from run to run; kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, library "
+            f"{row['library_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+
+    log(f"  backward tolerances (rtol = atol): {GRAD_TOL}")
+    eps = 1e-6
+    for dtype in (torch.bfloat16, torch.float32):
+        el = torch.finfo(dtype).bits // 8
+        for R, D in ((TRAIN_B * TRAIN_S, 960), (8, 960), (7, 80)):
+            x = randn((R, D), dtype, R + D)
+            dy = randn((R, D), dtype, R + D + 1)
+            w = randn((D,), torch.float32, D) * 0.1
+            xl = x.detach().requires_grad_()
+            wl = (1.0 + w).to(dtype).requires_grad_()
+            lib = F.rms_norm(xl, (D,), weight=wl, eps=eps)
+            xp, wp = x.detach().requires_grad_(), w.detach().requires_grad_()
+            plain_out = ref.rmsnorm_ref(xp, wp, eps)
+            compare("rmsnorm_bwd", lambda: rmsnorm_bwd(x, w, dy, eps=eps),
+                    backward_of(plain_out, (xp, wp), dy),
+                    backward_of(lib, (xl, wl), dy),
+                    3 * R * D * el + 8 * D, 12 * R * D, dtype, [R, D])
+        for B, Sq, Sk, Hq, Hkv, D, causal, window in (
+                (TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0),
+                (1, 130, 50, 4, 2, 64, True, 16),
+                (2, 77, 77, 4, 2, 16, False, 0)):
+            q = randn((B, Sq, Hq, D), dtype, 1)
+            k = randn((B, Sk, Hkv, D), dtype, 2)
+            v = randn((B, Sk, Hkv, D), dtype, 3)
+            do = randn((B, Sq, Hq, D), dtype, 4)
+            o = flash_attention(q, k, v, causal=causal, window=window)
+            qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
+            plain_out = ref.attention_ref(qp, kp, vp, causal=causal,
+                                          window=window)
+            ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            mask = None
+            if window or Sq != Sk:
+                qpos = torch.arange(Sq, device=dev)[:, None]
+                kpos = torch.arange(Sk, device=dev)[None, :]
+                mask = torch.zeros((Sq, Sk), device=dev, dtype=dtype)
+                if causal:
+                    mask = mask.masked_fill(kpos > qpos, -1e30)
+                if window:
+                    mask = mask.masked_fill(qpos - kpos >= window, -1e30)
+            lib = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+            pairs = _visible_pairs(Sq, Sk, causal)
+            compare("flash_attention_bwd",
+                    lambda: flash_attention_bwd(q, k, v, o, do,
+                                                causal=causal, window=window),
+                    backward_of(plain_out, (qp, kp, vp), do),
+                    backward_of(lib, (ql, kl, vl), do.transpose(1, 2)),
+                    (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D) * el,
+                    10 * D * B * Hq * pairs, dtype,
+                    [B, Sq, Sk, Hq, Hkv, D, int(causal), window])
+
+
 # ------------------------------------------------------------- phase 3
 class Serving:
     """``scheduler.replay``'s backend over two ``BatchedKVLease`` front
@@ -1148,7 +1298,10 @@ KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                   "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
                   "decode_attention": ("decode_cluster_kernel",),
                   "ssd_chunk": ("ssd_wgmma_kernel", "ssd_output_kernel",
-                                "ssd_state_kernel")}
+                                "ssd_state_kernel"),
+                  "rmsnorm_bwd": ("rmsnorm_bwd_rows", "rmsnorm_bwd_dw"),
+                  "flash_attention_bwd": ("flash_bwd_rows", "flash_bwd_dkdv",
+                                          "flash_bwd_dq")}
 
 
 def device_breakdown(prof, wall_us):
@@ -1308,13 +1461,15 @@ def serve_timings(torch, np, cfg, srv, tokens, max_new):
 def kernel_wrappers():
     """Every kernel wrapper, each with its launch count."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.lease_probe import lease_probe
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.kernels.ssd_chunk import ssd_chunk
     from repro_torch.kernels.tier_pass import miss_round, write_grant
     return (rmsnorm, flash_attention, decode_attention, ssd_chunk,
-            lease_probe, miss_round, write_grant)
+            lease_probe, miss_round, write_grant, rmsnorm_bwd,
+            flash_attention_bwd)
 
 
 def forward_layers(torch, cfg, params, tokens, inputs=None):
@@ -1334,7 +1489,8 @@ def forward_layers(torch, cfg, params, tokens, inputs=None):
 
     model_mod._apply_block = record
     try:
-        h, _ = forward(cfg, params, tokens)
+        with torch.no_grad():
+            h, _ = forward(cfg, params, tokens)
     finally:
         model_mod._apply_block = apply
     return h, hs
@@ -1523,6 +1679,9 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     missing = [name for name in need if launches[name] < 1]
     if missing:
         raise AssertionError(f"{missing} not launched: {launches}")
+    if launches["rmsnorm_bwd"] or launches["flash_attention_bwd"]:
+        raise AssertionError(f"serving launched a backward kernel: "
+                             f"{launches}")
     if "flash_attention" in need:
         # bf16 at D = 64: every prefill on the tensor-core kernel, none on
         # the CUDA-core one
@@ -1592,7 +1751,8 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     tok = torch.from_numpy(np.stack([r.prompt for r in waves[0]]))
     tok4 = tok[:CPU_MODEL_BATCH]
     t0 = time.perf_counter()
-    h_c, _ = forward(cfg4, p4, tok4.to(dev))
+    with torch.no_grad():
+        h_c, _ = forward(cfg4, p4, tok4.to(dev))
     blocks = []
     h_h, hs_h = forward_layers(torch, cfg4, p4h, tok4, blocks)
     lg_c = h_c[:, -1] @ unembed_matrix(cfg4, p4)
@@ -2284,6 +2444,268 @@ def check_sharded(torch, np, fab_h, serv_h, rounds_h):
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------- phase 8
+def train_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Model flops of one training step: 6 N a token for the weights
+    (forward and backward, the tied unembedding included; the remat
+    forward not counted), and 3x the forward's 4 D flops a visible causal
+    (query, key) pair per query head and layer for attention."""
+    attn = 12 * cfg.d_head * cfg.n_heads * B * _visible_pairs(S, S, True)
+    return 6.0 * n_params * B * S + attn * cfg.n_layers
+
+
+def check_training(torch, np, dev):
+    """smollm-360m trained at full width on the card through the port's
+    ``Trainer``: 12 steps of B = 8 rows of 512 tokens, a checkpoint every
+    4, a simulated failure at step 10 and a resume from step 8.  The
+    resumed steps 8 and 9 must repeat the first run's losses bit for bit,
+    the losses must be finite and fall, every kernel of the path (the
+    forward and backward float kernels, ``lease_probe`` under the
+    checkpoint publish's op scan) must have launched, and the fabric's counters and grant log must equal
+    a CPU trainer's on the same schedule.  Then: the card's loss and
+    gradients at 2 layers against the CPU's (relative L2 <= 2e-2, bf16),
+    ``VmappedWorkers`` at 4 layers with W = 1 and 4, a step's wall, host
+    and device time under ``torch.profiler``, and a checkpoint save."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.coherence.lease_sync import LeaseConfig, VmappedWorkers
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import init_model
+    from repro_torch.models.model import tree_map
+    from repro_torch.models.training import loss_and_grads
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = configs.get(ARCH)
+    opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS)
+    tcfg = dict(total_steps=TRAIN_STEPS, ckpt_period=TRAIN_CKPT, keep=2)
+    work = ROOT / "build" / "phase8"
+    shutil.rmtree(work, ignore_errors=True)
+    free = shutil.disk_usage(ROOT).free
+    log(f"  {free / 1e9:.1f} GB free on the checkout's disk")
+    rep = {}
+
+    def train(device, c, B, S, name):
+        """(trainer, first run's losses by step, resumed losses by step,
+        the resumed run's result)."""
+        tr = Trainer(c, opt, TrainerConfig(ckpt_dir=str(work / name), **tcfg),
+                     data=SyntheticLM(c, DataConfig(global_batch=B,
+                                                    seq_len=S)),
+                     device=device)
+        try:
+            tr.run(fail_at=TRAIN_FAIL)
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("the simulated failure did not happen")
+        first = dict(tr.history)
+        res = tr.resume()
+        return tr, first, dict(tr.history[len(first):]), res
+
+    counters = kernel_wrappers()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tr, first, resumed, res = train(dev, cfg, TRAIN_B, TRAIN_S, "card")
+    torch.cuda.synchronize()
+    rep["run_s"] = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    losses = [first[s] for s in range(TRAIN_FAIL)] + [
+        resumed[s] for s in range(TRAIN_FAIL, TRAIN_STEPS)]
+    log(f"  card: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens, "
+        f"failure at {TRAIN_FAIL}, resumed from the step-"
+        f"{next(e['step'] for e in tr.events if e['kind'] == 'restore')} "
+        "checkpoint: "
+        f"{rep['run_s']:.1f} s; losses {[round(x, 4) for x in losses]}; "
+        f"launches {launches}")
+    restored = next(e["step"] for e in tr.events if e["kind"] == "restore")
+    again = {s: (first[s], resumed[s]) for s in range(restored, TRAIN_FAIL)}
+    if any(a != b for a, b in again.values()):
+        raise AssertionError(f"the resumed steps differ from the first "
+                             f"run's: {again}")
+    log(f"  resumed steps {sorted(again)} repeat the first run's losses "
+        "bit for bit")
+    if not np.all(np.isfinite(losses)) or not (
+            np.mean(losses[-3:]) < np.mean(losses[:3])
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    # the publish is an 11-key write_batch on a one-shard fabric: 11
+    # rounds (a shard takes one write a round) exceed the write pass's
+    # budget of max(6, 11 // 2), so both packages serve it with the op
+    # scan, whose probes run on lease_probe (write_grant never runs here)
+    need = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+            "flash_attention_bwd", "lease_probe")
+    missing = [n for n in need if launches[n] < 1]
+    if missing:
+        raise AssertionError(f"{missing} not launched: {launches}")
+    if launches["decode_attention"] or launches["ssd_chunk"]:
+        raise AssertionError(f"training launched a serving kernel: "
+                             f"{launches}")
+    rep.update(losses=losses, launches=launches, events=tr.events,
+               fabric_stats=res["fabric_stats"])
+
+    # the fabric sees only the keys: a 2-layer CPU trainer on short rows
+    small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
+    t0 = time.perf_counter()
+    trh, _, _, resh = train(torch.device("cpu"), small, TRAIN_CPU_B,
+                            TRAIN_CPU_S, "cpu")
+    if trh.events != tr.events or resh["fabric_stats"] != \
+            res["fabric_stats"] or list(trh.fabric.grant_log) != \
+            list(tr.fabric.grant_log):
+        raise AssertionError("card and CPU trainers' events, fabric "
+                             "counters or grant logs differ")
+    log(f"  card == cpu trainer ({TRAIN_CPU_LAYERS} layers, "
+        f"{time.perf_counter() - t0:.1f} s): events, fabric counters "
+        f"{ {k: v for k, v in res['fabric_stats'].items() if v} }, grant "
+        f"log ({len(tr.fabric.grant_log)} grants)")
+    shutil.rmtree(work / "cpu", ignore_errors=True)
+
+    # card vs CPU loss and gradients at 2 layers on one 512-token row
+    params = init_model(small, torch.Generator(dev).manual_seed(WEIGHT_SEED))
+    tok = SyntheticLM(cfg, DataConfig(global_batch=TRAIN_B,
+                                      seq_len=TRAIN_S)).batch(0)["tokens"]
+    row = {"tokens": torch.from_numpy(tok[:1])}
+    lc, _, gc = loss_and_grads(small, params, {"tokens": row["tokens"].to(
+        dev)})
+    t0 = time.perf_counter()
+    lh, _, gh = loss_and_grads(small, tree_map(lambda t: t.cpu(), params),
+                               row)
+    errs = {"loss": abs(float(lc) - float(lh)) / abs(float(lh))}
+    flat_c, flat_h = adamw.tree_leaves(gc), adamw.tree_leaves(gh)
+    whole_c = torch.cat([t.reshape(-1).float().cpu() for t in flat_c])
+    whole_h = torch.cat([t.reshape(-1).float() for t in flat_h])
+    errs["gradient"] = rel_l2(whole_c, whole_h)
+    errs["worst_leaf"] = max(rel_l2(a, b) for a, b in zip(
+        adamw.tree_leaves(gc), adamw.tree_leaves(gh)))
+    log(f"  card vs cpu at {TRAIN_CPU_LAYERS} layers ({time.perf_counter() - t0:.1f} s "
+        f"on the CPU): loss {errs['loss']:.2e}, gradient relative L2 "
+        f"{errs['gradient']:.4f} (worst leaf {errs['worst_leaf']:.4f})")
+    if max(errs.values()) > MODEL_REL_L2:
+        raise AssertionError(f"card vs cpu beyond {MODEL_REL_L2}: {errs}")
+    rep["card_vs_cpu"] = errs
+
+    # lease-synced workers at 4 layers, two workers, one row each
+    four = dataclasses.replace(cfg, n_layers=TRAIN_WORKER_LAYERS)
+    data = SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=TRAIN_S))
+    wopt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                             total_steps=TRAIN_WORKER_STEPS)
+    workers = {W: VmappedWorkers(four, wopt, LeaseConfig(wr_lease=W), 2,
+                                 device=dev) for W in (1, 4)}
+    wl = {W: [] for W in workers}
+    for s in range(TRAIN_WORKER_STEPS):
+        b = data.batch(s)["tokens"]
+        batches = {"tokens": np.stack([b[0:1], b[1:2]])}
+        for W, w in workers.items():
+            wl[W].append(w.step(batches))
+        p = workers[1].state.params["embed"]
+        if not torch.equal(p[0], p[1]):
+            raise AssertionError("W = 1 workers hold different parameters")
+    w1, w4 = workers[1], workers[4]
+    if not (w4.collective_bytes * 3 < w1.collective_bytes
+            and w4.clock.memts > 0 and np.all(np.isfinite(wl[1] + wl[4]))):
+        raise AssertionError(f"lease workers: bytes {w1.collective_bytes} "
+                             f"vs {w4.collective_bytes}, memts "
+                             f"{w4.clock.memts}, losses {wl}")
+    log(f"  VmappedWorkers ({TRAIN_WORKER_LAYERS} layers, 2 workers, "
+        f"{TRAIN_WORKER_STEPS} steps): W=1 parameters equal after every "
+        f"step, collective bytes W=1 {w1.collective_bytes} vs W=4 "
+        f"{w4.collective_bytes} ({w1.collective_bytes / w4.collective_bytes:.1f}x), "
+        f"memts {w4.clock.memts}; losses W=1 {[round(x, 3) for x in wl[1]]}")
+    rep["workers"] = {"bytes": {1: w1.collective_bytes,
+                                4: w4.collective_bytes},
+                      "memts": w4.clock.memts, "losses": wl}
+    del workers, w1, w4
+
+    # a step's times at full width, from the trained state
+    state = res["state"]
+    batch = tr.data.batch(TRAIN_STEPS)
+    n_params = sum(t.numel() for t in leaves(state.params))
+    walls, hosts = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = tr.step_fn(state, batch)
+        hosts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    # host syncs inside a step: each one stalls the enqueue until the card
+    # catches up (the loss readback the trainer makes is outside step_fn)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, _ = tr.step_fn(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0][:160] for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    box = [state]
+
+    def one_step():
+        box[0], m = tr.step_fn(box[0], batch)
+        float(m["loss"])
+    prof = profile_calls(torch, one_step, 2)
+    wall_ms = statistics.median(walls) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    bwd = sum(prof["ported_kernels"][k]["us"] for k in (
+        "rmsnorm_bwd", "flash_attention_bwd"))
+    flops = train_flops(cfg, n_params, TRAIN_B, TRAIN_S)
+    rep["step"] = {
+        "wall_ms": wall_ms, "host_enqueue_ms": statistics.median(hosts) * 1e3,
+        "device_busy_ms": prof["device_ms_per_call"],
+        "idle_share": prof["device_idle_share"],
+        "tokens_per_s": tokens / (wall_ms / 1e3),
+        "backward_kernels_share": bwd / prof["device_busy_us"],
+        "ported_kernels": prof["ported_kernels"],
+        "model_flops": flops, "n_params": n_params,
+        "mfu": flops / (wall_ms / 1e3 * BF16_FLOPS_PER_S),
+        "host_syncs": syncs, "device_events": prof["device_events"] / 2,
+        "device_by_name": prof["device_by_name"],
+        "host_by_op": prof["host_by_op"]}
+    st = rep["step"]
+    log(f"  a training step ({n_params / 1e6:.1f} M parameters, {tokens} "
+        f"tokens): wall {st['wall_ms']:.1f} ms, host enqueue "
+        f"{st['host_enqueue_ms']:.1f} ms, device busy "
+        f"{st['device_busy_ms']:.1f} ms (idle share {st['idle_share']:.3f});"
+        f" {st['tokens_per_s']:.0f} tokens/s; backward kernels "
+        f"{st['backward_kernels_share']:.3f} of device time "
+        + ", ".join(f"{k} {prof['ported_kernels'][k]['us'] / 2e3:.2f} ms "
+                    f"({prof['ported_kernels'][k]['count'] // 2})"
+                    for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                              "flash_attention_bwd"))
+        + f" a step; model flops {flops / 1e12:.2f} T a step, "
+        f"{st['mfu']:.3f} of 989 TF/s; {st['device_events']:.0f} device "
+        f"events a step; {len(syncs)} host syncs in a step {syncs[:3]}")
+
+    # checkpoint saves on a new manager: the first allocates its pinned
+    # buffers, the second refills them; host time on the training
+    # thread, then durable
+    mgr = CheckpointManager(work / "save_probe", keep=1)
+    rep["checkpoint"] = {}
+    for i, name in enumerate(("first", "second")):
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS + 99 + i, state)
+        enq = time.perf_counter() - t0
+        mgr.wait()
+        rep["checkpoint"][name] = {
+            "save_host_ms": enq * 1e3,
+            "durable_ms": (time.perf_counter() - t0) * 1e3}
+    log("  checkpoint save "
+        f"({3 * n_params * 4 / 1e9:.2f} GB): "
+        + "; ".join(f"{k} {v['save_host_ms']:.1f} ms on the training "
+                    f"thread, durable after {v['durable_ms']:.0f} ms"
+                    for k, v in rep["checkpoint"].items()))
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, rep
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2339,6 +2761,7 @@ def main() -> None:
     check_float_kernels(torch, np, dev, kreport)
     log_rmsnorm_vs_library(kreport)
     check_ssd_kernel(torch, np, dev, kreport)
+    check_backward_kernels(torch, np, dev, kreport)
     report["kernels"] = kreport
     check_no_sync(torch, np)
     log("  miss-path dispatch enqueues with no host sync (sync debug mode)")
@@ -2443,18 +2866,28 @@ def main() -> None:
         + ", ".join(f"{b} x {w}" for b, w in FABRIC_WORLDS) + ")")
     report["sharded"] = check_sharded(torch, np, fab_h, serv_h, rounds_h)
 
+    # ---- 8. the training path at full width, card vs CPU
+    log(f"phase 8: training {ARCH} at full width ({TRAIN_STEPS} steps, "
+        f"checkpoint every {TRAIN_CKPT}, failure at {TRAIN_FAIL}, resume)")
+    trained, report["training"] = check_training(torch, np, dev)
+    for name in ("rmsnorm_bwd", "flash_attention_bwd"):
+        launches[name] = trained[name]
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    # ---- 8. summary lines: each kernel's row at the main path's shapes
+    # ---- 9. summary lines: each kernel's row at the main path's shapes
     main_shape = {"lease_probe": [64, 8], "miss_round": [8, 64, 1024],
                   "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
                   "flash_attention": [SERVE_B, PROMPT_LEN, 15, 5, 64],
                   "decode_attention": [SERVE_B, MAX_LEN, 15, 5, 64,
                                        PROMPT_LEN + 1],
-                  "ssd_chunk": [SERVE_B, 2, 256, 24, 64, 128]}
+                  "ssd_chunk": [SERVE_B, 2, 256, 24, 64, 128],
+                  "rmsnorm_bwd": [TRAIN_B * TRAIN_S, 960],
+                  "flash_attention_bwd": [TRAIN_B, TRAIN_S, TRAIN_S, 15, 5,
+                                          64, 1, 0]}
     line = []
     for name, source, replaces in KERNELS:
         row = max(kreport[name], key=lambda r: r["shape"][0])

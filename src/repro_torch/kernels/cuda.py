@@ -24,8 +24,9 @@ from typing import Dict, Iterable, Sequence
 
 import torch
 
-SOURCES = ("lease_probe", "tier_pass", "rmsnorm", "flash_attention",
-           "flash_attention_wgmma", "decode_attention", "ssd_chunk",
+SOURCES = ("lease_probe", "tier_pass", "rmsnorm", "rmsnorm_bwd",
+           "flash_attention", "flash_attention_wgmma",
+           "flash_attention_bwd", "decode_attention", "ssd_chunk",
            "ssd_chunk_wgmma")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"

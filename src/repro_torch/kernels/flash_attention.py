@@ -14,7 +14,11 @@ picks one, as a plain function of the dtype and the head dim:
   (``csrc/flash_attention.cu``).
 
 Nothing falls back at run time: a call that its route's kernel cannot
-build, take or launch raises.  Both read ``[B, S, H, D]`` tensors with
+build, take or launch raises.  ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``, CUDA cores, any of the head dims and
+both dtypes) is the gradient of either route; its plain version is
+autograd of the plain forward (``kernels.ref.attention_bwd_ref``), and
+``FlashAttentionFn`` joins forward and backward for autograd.  Both read ``[B, S, H, D]`` tensors with
 their strides (no transposes) and take any Sq and Sk.  The plain version
 is ``kernels.ref.attention_ref``.  This wrapper launches on CUDA tensors
 only and raises on anything else; ``kernels.ops.flash_attention`` is the
@@ -116,3 +120,72 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+_ARGS_BWD = [cuda.P] * 11 + [cuda.I] * 6 + [cuda.F, cuda.I, cuda.I, cuda.I,
+                                            cuda.P]
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0):
+    """The gradient of ``flash_attention(q, k, v, causal=causal,
+    window=window)``: q, out, dout [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D],
+    all contiguous and of one dtype, ``out`` the forward's output.
+    Returns (dq, dk, dv) in that dtype, computed in f32.  Three launches
+    (row statistics, dK/dV, dQ) and no atomics, so the result is the same
+    from run to run.  Allocates its outputs and three ``[B, Hq, Sq]`` f32
+    rows of scratch, launches on the current stream and does not
+    synchronise."""
+    dt = check_qkv(q, k, v, "flash_attention_bwd")
+    dev = q.device
+    for name, t in (("out", out), ("dout", dout)):
+        cuda.check_float(name, t, dev, q.dtype)
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention_bwd: {name} shape "
+                             f"{tuple(t.shape)}, q has {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"contiguous, got strides {t.stride()}")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if Sk < 1:
+        raise ValueError("flash_attention_bwd: needs at least one key")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B and Sq:
+        stats = torch.empty((3, B, Hq, Sq), dtype=torch.float32, device=dev)
+        fn = cuda.function("flash_attention_bwd",
+                           "halcone_flash_attention_bwd", _ARGS_BWD)
+        cuda.launch(fn, [t.data_ptr() for t in (q, k, v, out, dout, dq, dk,
+                                                dv, *stats)]
+                    + [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal),
+                       int(window), dt], dev)
+        flash_attention_bwd.launches += 1
+    else:
+        dk.zero_()
+        dv.zero_()
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with ``flash_attention_bwd`` as its gradient,
+    both kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

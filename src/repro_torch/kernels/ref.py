@@ -4,7 +4,8 @@ kernels are held to, and what the dispatcher runs on CPU tensors.
 Each function is the line-for-line counterpart of its namesake in
 ``repro/kernels/ref.py`` and runs on any device.  The float half
 (``rmsnorm_ref``, ``attention_ref``, ``ssd_chunk_ref``) computes in f32 and casts the result
-to the input's dtype, as the Pallas kernels do; in particular the softmax
+to the input's dtype, as the Pallas kernels do (their backward is
+autograd of these: ``rmsnorm_bwd_ref``, ``attention_bwd_ref``); in particular the softmax
 probabilities stay f32 for the PV product, where the reference's jnp
 ``layers.attention`` rounds them to v's dtype first.  Translation notes
 for the coherence half:
@@ -169,6 +170,25 @@ def attention_ref(q, k, v, *, causal=True, window=0, kv_len=None):
     p = torch.softmax(s + mask, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def rmsnorm_bwd_ref(x, w, dy, eps=1e-6):
+    """The plain backward of ``rmsnorm_ref``: autograd of the plain
+    forward.  Returns (dx in x's dtype, dw in w's dtype)."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_()
+        wg = w.detach().requires_grad_()
+        return torch.autograd.grad(rmsnorm_ref(xg, wg, eps), (xg, wg), dy)
+
+
+def attention_bwd_ref(q, k, v, dout, *, causal=True, window=0):
+    """The plain backward of ``attention_ref`` (train/prefill form):
+    autograd of the plain forward.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_ref(*qkv, causal=causal, window=window)
+        return torch.autograd.grad(out, qkv, dout)
 
 
 def ssd_chunk_ref(x, dt, A, Bc, Cc, out_dtype=None):

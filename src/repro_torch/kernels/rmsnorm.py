@@ -1,11 +1,15 @@
-"""Fused RMSNorm on the H100: one read and one write of each row.
+"""Fused RMSNorm on the H100: one read and one write of each row, and
+its gradient.
 
 The CUDA kernel (``csrc/rmsnorm.cu``) replaces the Pallas kernel
 ``repro/kernels/rmsnorm.py::_rmsnorm_kernel``; its plain version is
-``kernels.ref.rmsnorm_ref``.  This wrapper launches on CUDA tensors only
-and raises on anything else; ``kernels.ops.rmsnorm`` is the dispatcher
-that sends CPU tensors to the plain version.  ``plan`` picks the
-kernel's shape for a call on the host.
+``kernels.ref.rmsnorm_ref``.  ``rmsnorm_bwd`` (``csrc/rmsnorm_bwd.cu``)
+is its backward, whose plain version is autograd of the plain forward
+(``kernels.ref.rmsnorm_bwd_ref``); ``RMSNormFn`` joins the two for
+autograd.  These wrappers launch on CUDA tensors only and raise on
+anything else; ``kernels.ops.rmsnorm`` is the dispatcher that sends CPU
+tensors to the plain version.  ``plan`` picks the forward kernel's shape
+for a call on the host.
 """
 from __future__ import annotations
 
@@ -82,3 +86,70 @@ def rmsnorm(x, w, *, eps=1e-6):
 
 
 rmsnorm.launches = 0
+
+
+_ARGS_BWD = [cuda.P] * 6 + [cuda.I, cuda.I, cuda.F, cuda.I, cuda.I, cuda.I,
+             cuda.P]
+BWD_BLOCK_ROWS = 8           # csrc/rmsnorm_bwd.cu: one warp a row, 8 a block
+BWD_MAX_D = 6400             # (1 + 8) rows of D f32 in shared memory
+
+
+def rmsnorm_bwd(x, w, dy, *, eps=1e-6):
+    """The gradient of ``rmsnorm(x, w, eps=eps)``: x and dy [..., D]
+    contiguous, of one dtype (f32 or bf16); w [D] f32.  Returns (dx in
+    x's dtype and shape, dw [D] f32).  dw sums over the rows in a fixed
+    order (per-block partial rows, then a second pass), so it is the
+    same from run to run.  Allocates its outputs and an f32 scratch of
+    ``G x D`` partial rows, launches on the current stream and does not
+    synchronise."""
+    dev = x.device
+    dt = cuda.check_float("x", x, None)
+    cuda.check_float("dy", dy, dev, x.dtype)
+    cuda.check_float("w", w, dev, torch.float32)
+    for name, t in (("x", x), ("dy", dy)):
+        if t.dim() < 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous [..., D] "
+                             f"tensor, got shape {tuple(t.shape)} strides "
+                             f"{t.stride()}")
+    if dy.shape != x.shape:
+        raise ValueError(f"dy: shape {tuple(dy.shape)}, x has "
+                         f"{tuple(x.shape)}")
+    D = x.shape[-1]
+    if w.shape != (D,):
+        raise ValueError(f"w: expected shape ({D},), got {tuple(w.shape)}")
+    if not 1 <= D <= BWD_MAX_D:
+        raise ValueError(f"rmsnorm_bwd: D={D} outside [1, {BWD_MAX_D}]")
+    R = x.numel() // D
+    dx = torch.empty_like(x)
+    if not R:
+        return dx, torch.zeros(D, dtype=torch.float32, device=dev)
+    dw = torch.empty(D, dtype=torch.float32, device=dev)
+    G = min(-(-R // BWD_BLOCK_ROWS), 2 * _n_sms(dev.index))
+    part = torch.empty((G, D), dtype=torch.float32, device=dev)
+    vec = int(D % (16 // x.element_size()) == 0 and
+              (x.data_ptr() | dy.data_ptr() | dx.data_ptr()) % 16 == 0)
+    fn = cuda.function("rmsnorm_bwd", "halcone_rmsnorm_bwd", _ARGS_BWD)
+    cuda.launch(fn, [x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+                     dx.data_ptr(), dw.data_ptr(), part.data_ptr(), R, D,
+                     float(eps), G, vec, dt], dev)
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+rmsnorm_bwd.launches = 0
+
+
+class RMSNormFn(torch.autograd.Function):
+    """``rmsnorm`` with ``rmsnorm_bwd`` as its gradient, both kernels."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, dy.contiguous(), eps=ctx.eps)
+        return dx, dw, None

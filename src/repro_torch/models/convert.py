@@ -3,8 +3,9 @@
 The reference's parameter tree is nested dicts of arrays with stacked
 ``[L, ...]`` leaves under ``segments/seg<i>`` (and zamba2's shared block
 under ``shared_attn``); its cache tree has the same shape, with KV leaves
-at attention positions and ``conv``/``state`` leaves at SSM positions.
-The port keeps both layouts, so converting is a walk of the
+at attention positions and ``conv``/``state`` leaves at SSM positions;
+its ``TrainState`` holds a params tree, moments m and v of the same
+shape and an int32 step.  The port keeps these layouts, so converting is a walk of the
 port's spec that checks every leaf's path and shape and makes it a tensor
 (``numpy`` arrays in, including the ``bfloat16`` arrays JAX hands out).
 Tests use this so that both packages compute with the same numbers.
@@ -79,3 +80,20 @@ def cache_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
     batch, max_len = _cache_dims(tree)
     return _convert(cache_spec(cfg, batch, max_len), tree,
                     cfg.policy.cache_dtype, resolve_device(device))
+
+
+def train_state_from_numpy(cfg: ModelConfig, params, m, v, step,
+                           device=None):
+    """The reference's ``TrainState`` (its params, m and v trees and its
+    step, numpy leaves) as the port's ``optim.adamw.TrainState`` on
+    ``device`` (None = the CUDA card): params in the param dtype, moments
+    in the moment dtype, the step an int32 scalar."""
+    from repro_torch.optim.adamw import TrainState
+    dev = resolve_device(device)
+    spec = model_spec(cfg)
+    return TrainState(
+        params=_convert(spec, params, cfg.policy.param_dtype, dev),
+        m=_convert(spec, m, cfg.policy.moment_dtype, dev),
+        v=_convert(spec, v, cfg.policy.moment_dtype, dev),
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev))

@@ -9,12 +9,14 @@ decode step), on the CPU their plain versions.  The reference's jnp
 the PV product; the kernels (Pallas and CUDA alike) keep them in f32, so
 in bf16 the port differs from the reference's jnp path by that rounding
 (equal up to rounding order under an f32 policy).  Everything else is
-plain torch.  ``chunked_xent`` belongs to training and is not ported yet.
+plain torch, ``chunked_xent`` (the training loss) included: its unembed
+product is a ``torch.matmul``, as the reference leaves it to XLA.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -65,6 +67,46 @@ def swiglu(x, wg, wi, wo, compute_dtype):
     g = x @ wg.to(compute_dtype)
     u = x @ wi.to(compute_dtype)
     return (F.silu(g.float()).to(compute_dtype) * u) @ wo.to(compute_dtype)
+
+
+def _chunk_loss(hb, unembed, lb, mb):
+    """Sum over one chunk of the masked next-token CE: f32 logits of
+    ``hb @ unembed`` (in hb's dtype), logsumexp minus the label's logit."""
+    logits = (hb @ unembed.to(hb.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+    return ((lse - tgt) * mb).sum()
+
+
+def chunked_xent(h, unembed, labels, mask=None, chunk=512):
+    """Next-token CE without holding ``[B, S, V]`` logits for autograd.
+
+    h: [B, S, D] (already shifted so h[t] predicts labels[t]);
+    unembed: [D, V]; labels: [B, S] int; mask: [B, S] or None.  Chunks of
+    ``min(chunk, S)`` positions (S must be a multiple); under grad each
+    chunk's loss is checkpointed, so its logits are recomputed in the
+    backward rather than kept.  Returns the masked mean in f32 over
+    ``max(count, 1)``, summed chunk by chunk as the reference's scan."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_xent: S={S} is not a multiple of the "
+                         f"chunk {chunk}")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=h.device)
+    grad = torch.is_grad_enabled() and (h.requires_grad
+                                        or unembed.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        args = (h[:, c0:c0 + chunk], unembed, labels[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        part = (checkpoint(_chunk_loss, *args, use_reentrant=False) if grad
+                else _chunk_loss(*args))
+        tot = tot + part
+        cnt = cnt + args[3].sum()
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def update_cache(cache_kv, new_kv, pos: int):

@@ -1,5 +1,5 @@
-"""Model assembly: the serving path of the dense decoders, mamba2 and
-zamba2's hybrid stack — the port of ``repro.models.model``.
+"""Model assembly: the serving and training paths of the dense decoders,
+mamba2 and zamba2's hybrid stack — the port of ``repro.models.model``.
 
 A config is compiled into the reference's *plan*: an optional prefix of
 looped layers plus a run of stacked pattern-repeats (and a looped tail).
@@ -8,10 +8,20 @@ The parameter and cache trees keep the reference's names and layout
 attention block at the top level under ``shared_attn``, an empty ``{}``
 block at each of its positions), so the tests compare like with like;
 the reference's ``lax.scan`` over the stack becomes a Python loop over
-the layer index.  Dense, SSM and shared-attention blocks with global
-attention are ported: MoE blocks, MLA, sliding windows and modality
-frontends raise ``NotImplementedError`` naming the ROADMAP item that will
-port them.
+the layer index, each stacked leaf unbound into its layers once (so
+autograd stacks the layers' gradients in one step).  Dense, SSM and
+shared-attention blocks with global attention are ported: MoE blocks,
+MLA, sliding windows and modality frontends raise ``NotImplementedError``
+naming the ROADMAP item that will port them.
+
+Training (``loss_fn``): the f32 master weights go in as they are, and
+every float weight of two or more dims is cast to the compute dtype where
+it is used, as the reference's ``_constrain_params`` does; the cast is
+differentiable, so the gradients land on the f32 leaves.  Under
+``cfg.policy.remat`` each layer of a stacked segment runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scan body), so its activations are recomputed in the backward.  Serving
+casts once instead (``cast_params``) and never checkpoints.
 """
 from __future__ import annotations
 
@@ -19,12 +29,13 @@ import dataclasses
 from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.coherence.fabric.backend import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rmsnorm, swiglu
+from repro_torch.models.layers import chunked_xent, rmsnorm, swiglu
 from repro_torch.models.params import (P, map_with_path, materialize,
                                        stack_specs)
 
@@ -168,6 +179,16 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def layer_trees(tree, n: int) -> List:
+    """The ``n`` per-layer trees of a stacked tree: every leaf unbound
+    along its first dim once (views; under autograd one ``unbind`` node
+    a leaf, whose backward stacks the layers' gradients)."""
+    if isinstance(tree, dict):
+        parts = {k: layer_trees(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    return list(tree.unbind(0))
+
+
 def _stack(trees: List[dict]) -> dict:
     first = trees[0]
     if isinstance(first, dict):
@@ -217,7 +238,8 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, cache=None,
             pos=None):
     """tokens: [B, S] int; ``pos`` (host int) = cache fill level for a
     decode step.  Returns (h_final [B, S, D], new_cache); the given cache
-    is never written."""
+    is never written.  With ``cfg.policy.remat``, no cache and grad mode
+    on (training), each layer of a stacked segment is checkpointed."""
     check_supported(cfg)
     cd = cfg.policy.compute_dtype
     B, S = tokens.shape
@@ -233,19 +255,29 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, cache=None,
         if seg.mode == "loop":
             layers, views = [sp], [sc]
         else:
-            layers = [tree_map(lambda x, r=r: x[r], sp)
-                      for r in range(seg.repeats)]
-            views = [None if sc is None else tree_map(lambda x, r=r: x[r], sc)
-                     for r in range(seg.repeats)]
-        outs = []
-        for bp, bc in zip(layers, views):
+            layers = layer_trees(sp, seg.repeats)
+            views = ([None] * seg.repeats if sc is None
+                     else layer_trees(sc, seg.repeats))
+
+        def run_layer(h, bp, bc, pattern=seg.pattern):
             ncs = {}
-            for j, desc in enumerate(seg.pattern):
+            for j, desc in enumerate(pattern):
                 h, nc = _apply_block(cfg, desc, bp[str(j)], h,
                                      positions=positions,
                                      cache=None if bc is None else bc[str(j)],
                                      pos=pos, shared_attn=shared_attn)
                 ncs[str(j)] = {} if nc is None else nc
+            return h, ncs
+
+        ckpt = (cfg.policy.remat and seg.mode == "scan" and cache is None
+                and torch.is_grad_enabled())
+        outs = []
+        for bp, bc in zip(layers, views):
+            if ckpt:
+                h = checkpoint(lambda hh, b: run_layer(hh, b, None)[0], h, bp,
+                               use_reentrant=False)
+                continue
+            h, ncs = run_layer(h, bp, bc)
             outs.append(ncs)
         if cache is not None:
             new_cache[f"seg{si}"] = outs[0] if seg.mode == "loop" \
@@ -258,6 +290,27 @@ def unembed_matrix(cfg: ModelConfig, params: dict):
     if cfg.tie_embeddings:
         return params["embed"].T
     return params["unembed"]
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+    """Training loss.  batch: ``tokens`` [B, S] (or ``labels`` and an
+    optional ``mask``), tensors on the params' device.  Next-token CE:
+    labels are the tokens rolled by one, the last position masked; the
+    loss is ``ce + 0.01 * aux`` with aux 0 for the ported block kinds.
+    Returns (loss, {"ce", "aux"}), f32 scalars."""
+    tokens = batch.get("tokens")
+    h, _ = forward(cfg, params, tokens)
+    W = unembed_matrix(cfg, params)
+    if cfg.causal and "labels" not in batch:
+        ll = torch.roll(tokens, -1, dims=1)       # h[t] predicts tokens[t+1]
+        mask = torch.ones(ll.shape, dtype=torch.float32, device=h.device)
+        mask[:, -1] = 0.0
+    else:
+        ll = batch["labels"]
+        mask = batch.get("mask")
+    ce = chunked_xent(h, W, ll, mask)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def _next_ids(cfg: ModelConfig, params: dict, h):

@@ -1117,3 +1117,222 @@ def test_cuda_ssm_model_and_server_equal_cpu(exact_f32, arch):
     assert srvs[0].fabric_stats == srvs[1].fabric_stats
     assert list(srvs[0].fabric.grant_log) == list(srvs[1].fabric.grant_log)
     assert srvs[0].cache_stats["hits"] >= 1
+
+
+# ------------------------------------------------------ backward kernels
+# Backward kernel vs autograd of the plain forward on the card.  f32:
+# rtol = atol = 1e-4 (the same f32 math, but gradients sum over up to
+# 4096 rows, or over every query of a key and the group's heads, in
+# another order, and attention's Di is dO . O from the forward kernel's
+# output where autograd sums P dP).  bf16: rtol = atol = 2e-2 (both sides
+# compute in f32 from the same bf16 inputs and round once; Di reads the
+# bf16-rounded forward output).
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _grad_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **GRAD_TOL[want.dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D", [(4096, 960), (8, 960), (7, 80), (5, 100),
+                                 (3, 8), (33, 4096), (1, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rmsnorm_bwd_equals_plain(exact_f32, R, D, dtype):
+    """dx and dw against autograd of ``rmsnorm_ref`` at the training
+    shape (R = B S = 4096, D = 960), a few rows, odd widths (element
+    loads) and a wide row; dw is the same from run to run."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    x = _randn(exact_f32, (R, D), dtype, R + D)
+    dy = _randn(exact_f32, (R, D), dtype, R + D + 1)
+    w = _randn(exact_f32, (D,), torch.float32, D) * 0.1
+    before = rmsnorm_bwd.launches
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    assert rmsnorm_bwd.launches == before + 1
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
+    _grad_close(dx, want_dx)
+    _grad_close(dw, want_dw)
+    dx2, dw2 = rmsnorm_bwd(x, w, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (8, 512, 512, 15, 5, 64, True, 0),        # smollm-360m's training step
+    (1, 100, 100, 15, 5, 64, True, 0),        # ragged tail
+    (2, 77, 77, 4, 2, 16, False, 0),
+    (1, 130, 130, 4, 1, 128, True, 32),       # MQA, windowed
+    (1, 50, 130, 4, 2, 32, False, 0),         # rectangular
+    (1, 130, 50, 4, 2, 64, True, 0),          # more queries than keys
+    # rows 65.. have no visible key (past Sk and the window): the forward
+    # and the plain version weigh their keys evenly
+    (1, 130, 50, 4, 2, 64, True, 16),
+    (1, 200, 200, 4, 2, 64, False, 32),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_bwd_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
+                                               D, causal, window, dtype):
+    """dq, dk, dv against autograd of ``attention_ref``, the forward from
+    the route's kernel; finite everywhere (a fully masked row included)
+    and the same from run to run."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    dev = exact_f32
+    q = _randn(dev, (B, Sq, Hq, D), dtype, 1)
+    k = _randn(dev, (B, Sk, Hkv, D), dtype, 2)
+    v = _randn(dev, (B, Sk, Hkv, D), dtype, 3)
+    dout = _randn(dev, (B, Sq, Hq, D), dtype, 4)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                              window=window)
+    assert flash_attention_bwd.launches == before + 1
+    want = ref.attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _grad_close(g, w)
+    again = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                window=window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_autograd_goes_through_the_backward_kernels(exact_f32, dtype):
+    """``ops.rmsnorm`` and ``ops.flash_attention`` under grad take their
+    ``autograd.Function``s (forward and backward kernels) and agree with
+    autograd of the plain versions; without grad they launch the forward
+    kernel alone.  ``decode_attention`` and ``ssd_chunk`` under grad
+    raise on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    dev = exact_f32
+    x = _randn(dev, (2, 64, 96), dtype, 5).requires_grad_()
+    w = (_randn(dev, (96,), torch.float32, 6) * 0.1).requires_grad_()
+    q = _randn(dev, (2, 64, 4, 64), dtype, 7).requires_grad_()
+    k = _randn(dev, (2, 64, 2, 64), dtype, 8).requires_grad_()
+    v = _randn(dev, (2, 64, 2, 64), dtype, 9).requires_grad_()
+    counts = [f.launches for f in (rmsnorm, rmsnorm_bwd, flash_attention,
+                                   flash_attention_bwd)]
+    y = ops.rmsnorm(x, w)
+    o = ops.flash_attention(q, k, v, causal=True)
+    (y.float().square().sum() + o.float().square().sum()).backward()
+    assert [f.launches for f in (rmsnorm, rmsnorm_bwd, flash_attention,
+                                 flash_attention_bwd)] == [
+        c + 1 for c in counts]
+    xs, ws, qs, ks, vs = (t.detach().requires_grad_()
+                          for t in (x, w, q, k, v))
+    (ref.rmsnorm_ref(xs, ws).float().square().sum()
+     + ref.attention_ref(qs, ks, vs).float().square().sum()).backward()
+    for got, want in ((x, xs), (w, ws), (q, qs), (k, ks), (v, vs)):
+        _grad_close(got.grad, want.grad)
+    with torch.no_grad():
+        ops.rmsnorm(x, w)
+        ops.flash_attention(q, k, v)
+    assert rmsnorm_bwd.launches == counts[1] + 1
+    assert flash_attention_bwd.launches == counts[3] + 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.decode_attention(q[:, :1], k, v, 8)
+    xs = _randn(dev, (1, 1, 64, 2, 64), dtype, 10).requires_grad_()
+    dt = torch.ones(1, 1, 64, 2, device=dev)
+    A = -torch.ones(2, device=dev)
+    bc = _randn(dev, (1, 1, 64, 2, 64), dtype, 11)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssd_chunk(xs, dt, A, bc, bc)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_equals_cpu(exact_f32):
+    """The smoke smollm's loss and gradients on the card against the
+    CPU: under the f32 policy within rtol = atol = 1e-4 per leaf, under
+    the default bf16 policy within a relative L2 of 2e-2 per leaf; the
+    backward kernels launch.  mamba2's loss on the card raises (no
+    ``ssd_chunk`` backward yet)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.models import init_model
+    from repro_torch.models.model import loss_fn, tree_map
+    from repro_torch.optim.adamw import tree_leaves
+
+    base = configs.SMOKE["smollm-360m"]
+    tok = np.random.default_rng(3).integers(2, base.vocab, (2, 64)).astype(
+        np.int32)
+    for policy in (dict(compute_dtype=torch.float32), {}):
+        cfg = dataclasses.replace(base, policy=dataclasses.replace(
+            base.policy, **policy))
+        params = init_model(cfg, torch.Generator(exact_f32).manual_seed(4))
+        grads = []
+        for dev in (exact_f32, torch.device("cpu")):
+            p = tree_map(lambda t: t.detach().to(dev).requires_grad_(),
+                         params)
+            leaves = list(tree_leaves(p))
+            before = (rmsnorm_bwd.launches, flash_attention_bwd.launches)
+            loss, _ = loss_fn(cfg, p, {"tokens": torch.from_numpy(tok).to(
+                dev)})
+            loss.backward()
+            if dev.type == "cuda":
+                assert rmsnorm_bwd.launches > before[0]
+                assert flash_attention_bwd.launches > before[1]
+            grads.append((float(loss), [t.grad.cpu() for t in leaves]))
+        (l_card, g_card), (l_cpu, g_cpu) = grads
+        if policy:
+            assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+            for a, b in zip(g_card, g_cpu):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            assert abs(l_card - l_cpu) <= 2e-2 * abs(l_cpu)
+            for a, b in zip(g_card, g_cpu):
+                assert float((a - b).norm()) <= 2e-2 * float(b.norm()) + 1e-6
+    cfg = configs.SMOKE["mamba2-130m"]
+    params = init_model(cfg, torch.Generator(exact_f32).manual_seed(4))
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with pytest.raises(NotImplementedError, match="ssd_chunk"):
+        loss_fn(cfg, p, {"tokens": torch.from_numpy(tok[:, :32]).to(
+            exact_f32)})
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_equals_cpu_trainer(cuda_device, tmp_path):
+    """The smoke smollm's ``Trainer`` on the card and on the CPU from the
+    same initial state, with a failure at step 5 and a resume: the same
+    events, fabric counters and grant log (the fabric sees only keys),
+    finite losses within 2e-2 of each other, and on the card the resumed
+    steps equal the first run's bit for bit."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = configs.SMOKE["smollm-360m"]
+    params0 = init_model(cfg, torch.Generator().manual_seed(0))
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        tr = Trainer(cfg, tcfg=TrainerConfig(
+            total_steps=8, ckpt_period=3, ckpt_dir=str(tmp_path / dev.type)),
+            data=SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=32)),
+            device=dev)
+        state = adamw.init_state(adamw.tree_map(
+            lambda t: t.to(dev, copy=True), params0), cfg.policy.moment_dtype)
+        with pytest.raises(RuntimeError, match="simulated node failure"):
+            tr.run(state=state, fail_at=5)
+        first = [loss for _, loss in tr.history]
+        res = tr.resume()
+        runs.append((tr, first, res))
+    (tc, fc, rc), (th, fh, rh) = runs
+    assert tc.events == th.events
+    assert rc["fabric_stats"] == rh["fabric_stats"]
+    assert list(tc.fabric.grant_log) == list(th.fabric.grant_log)
+    # the restart resumes at step 3: steps 3 and 4 ran twice on the card
+    assert rc["losses"][:2] == fc[3:5]
+    assert all(np.isfinite(rc["losses"]))
+    np.testing.assert_allclose(fc + rc["losses"], fh + rh["losses"],
+                               rtol=2e-2)

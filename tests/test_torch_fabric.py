@@ -306,9 +306,15 @@ SHARDED_SLICE = ("coherence/fabric/tsu.py", "coherence/fabric/cache.py",
                  "obs/xprof.py")
 
 
+# and the training path
+TRAINING_SLICE = ("optim/adamw.py", "optim/compress.py", "data/pipeline.py",
+                  "checkpoint/manager.py", "coherence/lease_sync.py",
+                  "launch/steps.py", "runtime/trainer.py", "launch/train.py")
+
+
 def _modules():
     mods = sorted((SRC / "repro_torch").rglob("*.py"))
-    for m in SHARDED_SLICE:
+    for m in SHARDED_SLICE + TRAINING_SLICE:
         assert SRC / "repro_torch" / m in mods, f"{m} is missing"
     return mods
 
