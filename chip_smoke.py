@@ -122,15 +122,20 @@ Phases (any failure raises and the script exits non-zero):
      a resume: the resumed steps equal the first run's losses bit for
      bit, the losses are finite and fall, ``rmsnorm``,
      ``flash_attention``, their backward kernels and ``lease_probe`` (the
-     publish's op scan) launched, and the events, fabric counters and grant log equal a
-     2-layer CPU trainer's; the card's loss and gradients at 2 layers
-     equal the CPU's within a relative L2 of 2e-2; ``VmappedWorkers`` at
+     publish's op scan) launched, every flash backward on the
+     tensor-core route from a forward's row statistics, and the events,
+     fabric counters and grant log equal a 2-layer CPU trainer's; the
+     card's loss and gradients at 2 layers equal the CPU's within a
+     relative L2 of 2e-2; ``VmappedWorkers`` at
      4 layers (W = 1 equal workers, W = 4 at least 3x fewer collective
      bytes); a step's wall, host enqueue and device time, tokens/s, idle
      share, the backward kernels' share, the model-flops share and a
      checkpoint save's time.  Phase 2 also holds the backward kernels
      against autograd of the plain versions (at the training shapes and
-     odd ones, beside the library's backward);
+     odd ones, each flash row on its route, beside the library's backward
+     and, at the bf16 training shape, the CUDA-core kernel of the first
+     round); phases 4 and 5 assert that no prefill wrote the backward's
+     row statistics;
   9. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
@@ -200,7 +205,7 @@ KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
            ("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
             "src/repro/kernels/rmsnorm.py:31"),
            ("flash_attention_bwd",
-            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
             "src/repro/kernels/flash_attention.py:79"))
 # phase 4: the LLM serving path
 ARCH = "smollm-360m"
@@ -847,14 +852,19 @@ def check_backward_kernels(torch, np, dev, report):
     versions on the card, at the training shapes (rmsnorm: R = B S = 4096
     rows of 960; flash: B = 8, S = 512, 15 over 5 heads of 64, causal)
     and odd ones (a few rows, odd widths, a window with rows that see no
-    key), bf16 and f32; each row with the kernel's time, the plain
-    backward's and the library's (autograd of ``F.rms_norm`` and of SDPA,
-    each on a graph built once), and the bound."""
+    key, D = 128), bf16 and f32, each flash row on the route ``route``
+    names (the tensor-core route with the forward's row statistics);
+    each row with the kernel's time, the plain backward's and the
+    library's (autograd of ``F.rms_norm`` and of SDPA, each on a graph
+    built once), and the bound.  At the bf16 training shape flash also
+    times the CUDA-core kernel of the first round (``_route="simt"``) in
+    the same run as the "old" column."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+                                                     flash_attention_bwd,
+                                                     route)
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
 
     def randn(shape, dtype, seed):
@@ -866,7 +876,8 @@ def check_backward_kernels(torch, np, dev, report):
         return lambda: torch.autograd.grad(out, inputs, grad,
                                            retain_graph=True)
 
-    def compare(name, kern, plain, library, nbytes, flops, dtype, shape):
+    def compare(name, kern, plain, library, nbytes, flops, dtype, shape,
+                path="cuda", old=None):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         tol = GRAD_TOL[str(dtype).split(".")[-1]]
@@ -886,19 +897,24 @@ def check_backward_kernels(torch, np, dev, report):
         rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
         bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
         row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
-               "route": "cuda", "max_abs_err": err, "tol": tol,
+               "route": path, "max_abs_err": err, "tol": tol,
                "ms": device_ms(torch, kern),
                "plain_ms": device_ms(torch, plain, n=5, trials=3),
                "library_ms": device_ms(torch, library),
                "bound_ms": max(bt, ot),
                "bound_by": "bytes" if bt >= ot else "operations",
                "bytes": nbytes, "flops": flops}
+        if old is not None:
+            row["old_ms"] = device_ms(torch, old, n=5, trials=3)
         report.setdefault(name, []).append(row)
-        log(f"  {name}{shape} {row['dtype']}: max |err| {err:.3g} <= {tol}, "
-            f"same from run to run; kernel {row['ms'] * 1e3:.2f} us, plain "
-            f"{row['plain_ms'] * 1e3:.2f} us, library "
+        log(f"  {name}{shape} {row['dtype']} ({path}): max |err| {err:.3g} "
+            f"<= {tol}, same from run to run; kernel {row['ms'] * 1e3:.2f} "
+            f"us, "
+            + (f"old kernel {row['old_ms'] * 1e3:.2f} us, " if old else "")
+            + f"plain {row['plain_ms'] * 1e3:.2f} us, library "
             f"{row['library_ms'] * 1e3:.2f} us, bound "
-            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.3f} of it)")
 
     log(f"  backward tolerances (rtol = atol): {GRAD_TOL}")
     eps = 1e-6
@@ -917,15 +933,24 @@ def check_backward_kernels(torch, np, dev, report):
                     backward_of(plain_out, (xp, wp), dy),
                     backward_of(lib, (xl, wl), dy),
                     3 * R * D * el + 8 * D, 12 * R * D, dtype, [R, D])
+        if dtype == torch.bfloat16:
+            log("  rmsnorm_bwd's first-round kernel (rewritten in place): "
+                "21.41 us at [4096, 960] bf16, 26.44 us in f32, 9.64 us at "
+                "[8, 960] bf16 (run AM, PERF.md)")
         for B, Sq, Sk, Hq, Hkv, D, causal, window in (
                 (TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0),
                 (1, 130, 50, 4, 2, 64, True, 16),
+                (1, 130, 130, 4, 1, 128, True, 32),
                 (2, 77, 77, 4, 2, 16, False, 0)):
             q = randn((B, Sq, Hq, D), dtype, 1)
             k = randn((B, Sk, Hkv, D), dtype, 2)
             v = randn((B, Sk, Hkv, D), dtype, 3)
             do = randn((B, Sq, Hq, D), dtype, 4)
-            o = flash_attention(q, k, v, causal=causal, window=window)
+            path = route(dtype, D)
+            stats = (torch.empty((2, B, Hq, Sq), dtype=torch.float32,
+                                 device=dev) if path == "wgmma" else None)
+            o = flash_attention(q, k, v, causal=causal, window=window,
+                                stats=stats)
             qp, kp, vp = (t.detach().requires_grad_() for t in (q, k, v))
             plain_out = ref.attention_ref(qp, kp, vp, causal=causal,
                                           window=window)
@@ -944,14 +969,23 @@ def check_backward_kernels(torch, np, dev, report):
                 ql, kl, vl, attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=True)
             pairs = _visible_pairs(Sq, Sk, causal)
+            old = None
+            if path == "wgmma" and B == TRAIN_B:
+                def old():
+                    return flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                               window=window, _route="simt")
+            # the tensor-core route also reads the forward's m and 1 / l
+            stat_bytes = 8 * B * Hq * Sq if path == "wgmma" else 0
             compare("flash_attention_bwd",
                     lambda: flash_attention_bwd(q, k, v, o, do,
-                                                causal=causal, window=window),
+                                                causal=causal, window=window,
+                                                stats=stats),
                     backward_of(plain_out, (qp, kp, vp), do),
                     backward_of(lib, (ql, kl, vl), do.transpose(1, 2)),
-                    (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D) * el,
+                    (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D) * el
+                    + stat_bytes,
                     10 * D * B * Hq * pairs, dtype,
-                    [B, Sq, Sk, Hq, Hkv, D, int(causal), window])
+                    [B, Sq, Sk, Hq, Hkv, D, int(causal), window], path, old)
 
 
 # ------------------------------------------------------------- phase 3
@@ -1299,8 +1333,11 @@ KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                   "decode_attention": ("decode_cluster_kernel",),
                   "ssd_chunk": ("ssd_wgmma_kernel", "ssd_output_kernel",
                                 "ssd_state_kernel"),
-                  "rmsnorm_bwd": ("rmsnorm_bwd_rows", "rmsnorm_bwd_dw"),
-                  "flash_attention_bwd": ("flash_bwd_rows", "flash_bwd_dkdv",
+                  "rmsnorm_bwd": ("rmsnorm_bwd_reg", "rmsnorm_bwd_rows",
+                                  "rmsnorm_bwd_dw"),
+                  "flash_attention_bwd": ("flash_bwd_wgmma_dq",
+                                          "flash_bwd_wgmma_dkdv",
+                                          "flash_bwd_rows", "flash_bwd_dkdv",
                                           "flash_bwd_dq")}
 
 
@@ -1656,6 +1693,7 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
         fn.launches = 0
     flash_routes = flash_attention.route_launches
     flash_routes.update(dict.fromkeys(flash_routes, 0))
+    flash_attention.stats_writes = 0
     ssd_routes = ssd_chunk.route_launches
     ssd_routes.update(dict.fromkeys(ssd_routes, 0))
     out, walls, hits, snap = {}, [], [], None
@@ -1685,11 +1723,15 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     if "flash_attention" in need:
         # bf16 at D = 64: every prefill on the tensor-core kernel, none on
         # the CUDA-core one
-        log(f"  flash_attention routes: {flash_routes}")
+        log(f"  flash_attention routes: {flash_routes}; launches that "
+            f"wrote row statistics: {flash_attention.stats_writes}")
         if flash_routes["wgmma"] < 1 or flash_routes["simt"]:
             raise AssertionError(f"flash routes {flash_routes}: the "
                                  "prefills did not all take the tensor-core "
                                  "kernel")
+        if flash_attention.stats_writes:
+            raise AssertionError("a prefill without grad wrote the "
+                                 "backward's row statistics")
     if "ssd_chunk" in need:
         # bf16 at P = 64, N = 64 or 128: every SSM layer of the prefills on
         # the tensor-core kernel
@@ -2507,9 +2549,14 @@ def check_training(torch, np, dev):
         res = tr.resume()
         return tr, first, dict(tr.history[len(first):]), res
 
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     counters = kernel_wrappers()
     for fn in counters:
         fn.launches = 0
+    bwd_routes = flash_attention_bwd.route_launches
+    bwd_routes.update(dict.fromkeys(bwd_routes, 0))
+    flash_attention.stats_writes = 0
     t0 = time.perf_counter()
     tr, first, resumed, res = train(dev, cfg, TRAIN_B, TRAIN_S, "card")
     torch.cuda.synchronize()
@@ -2546,6 +2593,15 @@ def check_training(torch, np, dev):
     if launches["decode_attention"] or launches["ssd_chunk"]:
         raise AssertionError(f"training launched a serving kernel: "
                              f"{launches}")
+    # bf16 at D = 64: every backward on the tensor-core route, each from
+    # the row statistics of a forward under grad
+    log(f"  flash_attention_bwd routes {bwd_routes}; forwards that wrote "
+        f"row statistics: {flash_attention.stats_writes}")
+    if bwd_routes["wgmma"] != launches["flash_attention_bwd"] or \
+            flash_attention.stats_writes < bwd_routes["wgmma"]:
+        raise AssertionError(f"flash_attention_bwd routes {bwd_routes}, "
+                             f"{flash_attention.stats_writes} forwards "
+                             "with statistics")
     rep.update(losses=losses, launches=launches, events=tr.events,
                fabric_stats=res["fabric_stats"])
 

@@ -51,7 +51,9 @@
 //   both into the one f32 accumulator, so P keeps ~16 bits where a single
 //   bf16 rounding would keep 8.  The split costs 1.5x the tensor work.
 // - The epilogue multiplies by 1 / max(l, 1e-30), rounds to bf16 once and
-//   stores the rows below Sq.
+//   stores the rows below Sq.  Under grad it also writes each row's m and
+//   1 / max(l, 1e-30) to stats (null: no write), from which the
+//   tensor-core backward (flash_attention_bwd_wgmma.cu) recomputes P.
 // Longest causal tiles are scheduled first (blockIdx.x counts down).  Only
 // the loops over one tile's registers are unrolled; the loop over key
 // tiles stays rolled, which keeps the build short.  A wait on an mbarrier
@@ -89,7 +91,8 @@ flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-    int Sq, int Sk, int Hq, int qpk, float scale, int causal, int window) {
+    float* __restrict__ stats, int Sq, int Sk, int Hq, int qpk, float scale,
+    int causal, int window) {
   using Sh = Shape<D>;
   constexpr int BK = Sh::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -252,6 +255,19 @@ flash_wgmma_kernel(
     x += __shfl_xor_sync(halcone::kAllLanes, x, 2);
     inv[r] = 1.f / fmaxf(x, 1e-30f);
   }
+  // the row statistics: stats[0] = m, stats[1] = 1 / max(l, 1e-30), each
+  // [B, Hq, Sq]; the quad's four lanes hold the same values
+  if (stats != nullptr && lane % 4 == 0) {
+    const int64_t n = static_cast<int64_t>(gridDim.z) * Hq * Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row >= Sq) continue;
+      const int64_t idx = (static_cast<int64_t>(b) * Hq + h) * Sq + row;
+      stats[idx] = m[r];
+      stats[n + idx] = inv[r];
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
@@ -270,8 +286,8 @@ flash_wgmma_kernel(
 template <int D>
 int launch(const void* q, const long long* qs, const void* k,
            const long long* ks, const void* v, const long long* vs, void* out,
-           int B, int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
-           int window, cudaStream_t stream) {
+           float* stats, int B, int Sq, int Sk, int Hq, int Hkv, float scale,
+           int causal, int window, cudaStream_t stream) {
   using Sh = Shape<D>;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, qs, B, Sq, Hq, D, kRows) ||
@@ -288,8 +304,8 @@ int launch(const void* q, const long long* qs, const void* k,
   }
   const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
   flash_wgmma_kernel<D><<<grid, kThreads, Sh::kSmem, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), Sq, Sk, Hq, Hq / Hkv,
-      scale, causal, window);
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), stats, Sq, Sk, Hq,
+      Hq / Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,21 +313,24 @@ int launch(const void* q, const long long* qs, const void* k,
 
 // bf16 q/k/v with strides in elements over (B, S, H), each a multiple of 8
 // (16 bytes) and 16-byte-aligned base pointers; the head dim contiguous.
-// D in {64, 128}; scale: D^-0.5 as an f32.  Returns a cudaError_t.
+// D in {64, 128}; scale: D^-0.5 as an f32.  stats: null, or [2, B, Hq,
+// Sq] f32 that receives each row's m and 1 / max(l, 1e-30).  Returns a
+// cudaError_t.
 extern "C" int halcone_flash_attention_wgmma(
     const void* q, long long qsb, long long qss, long long qsh,
     const void* k, long long ksb, long long kss, long long ksh,
     const void* v, long long vsb, long long vss, long long vsh, void* out,
-    int B, int Sq, int Sk, int Hq, int Hkv, int D, float scale, int causal,
-    int window, void* stream) {
+    void* stats, int B, int Sq, int Sk, int Hq, int Hkv, int D, float scale,
+    int causal, int window, void* stream) {
   const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh},
                   vs[3] = {vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* st = static_cast<float*>(stats);
   if (D == 64)
-    return launch<64>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq, Hkv, scale,
-                      causal, window, s);
+    return launch<64>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
+                      scale, causal, window, s);
   if (D == 128)
-    return launch<128>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq, Hkv, scale,
-                       causal, window, s);
+    return launch<128>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
+                       scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

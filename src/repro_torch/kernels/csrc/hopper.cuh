@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_wgmma.cu, ssd_chunk_wgmma.cu): mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and products, and the host-side
-// tensor-map encoder.
+// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu,
+// ssd_chunk_wgmma.cu): mbarriers, TMA tile loads, wgmma shared-memory
+// descriptors, products and waits, and the host-side tensor-map encoder.
 //
 // Tiles are bf16 with 64 columns (128 bytes) a row, written by TMA with
 // the 128-byte swizzle: within each 1024-byte atom of 8 rows, the 16-byte
@@ -120,6 +120,19 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are pending
+// (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Registers an asynchronous wgmma wrote, read only after the wait before
+// this: no read of r moves above it.
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major in shared memory

@@ -1,4 +1,4 @@
-"""Flash attention (forward, prefill) on the H100.
+"""Flash attention (forward, prefill) on the H100, and its gradient.
 
 Two CUDA kernels replace the Pallas kernel
 ``repro/kernels/flash_attention.py::_flash_kernel``; ``route(dtype, D)``
@@ -8,21 +8,26 @@ picks one, as a plain function of the dtype and the head dim:
   (``csrc/flash_attention_wgmma.cu``: TMA loads, ``wgmma`` products, P
   split into two bf16 halves for the P.V product).  TMA wants each stride
   over B, S and H, and each base pointer, to be a multiple of 16 bytes;
-  the wrapper raises otherwise.
+  the wrapper raises otherwise.  Asked with ``stats=``, it also writes
+  each row's softmax max m and 1 / max(l, 1e-30).
 - ``"simt"``: f32 (held to 1e-5, which TF32 tensor cores would not meet),
   and bf16 at D in (16, 32), go to the CUDA-core kernel
   (``csrc/flash_attention.cu``).
 
-Nothing falls back at run time: a call that its route's kernel cannot
-build, take or launch raises.  ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``, CUDA cores, any of the head dims and
-both dtypes) is the gradient of either route; its plain version is
-autograd of the plain forward (``kernels.ref.attention_bwd_ref``), and
-``FlashAttentionFn`` joins forward and backward for autograd.  Both read ``[B, S, H, D]`` tensors with
-their strides (no transposes) and take any Sq and Sk.  The plain version
-is ``kernels.ref.attention_ref``.  This wrapper launches on CUDA tensors
-only and raises on anything else; ``kernels.ops.flash_attention`` is the
-dispatcher that sends CPU tensors to the plain version.
+The gradient ``flash_attention_bwd`` takes the same route: ``"wgmma"``
+runs ``csrc/flash_attention_bwd_wgmma.cu`` (two launches on the tensor
+cores, P recomputed from the forward's m and 1 / l, P and dS split into
+bf16 halves), ``"simt"`` ``csrc/flash_attention_bwd.cu`` (three launches
+on the CUDA cores, its own row pass).  Its plain version is autograd of
+the plain forward (``kernels.ref.attention_bwd_ref``), and
+``FlashAttentionFn`` joins forward and backward for autograd, passing the
+forward's statistics on.  Nothing falls back at run time: a call that its
+route's kernel cannot build, take or launch raises.  Both read
+``[B, S, H, D]`` tensors with their strides (no transposes) and take any
+Sq and Sk.  The plain version is ``kernels.ref.attention_ref``.  These
+wrappers launch on CUDA tensors only and raise on anything else;
+``kernels.ops.flash_attention`` is the dispatcher that sends CPU tensors
+to the plain version.
 """
 from __future__ import annotations
 
@@ -35,7 +40,8 @@ WGMMA_HEAD_DIMS = (64, 128)
 ROUTES = ("wgmma", "simt")
 _ARGS = ([cuda.P, cuda.LD, cuda.LD, cuda.LD] * 3 + [cuda.P] + [cuda.I] * 6
          + [cuda.F, cuda.I, cuda.I, cuda.I, cuda.P])
-_ARGS_WGMMA = _ARGS[:-2] + [cuda.P]       # no storage type code
+# no storage type code; a stats pointer after the output
+_ARGS_WGMMA = _ARGS[:13] + [cuda.P] + _ARGS[13:-2] + [cuda.P]
 
 
 def check_qkv(q, k, v, name: str):
@@ -84,18 +90,40 @@ def tma_strides(name: str, t) -> list:
             zip((B, S, H), t.stride()[:3], (S * H * D, H * D, D))]
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
+def check_stats(name: str, stats, q) -> None:
+    """Raise unless ``stats`` is the ``[2, B, Hq, Sq]`` contiguous f32
+    tensor of row statistics for ``q`` [B, Sq, Hq, D], on q's device."""
+    B, Sq, Hq, _ = q.shape
+    if not isinstance(stats, torch.Tensor) or stats.dtype != torch.float32 \
+            or stats.device != q.device or not stats.is_contiguous() \
+            or stats.shape != (2, B, Hq, Sq):
+        raise ValueError(f"{name}: stats must be a contiguous float32 "
+                         f"tensor of shape {(2, B, Hq, Sq)} on {q.device}")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, stats=None):
     """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
     dtype.  Causal masks key positions after the query's (both counted
     from 0); ``window`` > 0 also masks keys at least ``window`` behind it.
     Takes the kernel ``route(q.dtype, D)`` names; allocates its output,
-    launches on the current stream and does not synchronise."""
+    launches on the current stream and does not synchronise.
+
+    ``stats``: None, or on the ``"wgmma"`` route a ``[2, B, Hq, Sq]`` f32
+    tensor that receives each row's m (the max of its unscaled masked
+    products) and 1 / max(l, 1e-30), the statistics
+    ``flash_attention_bwd`` recomputes P from.  The ``"simt"`` kernel
+    writes none, and raises if asked."""
     dt = check_qkv(q, k, v, "flash_attention")
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     if Sk < 1:
         raise ValueError("flash_attention: needs at least one key")
     path = route(q.dtype, D)
+    if stats is not None:
+        if path != "wgmma":
+            raise ValueError("flash_attention: only the tensor-core route "
+                             "writes row statistics")
+        check_stats("flash_attention", stats, q)
     strides = ([tma_strides(n, t) for n, t in (("q", q), ("k", k), ("v", v))]
                if path == "wgmma" else [t.stride()[:3] for t in (q, k, v)])
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
@@ -103,8 +131,10 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         args = []
         for t, st in zip((q, k, v), strides):
             args += [t.data_ptr(), *st]
-        args += [out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, D ** -0.5,
-                 int(causal), int(window)]
+        args.append(out.data_ptr())
+        if path == "wgmma":
+            args.append(0 if stats is None else stats.data_ptr())
+        args += [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal), int(window)]
         if path == "wgmma":
             fn = cuda.function("flash_attention_wgmma",
                                "halcone_flash_attention_wgmma", _ARGS_WGMMA)
@@ -115,26 +145,43 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         cuda.launch(fn, args, q.device)
         flash_attention.launches += 1
         flash_attention.route_launches[path] += 1
+        flash_attention.stats_writes += stats is not None
     return out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+# launches that also wrote row statistics (under grad only)
+flash_attention.stats_writes = 0
 
 
 _ARGS_BWD = [cuda.P] * 11 + [cuda.I] * 6 + [cuda.F, cuda.I, cuda.I, cuda.I,
                                             cuda.P]
+_ARGS_BWD_WGMMA = [cuda.P] * 10 + [cuda.I] * 6 + [cuda.F, cuda.I, cuda.I,
+                                                  cuda.P]
 
 
-def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0):
+def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0,
+                        stats=None, _route=None):
     """The gradient of ``flash_attention(q, k, v, causal=causal,
     window=window)``: q, out, dout [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D],
     all contiguous and of one dtype, ``out`` the forward's output.
-    Returns (dq, dk, dv) in that dtype, computed in f32.  Three launches
-    (row statistics, dK/dV, dQ) and no atomics, so the result is the same
-    from run to run.  Allocates its outputs and three ``[B, Hq, Sq]`` f32
-    rows of scratch, launches on the current stream and does not
-    synchronise."""
+    Returns (dq, dk, dv) in that dtype, computed in f32, with no atomics,
+    so the result is the same from run to run.  Takes the kernel
+    ``route(q.dtype, D)`` names:
+
+    - ``"wgmma"``: two launches (dQ with Di = dO . O, then dK/dV) that
+      recompute P from ``stats``, the ``[2, B, Hq, Sq]`` row statistics
+      the forward kernel wrote for this ``out`` (``flash_attention(...,
+      stats=)``, as ``FlashAttentionFn`` does); raises ``ValueError``
+      without them.  Allocates a ``[B, Hq, Sq]`` f32 scratch for Di.
+    - ``"simt"``: three launches (row statistics, dK/dV, dQ); ignores
+      ``stats``.  Allocates three ``[B, Hq, Sq]`` f32 rows of scratch.
+
+    ``_route="simt"`` forces the CUDA-core kernel at any shape it takes,
+    to time the two routes against each other on the card; nothing on the
+    training path passes it.  Allocates its outputs, launches on the
+    current stream and does not synchronise."""
     dt = check_qkv(q, k, v, "flash_attention_bwd")
     dev = q.device
     for name, t in (("out", out), ("dout", dout)):
@@ -151,16 +198,45 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0):
     Sk, Hkv = k.shape[1], k.shape[2]
     if Sk < 1:
         raise ValueError("flash_attention_bwd: needs at least one key")
+    if _route not in (None, "simt"):
+        raise ValueError(f"flash_attention_bwd: _route must be None or "
+                         f"'simt', got {_route!r}")
+    path = _route or route(q.dtype, D)
+    if path == "wgmma":
+        if stats is None:
+            raise ValueError(
+                "flash_attention_bwd: the tensor-core route recomputes P "
+                "from the forward's row statistics; pass the stats= that "
+                "flash_attention(..., stats=) wrote, as FlashAttentionFn "
+                "does")
+        check_stats("flash_attention_bwd", stats, q)
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                        ("dout", dout)):
+            cuda.check_rows_16b(f"flash_attention_bwd (tensor-core route): "
+                                f"{name}", t)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B and Sq:
-        stats = torch.empty((3, B, Hq, Sq), dtype=torch.float32, device=dev)
-        fn = cuda.function("flash_attention_bwd",
-                           "halcone_flash_attention_bwd", _ARGS_BWD)
-        cuda.launch(fn, [t.data_ptr() for t in (q, k, v, out, dout, dq, dk,
-                                                dv, *stats)]
-                    + [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal),
-                       int(window), dt], dev)
+        if path == "wgmma":
+            di = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+            fn = cuda.function("flash_attention_bwd_wgmma",
+                               "halcone_flash_attention_bwd_wgmma",
+                               _ARGS_BWD_WGMMA)
+            args = [t.data_ptr() for t in (q, k, v, out, dout, stats, dq, dk,
+                                           dv, di)]
+            args += [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal),
+                     int(window)]
+        else:
+            rows = torch.empty((3, B, Hq, Sq), dtype=torch.float32,
+                               device=dev)
+            fn = cuda.function("flash_attention_bwd",
+                               "halcone_flash_attention_bwd", _ARGS_BWD)
+            args = [t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv,
+                                           *rows)]
+            args += [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal),
+                     int(window), dt]
+        cuda.launch(fn, args, dev)
         flash_attention_bwd.launches += 1
+        flash_attention_bwd.route_launches[path] += 1
     else:
         dk.zero_()
         dv.zero_()
@@ -168,24 +244,33 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with ``flash_attention_bwd`` as its gradient,
-    both kernels."""
+    both kernels.  On the ``"wgmma"`` route the forward also writes its
+    row statistics, saved beside its output for the backward: a
+    recomputed forward (``torch.utils.checkpoint``) saves its own."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
         q, k, v = (t.contiguous() for t in (q, k, v))
-        out = flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+        stats = None
+        if route(q.dtype, q.shape[-1]) == "wgmma":
+            B, Sq, Hq, _ = q.shape
+            stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32,
+                                device=q.device)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              stats=stats)
+        ctx.save_for_backward(q, k, v, out, stats)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
                                          causal=ctx.causal,
-                                         window=ctx.window)
+                                         window=ctx.window, stats=stats)
         return dq, dk, dv, None, None

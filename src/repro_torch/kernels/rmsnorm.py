@@ -88,20 +88,43 @@ def rmsnorm(x, w, *, eps=1e-6):
 rmsnorm.launches = 0
 
 
-_ARGS_BWD = [cuda.P] * 6 + [cuda.I, cuda.I, cuda.F, cuda.I, cuda.I, cuda.I,
-             cuda.P]
-BWD_BLOCK_ROWS = 8           # csrc/rmsnorm_bwd.cu: one warp a row, 8 a block
-BWD_MAX_D = 6400             # (1 + 8) rows of D f32 in shared memory
+_ARGS_BWD = [cuda.P] * 6 + [cuda.I, cuda.I, cuda.F] + [cuda.I] * 5 + [cuda.P]
+BWD_BLOCK_ROWS = 8           # the element path: one warp a row, 8 a block
+BWD_MAX_D = 6400             # the element path: (1 + 8) rows of D f32 in
+                             # shared memory
+
+
+def rmsnorm_bwd_plan(R: int, D: int, vec_len: int, n_sms: int,
+                     aligned: bool = True):
+    """``(vpt, tpr, slots, G)`` of ``rmsnorm_bwd``'s first launch: the
+    forward's ``plan`` for the row layout (``tpr`` threads hold a row in
+    ``vpt`` vectors each, ``slots`` rows a block), and ``G`` blocks that
+    walk the groups of ``slots`` rows in a grid-stride loop: one a group
+    up to one an SM, then enough that each walks about four groups, at
+    most four an SM (each block adds a partial row that dw's second
+    launch sums; at R = 4096, D = 960 this measured fastest, 132 blocks
+    in bf16 and 512 in f32: ``scripts/rmsnorm_bwd_blocks.py``).  The
+    element path (``vpt`` 0, ``BWD_BLOCK_ROWS`` rows a block) where the
+    forward's plan takes it or the pointers are not all ``aligned`` on
+    16 bytes."""
+    vpt, tpr, slots = plan(R, D, vec_len, n_sms) if aligned else ELEMENT_PATH
+    if not vpt:
+        slots = BWD_BLOCK_ROWS
+    groups = -(-R // slots)
+    G = min(max(min(groups, n_sms), -(-groups // 4)), 4 * n_sms)
+    return vpt, tpr, slots, G
 
 
 def rmsnorm_bwd(x, w, dy, *, eps=1e-6):
     """The gradient of ``rmsnorm(x, w, eps=eps)``: x and dy [..., D]
     contiguous, of one dtype (f32 or bf16); w [D] f32.  Returns (dx in
-    x's dtype and shape, dw [D] f32).  dw sums over the rows in a fixed
-    order (per-block partial rows, then a second pass), so it is the
-    same from run to run.  Allocates its outputs and an f32 scratch of
-    ``G x D`` partial rows, launches on the current stream and does not
-    synchronise."""
+    x's dtype and shape, dw [D] f32).  The rows are held in registers in
+    the forward's layout (``rmsnorm_bwd_plan``; the element path when D
+    does not fill whole vectors or a pointer is off 16 bytes), and dw sums
+    over the rows in a fixed order (per-block partial rows, then a second
+    launch), so it is the same from run to run.  Allocates its outputs and
+    an f32 scratch of ``G x D`` partial rows, launches on the current
+    stream and does not synchronise."""
     dev = x.device
     dt = cuda.check_float("x", x, None)
     cuda.check_float("dy", dy, dev, x.dtype)
@@ -124,14 +147,15 @@ def rmsnorm_bwd(x, w, dy, *, eps=1e-6):
     if not R:
         return dx, torch.zeros(D, dtype=torch.float32, device=dev)
     dw = torch.empty(D, dtype=torch.float32, device=dev)
-    G = min(-(-R // BWD_BLOCK_ROWS), 2 * _n_sms(dev.index))
+    aligned = (x.data_ptr() | dy.data_ptr() | dx.data_ptr()
+               | w.data_ptr()) % 16 == 0
+    vpt, tpr, slots, G = rmsnorm_bwd_plan(R, D, 16 // x.element_size(),
+                                          _n_sms(dev.index), aligned)
     part = torch.empty((G, D), dtype=torch.float32, device=dev)
-    vec = int(D % (16 // x.element_size()) == 0 and
-              (x.data_ptr() | dy.data_ptr() | dx.data_ptr()) % 16 == 0)
     fn = cuda.function("rmsnorm_bwd", "halcone_rmsnorm_bwd", _ARGS_BWD)
     cuda.launch(fn, [x.data_ptr(), w.data_ptr(), dy.data_ptr(),
                      dx.data_ptr(), dw.data_ptr(), part.data_ptr(), R, D,
-                     float(eps), G, vec, dt], dev)
+                     float(eps), G, vpt, tpr, slots, dt], dev)
     rmsnorm_bwd.launches += 1
     return dx, dw
 

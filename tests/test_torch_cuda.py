@@ -754,6 +754,61 @@ def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 200, 200, 4, 2, 64, False, 32),
+    (1, 50, 130, 4, 2, 64, False, 0),
+    (1, 128, 128, 2, 1, 128, True, 0),
+    (1, 130, 50, 4, 2, 64, True, 16),         # rows with no visible key
+])
+def test_cuda_flash_bwd_wgmma_keeps_split(cuda_device, B, Sq, Sk, Hq, Hkv,
+                                          D, causal, window):
+    """The tensor-core backward against the CPU emulation of its
+    arithmetic (``attention_bwd_emulation.py``) on the same bf16 inputs,
+    the card forward's output and row statistics.  With P and dS split
+    into bf16 hi and lo halves the kernel's bf16 dq, dk, dv are the split
+    emulation's rounded outputs on nearly all elements (at most 1% differ:
+    ex2's approximation and the tensor cores' order of summation may move
+    a value across a rounding boundary); a single bf16 rounding of P and
+    dS changes about 40% of them at these shapes (measured on the CPU:
+    40-43%), so at least 20% must differ from that emulation.  Against an
+    f64 gradient each output's mean error must also be at least 1.2x
+    below the single rounding's (1.36-1.62x on the CPU), and within 2% of
+    the split's."""
+    from attention_bwd_emulation import emulate_bwd, exact_attention_bwd
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    rng = np.random.default_rng(Sq + Sk + D)
+    q, k, v, dout = (torch.from_numpy(
+        rng.standard_normal(shp).astype(np.float32)).to(torch.bfloat16)
+        for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
+                    (B, Sq, Hq, D)))
+    dev = [t.to(cuda_device) for t in (q, k, v, dout)]
+    stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32,
+                        device=cuda_device)
+    out = flash_attention(*dev[:3], causal=causal, window=window,
+                          stats=stats)
+    before = flash_attention_bwd.route_launches["wgmma"]
+    got = [g.cpu() for g in flash_attention_bwd(
+        *dev[:3], out, dev[3], causal=causal, window=window, stats=stats)]
+    assert flash_attention_bwd.route_launches["wgmma"] == before + 1
+    kw = dict(stats=stats.cpu(), causal=causal, window=window)
+    split = emulate_bwd(q, k, v, out.cpu(), dout, **kw)
+    one = emulate_bwd(q, k, v, out.cpu(), dout, split=False, **kw)
+    exact = exact_attention_bwd(q, k, v, dout, causal=causal, window=window)
+
+    def err(t, e):
+        return float((t.to(torch.bfloat16).double() - e).abs().mean())
+    for name, g, s, o, e in zip("qkv", got, split, one, exact):
+        miss_split = float((g != s.to(torch.bfloat16)).float().mean())
+        miss_one = float((g != o.to(torch.bfloat16)).float().mean())
+        found = (name, miss_split, miss_one, err(g, e), err(s, e), err(o, e))
+        assert miss_split <= 0.01 and miss_one >= 0.2, found
+        assert err(g, e) * 1.2 <= err(o, e), found
+        assert err(g, e) <= err(s, e) * 1.02, found
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,Sk,Hq,Hkv,D,kv_len", [
     (8, 584, 15, 5, 64, 1), (8, 584, 15, 5, 64, 513),
     (8, 584, 15, 5, 64, 584), (2, 300, 8, 2, 128, 257),
@@ -1176,27 +1231,80 @@ def test_cuda_rmsnorm_bwd_equals_plain(exact_f32, R, D, dtype):
 def test_cuda_flash_attention_bwd_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
                                                D, causal, window, dtype):
     """dq, dk, dv against autograd of ``attention_ref``, the forward from
-    the route's kernel; finite everywhere (a fully masked row included)
-    and the same from run to run."""
+    the route's kernel (on the tensor-core route with its row statistics,
+    as ``FlashAttentionFn`` passes them); the backward takes the forward's
+    route; finite everywhere (a fully masked row included) and the same
+    from run to run."""
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+                                                     flash_attention_bwd,
+                                                     route)
     dev = exact_f32
     q = _randn(dev, (B, Sq, Hq, D), dtype, 1)
     k = _randn(dev, (B, Sk, Hkv, D), dtype, 2)
     v = _randn(dev, (B, Sk, Hkv, D), dtype, 3)
     dout = _randn(dev, (B, Sq, Hq, D), dtype, 4)
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    path = route(dtype, D)
+    stats = (torch.empty((2, B, Hq, Sq), dtype=torch.float32, device=dev)
+             if path == "wgmma" else None)
+    out = flash_attention(q, k, v, causal=causal, window=window, stats=stats)
     before = flash_attention_bwd.launches
+    before_route = flash_attention_bwd.route_launches[path]
     got = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                              window=window)
+                              window=window, stats=stats)
     assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.route_launches[path] == before_route + 1
     want = ref.attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         _grad_close(g, w)
     again = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                window=window)
+                                window=window, stats=stats)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,window", [(64, 0), (128, 32)])
+def test_cuda_flash_forward_writes_stats_under_grad_only(cuda_device, D,
+                                                         window):
+    """Asked with ``stats=``, the tensor-core forward writes each row's m
+    and 1 / max(l, 1e-30) (within 1e-5 of the CPU emulation's, which sums
+    in another order) and leaves its output bit-equal to a call without
+    them.  ``ops.flash_attention`` asks for them only under grad, through
+    ``FlashAttentionFn``, which saves them beside its output; without
+    grad the forward gets no stats buffer and writes none
+    (``flash_attention.stats_writes`` counts the launches that wrote
+    them)."""
+    from attention_bwd_emulation import row_stats
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    B, S, Hq, Hkv = 2, 200, 4, 2
+    q = _randn(cuda_device, (B, S, Hq, D), torch.bfloat16, 1)
+    k = _randn(cuda_device, (B, S, Hkv, D), torch.bfloat16, 2)
+    v = _randn(cuda_device, (B, S, Hkv, D), torch.bfloat16, 3)
+    plain = fa.flash_attention(q, k, v, causal=True, window=window)
+    stats = torch.full((2, B, Hq, S), float("nan"), device=cuda_device)
+    out = fa.flash_attention(q, k, v, causal=True, window=window,
+                             stats=stats)
+    assert torch.equal(out, plain) and torch.isfinite(stats).all()
+    m, il = row_stats(q.cpu(), k.cpu(), causal=True, window=window)
+    torch.testing.assert_close(stats[0].cpu(), m, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[1].cpu(), il, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="tensor-core route"):
+        fa.flash_attention(q.float(), k.float(), v.float(), stats=stats)
+
+    writes = fa.flash_attention.stats_writes
+    with torch.no_grad():
+        assert torch.equal(ops.flash_attention(q, k, v, window=window),
+                           plain)
+    assert fa.flash_attention.stats_writes == writes
+    qg = q.detach().requires_grad_()
+    o = ops.flash_attention(qg, k, v, window=window)
+    assert torch.equal(o, plain)
+    assert fa.flash_attention.stats_writes == writes + 1
+    saved = o.grad_fn.saved_tensors
+    assert saved[4] is not None and torch.equal(saved[4], stats)
+    with pytest.raises(ValueError, match="FlashAttentionFn"):
+        fa.flash_attention_bwd(q, k, v, plain, plain, window=window)
 
 
 @pytest.mark.cuda
