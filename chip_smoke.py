@@ -117,25 +117,41 @@ Phases (any failure raises and the script exits non-zero):
      all-gather's host and device time;
   8. the training path at full width: ``runtime.trainer.Trainer`` with
      smollm-360m (seeded f32 master weights and moments, bf16 compute,
-     remat) on the card, 12 steps of 8 x 512 tokens, a checkpoint every
-     4 steps published on the fabric, a simulated failure at step 10 and
+     remat) on the card, 8 steps of 8 x 512 tokens, a checkpoint every
+     3 steps published on the fabric, a simulated failure at step 7 and
      a resume: the resumed steps equal the first run's losses bit for
      bit, the losses are finite and fall, ``rmsnorm``,
      ``flash_attention``, their backward kernels and ``lease_probe`` (the
      publish's op scan) launched, every flash backward on the
      tensor-core route from a forward's row statistics, and the events,
-     fabric counters and grant log equal a 2-layer CPU trainer's; the
+     fabric counters and grant log equal a 2-layer CPU trainer's (run in
+     a worker process beside the card's); the
      card's loss and gradients at 2 layers equal the CPU's within a
      relative L2 of 2e-2; ``VmappedWorkers`` at
      4 layers (W = 1 equal workers, W = 4 at least 3x fewer collective
      bytes); a step's wall, host enqueue and device time, tokens/s, idle
      share, the backward kernels' share, the model-flops share and a
-     checkpoint save's time.  Phase 2 also holds the backward kernels
-     against autograd of the plain versions (at the training shapes and
-     odd ones, each flash row on its route, beside the library's backward
-     and, at the bf16 training shape, the CUDA-core kernel of the first
-     round); phases 4 and 5 assert that no prefill wrote the backward's
-     row statistics;
+     checkpoint save's time.  Then mamba2-130m at full width (24 layers,
+     d_model 768; 12 steps, a checkpoint every 4, a failure at 10) and
+     zamba2-1.2b (38 layers,
+     d_model 2048) on a shorter one (6 steps, a checkpoint every 2, a
+     failure at 5), B = 8 x S = 512: the same checks with ``ssd_chunk``
+     and ``ssd_chunk_bwd`` launched (zamba2: flash too); the fabric
+     against a CPU trainer of 2 layers (zamba2: all 38 layers at the smoke
+     widths, its looped tail has a fabric key a layer); card vs CPU
+     gradients at 2 layers (zamba2: 6, the first depth with the shared
+     attention block) under the f32 policy within 2e-2, and in bf16
+     (mamba2 within 2e-2; each bf16 gradient's distance from the CPU's
+     f32 one, the card's at most 1.25x the CPU's); a step's times,
+     ``ssd_chunk_bwd``'s share of device time and peak memory.  Phase 2
+     also holds the backward kernels against autograd of the plain
+     versions (at the training shapes and odd ones, each flash row on its
+     route, beside the library's backward and, at the bf16 training
+     shape, the CUDA-core kernel of the first round; ``ssd_chunk_bwd`` at
+     both SSM training shapes, B/C a stride-0 head or one per head, and
+     odd ones, its time beside the plain backward's); phases 4 and 5
+     assert that no prefill wrote the backward's row statistics and no
+     backward kernel ran;
   9. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
@@ -150,9 +166,11 @@ to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import json
+import multiprocessing
 import os
 import pathlib
 import statistics
@@ -206,7 +224,9 @@ KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
             "src/repro/kernels/rmsnorm.py:31"),
            ("flash_attention_bwd",
             "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
-            "src/repro/kernels/flash_attention.py:79"))
+            "src/repro/kernels/flash_attention.py:79"),
+           ("ssd_chunk_bwd", "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+            "src/repro/kernels/ssd_chunk.py:45"))
 # phase 4: the LLM serving path
 ARCH = "smollm-360m"
 SERVE_B, PROMPT_LEN, MAX_NEW = 8, 512, 64
@@ -232,18 +252,47 @@ HYBRID_WAVES, HYBRID_MAX_NEW, HYBRID_MODEL_LAYERS = 2, 16, 6
 # the cache length zamba2's traffic needs: phase 2 times decode there
 HYBRID_MAX_LEN = PROMPT_LEN + HYBRID_MAX_NEW + 8
 # phase 8: training smollm-360m at full width on the card: batch, sequence,
-# steps, checkpoint period and the step of the simulated failure; the CPU
+# steps, checkpoint period and the step of the simulated failure (8 steps
+# since the SSM models joined the phase, to hold the script's time); the CPU
 # trainer that checks the fabric runs 2 layers on short rows (the fabric
 # sees only the parameter keys, the same at every depth and width), the
 # card-vs-CPU gradient check 2 layers on one 512-token row, the lease
 # workers 4 layers
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 8, 512, 12, 4, 10
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 8, 512, 8, 3, 7
 TRAIN_CPU_LAYERS, TRAIN_CPU_B, TRAIN_CPU_S = 2, 2, 64
 TRAIN_WORKER_LAYERS, TRAIN_WORKER_STEPS = 4, 8
 TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+# then the SSM models: (arch, steps, checkpoint period, failure step, layers
+# of the card-vs-CPU gradient check); zamba2 on a shorter schedule (its
+# checkpoint is 12.2 GB), checked at 6 layers, the first depth that
+# reaches the shared attention block
+SSM_TRAIN = (("mamba2-130m", 12, 4, 10, 2), ("zamba2-1.2b", 6, 2, 5, 6))
+# card vs CPU gradients: the loss, the whole gradient and each leaf of at
+# least this many values within MODEL_REL_L2; the per-head vectors of the
+# SSM blocks (A_log, D_skip, dt_bias) are sums of cancelling terms whose
+# bf16 error is relative to the terms, so they are printed, and held by the
+# whole gradient (as tests/test_torch_train.py holds them)
+PER_LEAF_MIN = 64
+# zamba2's bf16 gradient at 6 layers is 0.13 (relative L2) from its f32
+# policy's in both packages (CPU, one 512-token row: the port 0.1297, the
+# reference 0.1282), so two bf16 runs need not agree within MODEL_REL_L2
+# there: its card-vs-CPU gradient check runs under the f32 policy, and the
+# card's bf16 gradient may be no further from the CPU's f32 one than
+# BF16_FROM_F32 times the CPU's bf16 gradient (both SSM models are held to
+# these; smollm and mamba2 also to MODEL_REL_L2 in bf16)
+BF16_GRAD_ARCHS = ("smollm-360m", "mamba2-130m")
+BF16_FROM_F32 = 1.25
 # backward kernel vs autograd of the plain version: f32 sums over up to
 # 4096 rows (or every query of a key) in another order; bf16 rounds once
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# ssd_chunk_bwd's ddt and dA (f32 for both input dtypes): an element near
+# zero is a difference of terms ~1000x larger (a reverse cumsum of
+# cancelling terms), on which the f32 plain version itself is more than
+# 1e-4 of 1 + |g| off an f64 gradient at mamba2's widths
+# (tests/test_torch_ssd_bwd.py::test_f32_ddt_cancels_against_f64); each
+# is held to rtol = 1e-4 and 1e-4 of its output's largest magnitude
+SSD_BWD_SCALED = ("ddt", "dA")
+SSD_BWD_SCALED_TOL = 1e-4
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -850,7 +899,8 @@ def check_ssd_kernel(torch, np, dev, report):
 def check_backward_kernels(torch, np, dev, report):
     """rmsnorm_bwd and flash_attention_bwd against autograd of their plain
     versions on the card, at the training shapes (rmsnorm: R = B S = 4096
-    rows of 960; flash: B = 8, S = 512, 15 over 5 heads of 64, causal)
+    rows of 960; flash: B = 8, S = 512, 15 over 5 heads of 64, causal,
+    and zamba2's shared block, 32 heads of 64)
     and odd ones (a few rows, odd widths, a window with rows that see no
     key, D = 128), bf16 and f32, each flash row on the route ``route``
     names (the tensor-core route with the forward's row statistics);
@@ -939,6 +989,7 @@ def check_backward_kernels(torch, np, dev, report):
                 "[8, 960] bf16 (run AM, PERF.md)")
         for B, Sq, Sk, Hq, Hkv, D, causal, window in (
                 (TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0),
+                (TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 64, True, 0),  # zamba2
                 (1, 130, 50, 4, 2, 64, True, 16),
                 (1, 130, 130, 4, 1, 128, True, 32),
                 (2, 77, 77, 4, 2, 16, False, 0)):
@@ -970,7 +1021,7 @@ def check_backward_kernels(torch, np, dev, report):
                 is_causal=causal and mask is None, enable_gqa=True)
             pairs = _visible_pairs(Sq, Sk, causal)
             old = None
-            if path == "wgmma" and B == TRAIN_B:
+            if path == "wgmma" and B == TRAIN_B and Hq == 15:
                 def old():
                     return flash_attention_bwd(q, k, v, o, do, causal=causal,
                                                window=window, _route="simt")
@@ -986,6 +1037,119 @@ def check_backward_kernels(torch, np, dev, report):
                     + stat_bytes,
                     10 * D * B * Hq * pairs, dtype,
                     [B, Sq, Sk, Hq, Hkv, D, int(causal), window], path, old)
+
+
+def ssd_bwd_bound(B, nc, Q, H, P, N, el, stride0):
+    """Bytes (x, B and C once per group when they are a stride-0
+    broadcast, dt, cum, dy, dstate and dcum read; dx, the per-head dB and
+    dC, ddt and dA written) and flops over the visible causal pairs (C.B
+    and dy.x, 2N + 2P; dx, dB and dC, 2P + 4N) and 4NP a row for the
+    state terms (B . dstate and dstate x)."""
+    bc = B * nc * Q * N * (1 if stride0 else H)
+    rows = B * nc * Q * H
+    nbytes = (rows * P * el + 2 * bc * el + 3 * 4 * rows + 4 * rows * P
+              + 4 * B * nc * H * N * P + 4 * H
+              + rows * P * el + 2 * rows * N * el + 4 * rows + 4 * H)
+    flops = B * nc * H * (Q * (Q + 1) // 2 * (6 * N + 4 * P)
+                          + 4 * Q * N * P)
+    return nbytes, flops
+
+
+def check_ssd_bwd_kernel(torch, np, dev, report):
+    """``ssd_chunk_bwd`` against ``ssd_chunk_bwd_ref`` (autograd of the
+    plain version, y asked in f32 as the model asks it) on the card,
+    within GRAD_TOL (ddt and dA: SSD_BWD_SCALED_TOL of their scale), at
+    the mamba2-130m and zamba2-1.2b training shapes
+    (B = 8, S = 512: nc = 2, Q = 256; B and C a stride-0 head), with B
+    and C one per head, and at odd shapes; bf16 and f32; from the cum of
+    the forward on the route ``route`` names; nonzero cotangents on y,
+    the state and cum; a rerun equal bit for bit.  Each row with the
+    kernel's time, the plain backward's (autograd of the plain forward,
+    on a graph built once) and the bound; no PyTorch call computes this
+    function."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_chunk import route, ssd_chunk, ssd_chunk_bwd
+
+    shapes = ((TRAIN_B, 2, 256, 24, 64, 128, True),   # mamba2-130m
+              (TRAIN_B, 2, 256, 64, 64, 64, True),    # zamba2-1.2b
+              (TRAIN_B, 2, 256, 24, 64, 128, False),  # B/C one per head
+              (1, 2, 100, 3, 128, 48, True),          # ragged, odd N
+              (2, 3, 64, 4, 32, 16, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = GRAD_TOL[str(dtype).split(".")[-1]]
+        el = torch.finfo(dtype).bits // 8
+        for B, nc, Q, H, P, N, stride0 in shapes:
+            shape = [B, nc, Q, H, P, N]
+            args = ssd_inputs(torch, np, dev, B, nc, Q, H, P, N, dtype,
+                              stride0, Q + H + N + 1)
+            rng = np.random.default_rng(Q + N)
+            T = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+                np.float32)).to(dev)
+            dy, dstate, dcum = (T(B, nc, Q, H, P), T(B, nc, H, N, P),
+                                T(B, nc, Q, H))
+            path = route(dtype, P, N)
+            cum = ssd_chunk(*args, out_dtype=torch.float32)[2]
+            got = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
+            want = ref.ssd_chunk_bwd_ref(*args, dy, dstate, dcum,
+                                         torch.float32)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                  want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"ssd_chunk_bwd{shape}: {name} "
+                                         "dtype/shape differ")
+                if not torch.isfinite(g).all():
+                    raise AssertionError(f"ssd_chunk_bwd{shape}: "
+                                         f"non-finite {name}")
+                errs[name] = float((g.float() - w.float()).abs().max())
+                rt = at = tol
+                if name in SSD_BWD_SCALED:
+                    rt = SSD_BWD_SCALED_TOL
+                    at = rt * max(1.0, float(w.abs().max()))
+                if not torch.allclose(g.float(), w.float(), rtol=rt,
+                                      atol=at):
+                    rel = float(((g.float() - w.float()).abs()
+                                 / (1 + w.float().abs())).max())
+                    raise AssertionError(
+                        f"ssd_chunk_bwd{shape} {dtype}: {name} max |err| "
+                        f"{errs[name]} ({rel:.3g} of 1 + |want|) beyond "
+                        f"rtol={rt}, atol={at}")
+            again = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"ssd_chunk_bwd{shape}: differs from "
+                                     "run to run")
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_() for t in args]
+                outs = ref.ssd_chunk_ref(*ins, torch.float32)
+
+            def plain():
+                return torch.autograd.grad(outs, ins, (dy, dstate, dcum),
+                                           retain_graph=True)
+            nbytes, flops = ssd_bwd_bound(B, nc, Q, H, P, N, el, stride0)
+            rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
+            bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+            row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
+                   "stride0": stride0, "forward_route": path,
+                   "max_abs_err": max(errs.values()), "errs": errs,
+                   "tol": tol,
+                   "ms": device_ms(torch, lambda: ssd_chunk_bwd(
+                       *args, cum, dy, dstate, dcum)),
+                   "plain_ms": device_ms(torch, plain, n=3, trials=3),
+                   "library_ms": None, "bound_ms": max(bt, ot),
+                   "bound_by": "bytes" if bt >= ot else "operations",
+                   "bytes": nbytes, "flops": flops}
+            del outs, ins
+            report.setdefault("ssd_chunk_bwd", []).append(row)
+            log(f"  ssd_chunk_bwd{shape} {row['dtype']}"
+                f"{' stride-0 B/C' if stride0 else ''} (forward {path}): "
+                f"max |err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+                f" (tol {tol}; ddt, dA {SSD_BWD_SCALED_TOL} of their "
+                "scale), same from run to run; kernel "
+                f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
+                f" us, bound {row['bound_ms'] * 1e3:.3f} us "
+                f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} of "
+                "it); no library call")
 
 
 # ------------------------------------------------------------- phase 3
@@ -1338,7 +1502,11 @@ KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                   "flash_attention_bwd": ("flash_bwd_wgmma_dq",
                                           "flash_bwd_wgmma_dkdv",
                                           "flash_bwd_rows", "flash_bwd_dkdv",
-                                          "flash_bwd_dq")}
+                                          "flash_bwd_dq"),
+                  "ssd_chunk_bwd": ("ssd_bwd_key_kernel",
+                                    "ssd_bwd_query_kernel",
+                                    "ssd_bwd_chunk_kernel",
+                                    "ssd_bwd_da_kernel")}
 
 
 def device_breakdown(prof, wall_us):
@@ -1435,6 +1603,31 @@ def leaves(tree):
     return [tree]
 
 
+def named_leaves(tree, path=""):
+    """(path, tensor) for each leaf of a dict tree, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def compare_grads(a, b) -> dict:
+    """Two (loss, named gradient leaves) results: the loss's relative
+    error, the whole gradient's relative L2, the worst leaf's of at least
+    PER_LEAF_MIN values and each smaller leaf's."""
+    import torch
+    (la, ga), (lb, gb) = a, b
+    cat = lambda g: torch.cat([t.reshape(-1).float().cpu() for _, t in g])
+    per_leaf = {k: (rel_l2(x, y), y.numel())
+                for (k, x), (_, y) in zip(ga, gb)}
+    return {"loss": abs(la - lb) / abs(lb),
+            "gradient": rel_l2(cat(ga), cat(gb)),
+            "worst_leaf": max(e for e, n in per_leaf.values()
+                              if n >= PER_LEAF_MIN),
+            "small_leaves": {k: round(e, 5) for k, (e, n) in
+                             per_leaf.items() if n < PER_LEAF_MIN}}
+
+
 def compare_servers(a, b, what) -> None:
     """Lease-cache counters, fabric counters and grant log: exact."""
     if a.cache_stats != b.cache_stats:
@@ -1502,11 +1695,11 @@ def kernel_wrappers():
                                                      flash_attention_bwd)
     from repro_torch.kernels.lease_probe import lease_probe
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
     from repro_torch.kernels.tier_pass import miss_round, write_grant
     return (rmsnorm, flash_attention, decode_attention, ssd_chunk,
             lease_probe, miss_round, write_grant, rmsnorm_bwd,
-            flash_attention_bwd)
+            flash_attention_bwd, ssd_chunk_bwd)
 
 
 def forward_layers(torch, cfg, params, tokens, inputs=None):
@@ -1717,7 +1910,8 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     missing = [name for name in need if launches[name] < 1]
     if missing:
         raise AssertionError(f"{missing} not launched: {launches}")
-    if launches["rmsnorm_bwd"] or launches["flash_attention_bwd"]:
+    if launches["rmsnorm_bwd"] or launches["flash_attention_bwd"] or \
+            launches["ssd_chunk_bwd"]:
         raise AssertionError(f"serving launched a backward kernel: "
                              f"{launches}")
     if "flash_attention" in need:
@@ -2083,8 +2277,6 @@ def check_engine(torch, np):
     CPU (see the module docstring).  The CPU side runs in one worker
     process (4 threads) while the card runs; the profile comes after it
     has ended."""
-    import concurrent.futures
-    import multiprocessing
 
     from repro_torch.core import engine, sysconfig as sc, traces
     out = {}
@@ -2487,91 +2679,141 @@ def check_sharded(torch, np, fab_h, serv_h, rounds_h):
 
 # ------------------------------------------------------------------ main
 # ------------------------------------------------------------- phase 8
-def train_flops(cfg, n_params: int, B: int, S: int) -> float:
+def train_flops(cfg, params, B: int, S: int) -> float:
     """Model flops of one training step: 6 N a token for the weights
-    (forward and backward, the tied unembedding included; the remat
-    forward not counted), and 3x the forward's 4 D flops a visible causal
-    (query, key) pair per query head and layer for attention."""
+    (forward and backward, the tied unembedding included, a shared block
+    once per use; the remat forward not counted), and 3x the forward's 4
+    D flops a visible causal (query, key) pair per query head and
+    attention layer; the SSD scan's own flops are not counted."""
+    n_params = sum(t.numel() for t in leaves(params))
+    uses = sum(1 for i in range(cfg.n_layers)
+               if cfg.attn_every and (i + 1) % cfg.attn_every == 0)
+    shared = sum(t.numel() for t in leaves(params.get("shared_attn", {})))
+    if cfg.family == "hybrid":
+        n_params += (uses - 1) * shared
+    attn_layers = uses if cfg.family == "hybrid" else (
+        0 if cfg.family == "ssm" else cfg.n_layers)
     attn = 12 * cfg.d_head * cfg.n_heads * B * _visible_pairs(S, S, True)
-    return 6.0 * n_params * B * S + attn * cfg.n_layers
+    return 6.0 * n_params * B * S + attn * attn_layers
 
 
-def check_training(torch, np, dev):
-    """smollm-360m trained at full width on the card through the port's
-    ``Trainer``: 12 steps of B = 8 rows of 512 tokens, a checkpoint every
-    4, a simulated failure at step 10 and a resume from step 8.  The
-    resumed steps 8 and 9 must repeat the first run's losses bit for bit,
-    the losses must be finite and fall, every kernel of the path (the
-    forward and backward float kernels, ``lease_probe`` under the
-    checkpoint publish's op scan) must have launched, and the fabric's counters and grant log must equal
-    a CPU trainer's on the same schedule.  Then: the card's loss and
-    gradients at 2 layers against the CPU's (relative L2 <= 2e-2, bf16),
-    ``VmappedWorkers`` at 4 layers with W = 1 and 4, a step's wall, host
-    and device time under ``torch.profiler``, and a checkpoint save."""
+def run_trainer(c, opt, tcfg, B, S, ckpt_dir, fail, device):
+    """``c``'s ``Trainer`` on ``device`` with a failure at step ``fail``
+    and a resume: (trainer, first run's losses by step, resumed losses by
+    step, the resumed run's result)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    tr = Trainer(c, opt, TrainerConfig(ckpt_dir=ckpt_dir, **tcfg),
+                 data=SyntheticLM(c, DataConfig(global_batch=B, seq_len=S)),
+                 device=device)
+    try:
+        tr.run(fail_at=fail)
+    except RuntimeError as e:
+        if "simulated node failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("the simulated failure did not happen")
+    first = dict(tr.history)
+    res = tr.resume()
+    return tr, first, dict(tr.history[len(first):]), res
+
+
+def cpu_trainer_side(c, opt, tcfg, ckpt_dir, fail, threads):
+    """Phase 8's CPU trainer, run in a worker process beside the card's:
+    (events, fabric counters, grant log, seconds)."""
+    import torch
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    tr, _, _, res = run_trainer(c, opt, tcfg, TRAIN_CPU_B, TRAIN_CPU_S,
+                                ckpt_dir, fail, torch.device("cpu"))
+    return (tr.events, res["fabric_stats"], list(tr.fabric.grant_log),
+            time.perf_counter() - t0)
+
+
+def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
+                   ckpt=TRAIN_CKPT, fail=TRAIN_FAIL,
+                   grad_layers=TRAIN_CPU_LAYERS, extras=True):
+    """``arch`` trained at full width on the card through the port's
+    ``Trainer``: ``steps`` steps of B = 8 rows of 512 tokens, a checkpoint
+    every ``ckpt``, a simulated failure at step ``fail`` and a resume from
+    the last checkpoint.  The resumed steps must repeat the first run's
+    losses bit for bit, the losses must be finite and fall, every kernel
+    of the path (the forward and backward float kernels the model runs,
+    ``lease_probe`` under the checkpoint publish's op scan) must have
+    launched, and the fabric's counters and grant log must equal a CPU
+    trainer's on the same schedule (2 layers at full width; zamba2, whose
+    looped tail has a fabric key a layer, all its layers at the smoke
+    config's widths).  Then: the card's loss and gradients at
+    ``grad_layers`` layers against the CPU's (relative L2 <= 2e-2 for the
+    loss, the whole gradient and every leaf of at least PER_LEAF_MIN
+    values, bf16; each per-head vector's error printed), a step's wall,
+    host and device time under ``torch.profiler``, the backward kernels'
+    share, peak memory, and with ``extras`` ``VmappedWorkers`` at 4
+    layers with W = 1 and 4 and a checkpoint save."""
     import dataclasses
     import shutil
 
     from repro_torch import configs
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.coherence.lease_sync import LeaseConfig, VmappedWorkers
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.models import init_model
     from repro_torch.models.model import tree_map
     from repro_torch.models.training import loss_and_grads
     from repro_torch.optim import adamw
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.trainer import param_keys
 
-    cfg = configs.get(ARCH)
+    cfg = configs.get(arch)
     opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
-                            total_steps=TRAIN_STEPS)
-    tcfg = dict(total_steps=TRAIN_STEPS, ckpt_period=TRAIN_CKPT, keep=2)
+                            total_steps=steps)
+    tcfg = dict(total_steps=steps, ckpt_period=ckpt, keep=2)
     work = ROOT / "build" / "phase8"
     shutil.rmtree(work, ignore_errors=True)
     free = shutil.disk_usage(ROOT).free
     log(f"  {free / 1e9:.1f} GB free on the checkout's disk")
-    rep = {}
+    rep = {"arch": arch, "steps": steps, "ckpt_period": ckpt,
+           "fail_at": fail}
 
-    def train(device, c, B, S, name):
-        """(trainer, first run's losses by step, resumed losses by step,
-        the resumed run's result)."""
-        tr = Trainer(c, opt, TrainerConfig(ckpt_dir=str(work / name), **tcfg),
-                     data=SyntheticLM(c, DataConfig(global_batch=B,
-                                                    seq_len=S)),
-                     device=device)
-        try:
-            tr.run(fail_at=TRAIN_FAIL)
-        except RuntimeError as e:
-            if "simulated node failure" not in str(e):
-                raise
-        else:
-            raise AssertionError("the simulated failure did not happen")
-        first = dict(tr.history)
-        res = tr.resume()
-        return tr, first, dict(tr.history[len(first):]), res
-
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
+    # the fabric sees only the keys: a CPU trainer on short rows, 2 layers
+    # at full width, or every layer at the smoke widths where the keys
+    # depend on depth (zamba2's looped tail); it runs in a worker process
+    # while the card trains
+    if param_keys(dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)) == \
+            param_keys(cfg):
+        small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
+    else:
+        small = dataclasses.replace(configs.SMOKE[arch],
+                                    n_layers=cfg.n_layers)
+    if param_keys(small) != param_keys(cfg):
+        raise AssertionError(f"the CPU trainer's fabric keys differ from "
+                             f"{arch}'s")
     counters = kernel_wrappers()
     for fn in counters:
         fn.launches = 0
     bwd_routes = flash_attention_bwd.route_launches
     bwd_routes.update(dict.fromkeys(bwd_routes, 0))
     flash_attention.stats_writes = 0
-    t0 = time.perf_counter()
-    tr, first, resumed, res = train(dev, cfg, TRAIN_B, TRAIN_S, "card")
-    torch.cuda.synchronize()
-    rep["run_s"] = time.perf_counter() - t0
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_future = pool.submit(cpu_trainer_side, small, opt, tcfg,
+                                 str(work / "cpu"), fail, 4)
+        t0 = time.perf_counter()
+        tr, first, resumed, res = run_trainer(cfg, opt, tcfg, TRAIN_B,
+                                              TRAIN_S, str(work / "card"),
+                                              fail, dev)
+        torch.cuda.synchronize()
+        rep["run_s"] = time.perf_counter() - t0
+        events, stats, grants, cpu_s = cpu_future.result()
     launches = {fn.__name__: fn.launches for fn in counters}
-    losses = [first[s] for s in range(TRAIN_FAIL)] + [
-        resumed[s] for s in range(TRAIN_FAIL, TRAIN_STEPS)]
-    log(f"  card: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens, "
-        f"failure at {TRAIN_FAIL}, resumed from the step-"
-        f"{next(e['step'] for e in tr.events if e['kind'] == 'restore')} "
-        "checkpoint: "
+    losses = [first[s] for s in range(fail)] + [
+        resumed[s] for s in range(fail, steps)]
+    restored = next(e["step"] for e in tr.events if e["kind"] == "restore")
+    log(f"  card: {steps} steps of {TRAIN_B} x {TRAIN_S} tokens, failure at "
+        f"{fail}, resumed from the step-{restored} checkpoint: "
         f"{rep['run_s']:.1f} s; losses {[round(x, 4) for x in losses]}; "
         f"launches {launches}")
-    restored = next(e["step"] for e in tr.events if e["kind"] == "restore")
-    again = {s: (first[s], resumed[s]) for s in range(restored, TRAIN_FAIL)}
+    again = {s: (first[s], resumed[s]) for s in range(restored, fail)}
     if any(a != b for a, b in again.values()):
         raise AssertionError(f"the resumed steps differ from the first "
                              f"run's: {again}")
@@ -2581,71 +2823,205 @@ def check_training(torch, np, dev):
             np.mean(losses[-3:]) < np.mean(losses[:3])
             and losses[-1] < losses[0]):
         raise AssertionError(f"losses not finite or not falling: {losses}")
-    # the publish is an 11-key write_batch on a one-shard fabric: 11
-    # rounds (a shard takes one write a round) exceed the write pass's
-    # budget of max(6, 11 // 2), so both packages serve it with the op
-    # scan, whose probes run on lease_probe (write_grant never runs here)
-    need = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-            "flash_attention_bwd", "lease_probe")
+    # the publish is a write_batch of every parameter key on a one-shard
+    # fabric: more rounds (a shard takes one write a round) than the write
+    # pass's budget, so both packages serve it with the op scan, whose
+    # probes run on lease_probe (write_grant never runs here)
+    attends = cfg.family != "ssm"
+    scans = cfg.family in ("ssm", "hybrid")
+    need = ("rmsnorm", "rmsnorm_bwd", "lease_probe") + (
+        ("flash_attention", "flash_attention_bwd") if attends else ()) + (
+        ("ssd_chunk", "ssd_chunk_bwd") if scans else ())
     missing = [n for n in need if launches[n] < 1]
     if missing:
         raise AssertionError(f"{missing} not launched: {launches}")
-    if launches["decode_attention"] or launches["ssd_chunk"]:
-        raise AssertionError(f"training launched a serving kernel: "
+    stray = [n for n in ("decode_attention", "flash_attention",
+                         "flash_attention_bwd", "ssd_chunk",
+                         "ssd_chunk_bwd") if n not in need and launches[n]]
+    if stray:
+        raise AssertionError(f"training {arch} launched {stray}: "
                              f"{launches}")
-    # bf16 at D = 64: every backward on the tensor-core route, each from
-    # the row statistics of a forward under grad
-    log(f"  flash_attention_bwd routes {bwd_routes}; forwards that wrote "
-        f"row statistics: {flash_attention.stats_writes}")
-    if bwd_routes["wgmma"] != launches["flash_attention_bwd"] or \
-            flash_attention.stats_writes < bwd_routes["wgmma"]:
-        raise AssertionError(f"flash_attention_bwd routes {bwd_routes}, "
-                             f"{flash_attention.stats_writes} forwards "
-                             "with statistics")
+    if attends:
+        # bf16 at D = 64: every backward on the tensor-core route, each
+        # from the row statistics of a forward under grad
+        log(f"  flash_attention_bwd routes {bwd_routes}; forwards that "
+            f"wrote row statistics: {flash_attention.stats_writes}")
+        if bwd_routes["wgmma"] != launches["flash_attention_bwd"] or \
+                flash_attention.stats_writes < bwd_routes["wgmma"]:
+            raise AssertionError(f"flash_attention_bwd routes {bwd_routes}, "
+                                 f"{flash_attention.stats_writes} forwards "
+                                 "with statistics")
     rep.update(losses=losses, launches=launches, events=tr.events,
                fabric_stats=res["fabric_stats"])
 
-    # the fabric sees only the keys: a 2-layer CPU trainer on short rows
-    small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
-    t0 = time.perf_counter()
-    trh, _, _, resh = train(torch.device("cpu"), small, TRAIN_CPU_B,
-                            TRAIN_CPU_S, "cpu")
-    if trh.events != tr.events or resh["fabric_stats"] != \
-            res["fabric_stats"] or list(trh.fabric.grant_log) != \
-            list(tr.fabric.grant_log):
+    if events != tr.events or stats != res["fabric_stats"] or \
+            grants != list(tr.fabric.grant_log):
         raise AssertionError("card and CPU trainers' events, fabric "
                              "counters or grant logs differ")
-    log(f"  card == cpu trainer ({TRAIN_CPU_LAYERS} layers, "
-        f"{time.perf_counter() - t0:.1f} s): events, fabric counters "
+    log(f"  card == cpu trainer ({small.n_layers} layers, d_model "
+        f"{small.d_model}, {cpu_s:.1f} s in a worker process beside the "
+        f"card's run): events, fabric counters "
         f"{ {k: v for k, v in res['fabric_stats'].items() if v} }, grant "
         f"log ({len(tr.fabric.grant_log)} grants)")
     shutil.rmtree(work / "cpu", ignore_errors=True)
 
-    # card vs CPU loss and gradients at 2 layers on one 512-token row
-    params = init_model(small, torch.Generator(dev).manual_seed(WEIGHT_SEED))
+    # card vs CPU loss and gradients at grad_layers layers, one 512-token row
+    deep = dataclasses.replace(cfg, n_layers=grad_layers)
+    params = init_model(deep, torch.Generator(dev).manual_seed(WEIGHT_SEED))
+    host_params = tree_map(lambda t: t.cpu(), params)
     tok = SyntheticLM(cfg, DataConfig(global_batch=TRAIN_B,
                                       seq_len=TRAIN_S)).batch(0)["tokens"]
-    row = {"tokens": torch.from_numpy(tok[:1])}
-    lc, _, gc = loss_and_grads(small, params, {"tokens": row["tokens"].to(
-        dev)})
-    t0 = time.perf_counter()
-    lh, _, gh = loss_and_grads(small, tree_map(lambda t: t.cpu(), params),
-                               row)
-    errs = {"loss": abs(float(lc) - float(lh)) / abs(float(lh))}
-    flat_c, flat_h = adamw.tree_leaves(gc), adamw.tree_leaves(gh)
-    whole_c = torch.cat([t.reshape(-1).float().cpu() for t in flat_c])
-    whole_h = torch.cat([t.reshape(-1).float() for t in flat_h])
-    errs["gradient"] = rel_l2(whole_c, whole_h)
-    errs["worst_leaf"] = max(rel_l2(a, b) for a, b in zip(
-        adamw.tree_leaves(gc), adamw.tree_leaves(gh)))
-    log(f"  card vs cpu at {TRAIN_CPU_LAYERS} layers ({time.perf_counter() - t0:.1f} s "
-        f"on the CPU): loss {errs['loss']:.2e}, gradient relative L2 "
-        f"{errs['gradient']:.4f} (worst leaf {errs['worst_leaf']:.4f})")
-    if max(errs.values()) > MODEL_REL_L2:
-        raise AssertionError(f"card vs cpu beyond {MODEL_REL_L2}: {errs}")
-    rep["card_vs_cpu"] = errs
+    row = torch.from_numpy(tok[:1])
 
-    # lease-synced workers at 4 layers, two workers, one row each
+    def grads(c, device):
+        p = params if device == dev else host_params
+        loss, _, g = loss_and_grads(c, p, {"tokens": row.to(device)})
+        return float(loss), named_leaves(g)
+    t0 = time.perf_counter()
+    card, host = grads(deep, dev), grads(deep, torch.device("cpu"))
+    errs = compare_grads(card, host)
+    small_leaves = errs.pop("small_leaves")
+    log(f"  card vs cpu at {grad_layers} layers ({time.perf_counter() - t0:.1f}"
+        f" s): loss {errs['loss']:.2e}, gradient relative L2 "
+        f"{errs['gradient']:.4f} (worst leaf of >= {PER_LEAF_MIN} values "
+        f"{errs['worst_leaf']:.4f}; the smaller leaves, per-head vectors: "
+        f"{small_leaves})")
+    rep["card_vs_cpu"] = dict(errs, small_leaves=small_leaves,
+                              layers=grad_layers)
+    if scans:
+        # the same under the f32 policy (every kernel of the path in its
+        # f32 form), and each bf16 gradient's distance from the CPU's f32
+        # one
+        f32 = dataclasses.replace(deep, policy=dataclasses.replace(
+            deep.policy, compute_dtype=torch.float32))
+        card32, host32 = grads(f32, dev), grads(f32, torch.device("cpu"))
+        errs32 = compare_grads(card32, host32)
+        errs32.pop("small_leaves")
+        from_f32 = {"card": compare_grads(card, host32)["gradient"],
+                    "cpu": compare_grads(host, host32)["gradient"]}
+        log(f"  f32 policy: card vs cpu loss {errs32['loss']:.2e}, gradient "
+            f"{errs32['gradient']:.2e} (worst leaf {errs32['worst_leaf']:.2e})"
+            f"; the bf16 gradient's relative L2 from the cpu's f32 one: card "
+            f"{from_f32['card']:.4f}, cpu {from_f32['cpu']:.4f} "
+            f"({from_f32['card'] / from_f32['cpu']:.3f}x)")
+        rep["card_vs_cpu"].update(f32_policy=errs32, bf16_from_f32=from_f32)
+        if max(errs32.values()) > MODEL_REL_L2 or \
+                from_f32["card"] > BF16_FROM_F32 * from_f32["cpu"]:
+            raise AssertionError(f"f32 policy card vs cpu {errs32}; bf16 "
+                                 f"from f32 {from_f32}")
+    if arch in BF16_GRAD_ARCHS and max(errs.values()) > MODEL_REL_L2:
+        raise AssertionError(f"card vs cpu beyond {MODEL_REL_L2}: {errs}")
+    del params, host_params, card, host
+
+    if extras:
+        check_lease_workers(torch, np, dev, cfg, rep)
+
+    # a step's times at full width, from the trained state
+    state = res["state"]
+    batch = tr.data.batch(steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, hosts = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = tr.step_fn(state, batch)
+        hosts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    # host syncs inside a step: each one stalls the enqueue until the card
+    # catches up (the loss readback the trainer makes is outside step_fn)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, _ = tr.step_fn(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0][:160] for w in caught
+             if "synchroniz" in str(w.message).lower()]
+    box = [state]
+
+    def one_step():
+        box[0], m = tr.step_fn(box[0], batch)
+        float(m["loss"])
+    prof = profile_calls(torch, one_step, 2)
+    wall_ms = statistics.median(walls) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    ported = prof["ported_kernels"]
+    bwd_names = [n for n in ("rmsnorm_bwd", "flash_attention_bwd",
+                             "ssd_chunk_bwd") if n in need]
+    bwd = sum(ported[k]["us"] for k in bwd_names)
+    flops = train_flops(cfg, state.params, TRAIN_B, TRAIN_S)
+    n_params = sum(t.numel() for t in leaves(state.params))
+    rep["step"] = {
+        "wall_ms": wall_ms, "host_enqueue_ms": statistics.median(hosts) * 1e3,
+        "device_busy_ms": prof["device_ms_per_call"],
+        "idle_share": prof["device_idle_share"],
+        "tokens_per_s": tokens / (wall_ms / 1e3),
+        "backward_kernels_share": bwd / prof["device_busy_us"],
+        "ssd_chunk_bwd_share": (ported["ssd_chunk_bwd"]["us"]
+                                / prof["device_busy_us"]),
+        "peak_memory_gb": peak / 1e9,
+        "ported_kernels": ported,
+        "model_flops": flops, "n_params": n_params,
+        "mfu": flops / (wall_ms / 1e3 * BF16_FLOPS_PER_S),
+        "host_syncs": syncs, "device_events": prof["device_events"] / 2,
+        "device_by_name": prof["device_by_name"],
+        "host_by_op": prof["host_by_op"]}
+    st = rep["step"]
+    log(f"  a training step ({n_params / 1e6:.1f} M parameters, {tokens} "
+        f"tokens): wall {st['wall_ms']:.1f} ms, host enqueue "
+        f"{st['host_enqueue_ms']:.1f} ms, device busy "
+        f"{st['device_busy_ms']:.1f} ms (idle share {st['idle_share']:.3f});"
+        f" {st['tokens_per_s']:.0f} tokens/s; backward kernels "
+        f"{st['backward_kernels_share']:.3f} of device time, ssd_chunk_bwd "
+        f"{st['ssd_chunk_bwd_share']:.3f}; "
+        + ", ".join(f"{k} {ported[k]['us'] / 2e3:.2f} ms "
+                    f"({ported[k]['count'] // 2})"
+                    for k in need if k in ported and ported[k]["count"])
+        + f" a step; peak memory {st['peak_memory_gb']:.2f} GB; model "
+        f"flops {flops / 1e12:.2f} T a step, {st['mfu']:.3f} of 989 TF/s; "
+        f"{st['device_events']:.0f} device events a step; {len(syncs)} host "
+        f"syncs in a step {syncs[:3]}")
+
+    if extras:
+        # checkpoint saves on a new manager: the first allocates its
+        # pinned buffers, the second refills them; host time on the
+        # training thread, then durable
+        mgr = CheckpointManager(work / "save_probe", keep=1)
+        rep["checkpoint"] = {}
+        for i, name in enumerate(("first", "second")):
+            t0 = time.perf_counter()
+            mgr.save(steps + 99 + i, state)
+            enq = time.perf_counter() - t0
+            mgr.wait()
+            rep["checkpoint"][name] = {
+                "save_host_ms": enq * 1e3,
+                "durable_ms": (time.perf_counter() - t0) * 1e3}
+        log("  checkpoint save "
+            f"({3 * n_params * 4 / 1e9:.2f} GB): "
+            + "; ".join(f"{k} {v['save_host_ms']:.1f} ms on the training "
+                        f"thread, durable after {v['durable_ms']:.0f} ms"
+                        for k, v in rep["checkpoint"].items()))
+    del tr, res, state, box
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, rep
+
+
+def check_lease_workers(torch, np, dev, cfg, rep):
+    """``VmappedWorkers`` at 4 layers, two workers, one row each: W = 1
+    keeps the workers' parameters equal after every step, W = 4 needs at
+    least 3x fewer collective bytes."""
+    import dataclasses
+
+    from repro_torch.coherence.lease_sync import LeaseConfig, VmappedWorkers
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+
     four = dataclasses.replace(cfg, n_layers=TRAIN_WORKER_LAYERS)
     data = SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=TRAIN_S))
     wopt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
@@ -2675,91 +3051,6 @@ def check_training(torch, np, dev):
     rep["workers"] = {"bytes": {1: w1.collective_bytes,
                                 4: w4.collective_bytes},
                       "memts": w4.clock.memts, "losses": wl}
-    del workers, w1, w4
-
-    # a step's times at full width, from the trained state
-    state = res["state"]
-    batch = tr.data.batch(TRAIN_STEPS)
-    n_params = sum(t.numel() for t in leaves(state.params))
-    walls, hosts = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = tr.step_fn(state, batch)
-        hosts.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    # host syncs inside a step: each one stalls the enqueue until the card
-    # catches up (the loss readback the trainer makes is outside step_fn)
-    import warnings
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            state, _ = tr.step_fn(state, batch)
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message).splitlines()[0][:160] for w in caught
-             if "synchroniz" in str(w.message).lower()]
-    box = [state]
-
-    def one_step():
-        box[0], m = tr.step_fn(box[0], batch)
-        float(m["loss"])
-    prof = profile_calls(torch, one_step, 2)
-    wall_ms = statistics.median(walls) * 1e3
-    tokens = TRAIN_B * TRAIN_S
-    bwd = sum(prof["ported_kernels"][k]["us"] for k in (
-        "rmsnorm_bwd", "flash_attention_bwd"))
-    flops = train_flops(cfg, n_params, TRAIN_B, TRAIN_S)
-    rep["step"] = {
-        "wall_ms": wall_ms, "host_enqueue_ms": statistics.median(hosts) * 1e3,
-        "device_busy_ms": prof["device_ms_per_call"],
-        "idle_share": prof["device_idle_share"],
-        "tokens_per_s": tokens / (wall_ms / 1e3),
-        "backward_kernels_share": bwd / prof["device_busy_us"],
-        "ported_kernels": prof["ported_kernels"],
-        "model_flops": flops, "n_params": n_params,
-        "mfu": flops / (wall_ms / 1e3 * BF16_FLOPS_PER_S),
-        "host_syncs": syncs, "device_events": prof["device_events"] / 2,
-        "device_by_name": prof["device_by_name"],
-        "host_by_op": prof["host_by_op"]}
-    st = rep["step"]
-    log(f"  a training step ({n_params / 1e6:.1f} M parameters, {tokens} "
-        f"tokens): wall {st['wall_ms']:.1f} ms, host enqueue "
-        f"{st['host_enqueue_ms']:.1f} ms, device busy "
-        f"{st['device_busy_ms']:.1f} ms (idle share {st['idle_share']:.3f});"
-        f" {st['tokens_per_s']:.0f} tokens/s; backward kernels "
-        f"{st['backward_kernels_share']:.3f} of device time "
-        + ", ".join(f"{k} {prof['ported_kernels'][k]['us'] / 2e3:.2f} ms "
-                    f"({prof['ported_kernels'][k]['count'] // 2})"
-                    for k in ("rmsnorm", "rmsnorm_bwd", "flash_attention",
-                              "flash_attention_bwd"))
-        + f" a step; model flops {flops / 1e12:.2f} T a step, "
-        f"{st['mfu']:.3f} of 989 TF/s; {st['device_events']:.0f} device "
-        f"events a step; {len(syncs)} host syncs in a step {syncs[:3]}")
-
-    # checkpoint saves on a new manager: the first allocates its pinned
-    # buffers, the second refills them; host time on the training
-    # thread, then durable
-    mgr = CheckpointManager(work / "save_probe", keep=1)
-    rep["checkpoint"] = {}
-    for i, name in enumerate(("first", "second")):
-        t0 = time.perf_counter()
-        mgr.save(TRAIN_STEPS + 99 + i, state)
-        enq = time.perf_counter() - t0
-        mgr.wait()
-        rep["checkpoint"][name] = {
-            "save_host_ms": enq * 1e3,
-            "durable_ms": (time.perf_counter() - t0) * 1e3}
-    log("  checkpoint save "
-        f"({3 * n_params * 4 / 1e9:.2f} GB): "
-        + "; ".join(f"{k} {v['save_host_ms']:.1f} ms on the training "
-                    f"thread, durable after {v['durable_ms']:.0f} ms"
-                    for k, v in rep["checkpoint"].items()))
-    shutil.rmtree(work, ignore_errors=True)
-    return launches, rep
 
 
 def main() -> None:
@@ -2818,6 +3109,7 @@ def main() -> None:
     log_rmsnorm_vs_library(kreport)
     check_ssd_kernel(torch, np, dev, kreport)
     check_backward_kernels(torch, np, dev, kreport)
+    check_ssd_bwd_kernel(torch, np, dev, kreport)
     report["kernels"] = kreport
     check_no_sync(torch, np)
     log("  miss-path dispatch enqueues with no host sync (sync debug mode)")
@@ -2928,6 +3220,14 @@ def main() -> None:
     trained, report["training"] = check_training(torch, np, dev)
     for name in ("rmsnorm_bwd", "flash_attention_bwd"):
         launches[name] = trained[name]
+    report["ssm_training"] = {}
+    for arch, steps, ckpt, fail, layers in SSM_TRAIN:
+        log(f"phase 8: training {arch} at full width ({steps} steps, "
+            f"checkpoint every {ckpt}, failure at {fail}, resume)")
+        trained, report["ssm_training"][arch] = check_training(
+            torch, np, dev, arch, steps, ckpt, fail, layers, extras=False)
+        launches["ssd_chunk_bwd"] = launches.get("ssd_chunk_bwd", 0) \
+            + trained["ssd_chunk_bwd"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2943,7 +3243,8 @@ def main() -> None:
                   "ssd_chunk": [SERVE_B, 2, 256, 24, 64, 128],
                   "rmsnorm_bwd": [TRAIN_B * TRAIN_S, 960],
                   "flash_attention_bwd": [TRAIN_B, TRAIN_S, TRAIN_S, 15, 5,
-                                          64, 1, 0]}
+                                          64, 1, 0],
+                  "ssd_chunk_bwd": [TRAIN_B, 2, 256, 24, 64, 128]}
     line = []
     for name, source, replaces in KERNELS:
         row = max(kreport[name], key=lambda r: r["shape"][0])

@@ -8,14 +8,14 @@ read from the lane vector of the coherence kernels (``addr``) and from
 the activations of the float kernels (``x``, ``q``).
 
 Gradients: on the CPU, autograd differentiates the plain versions.  On
-the card, ``rmsnorm`` and ``flash_attention`` go through their
-``autograd.Function`` (the forward kernel, and a backward kernel as the
-gradient) only when grad mode is on and an input requires grad;
+the card, ``rmsnorm``, ``flash_attention`` and ``ssd_chunk`` go through
+their ``autograd.Function`` (the forward kernel, and a backward kernel
+as the gradient) only when grad mode is on and an input requires grad;
 otherwise they launch the forward kernel directly, which keeps the
-serving path's host time as it was.  ``decode_attention`` and
-``ssd_chunk`` have no backward kernel yet: on a CUDA tensor that
-requires grad they raise ``NotImplementedError`` naming the ROADMAP
-item, and never differentiate a plain version on the card.
+serving path's host time as it was.  ``decode_attention`` has no
+backward kernel: on a CUDA tensor that requires grad it raises
+``NotImplementedError`` naming the ROADMAP item, and never
+differentiates a plain version on the card.
 """
 from __future__ import annotations
 
@@ -28,12 +28,12 @@ from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.lease_probe import lease_probe as _lease_probe
 from repro_torch.kernels.rmsnorm import RMSNormFn
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.ssd_chunk import SSDChunkFn
 from repro_torch.kernels.ssd_chunk import ssd_chunk as _ssd_chunk
 from repro_torch.kernels.tier_pass import miss_round as _miss_round
 from repro_torch.kernels.tier_pass import write_grant as _write_grant
 
-# the ROADMAP items that will give these kernels a backward
-SSD_BWD_ITEM = "19: the ssd_chunk backward, mamba2/zamba2 training"
+# the ROADMAP item that would give decode_attention a backward
 DECODE_BWD_ITEM = "20: a decode_attention backward, if a consumer needs one"
 
 
@@ -97,5 +97,5 @@ def ssd_chunk(x, dt, A, Bc, Cc, out_dtype=None):
     if _on_cpu(x):
         return ref.ssd_chunk_ref(x, dt, A, Bc, Cc, out_dtype)
     if _wants_grad(x, dt, A, Bc, Cc):
-        raise _no_backward("ssd_chunk", SSD_BWD_ITEM)
+        return SSDChunkFn.apply(x, dt, A, Bc, Cc, out_dtype)
     return _ssd_chunk(x, dt, A, Bc, Cc, out_dtype=out_dtype)

@@ -5,7 +5,8 @@ Each function is the line-for-line counterpart of its namesake in
 ``repro/kernels/ref.py`` and runs on any device.  The float half
 (``rmsnorm_ref``, ``attention_ref``, ``ssd_chunk_ref``) computes in f32 and casts the result
 to the input's dtype, as the Pallas kernels do (their backward is
-autograd of these: ``rmsnorm_bwd_ref``, ``attention_bwd_ref``); in particular the softmax
+autograd of these: ``rmsnorm_bwd_ref``, ``attention_bwd_ref``,
+``ssd_chunk_bwd_ref``); in particular the softmax
 probabilities stay f32 for the PV product, where the reference's jnp
 ``layers.attention`` rounds them to v's dtype first.  Translation notes
 for the coherence half:
@@ -218,3 +219,17 @@ def ssd_chunk_ref(x, dt, A, Bc, Cc, out_dtype=None):
     state = torch.einsum("bcjhn,bcjhp->bchnp",
                          Bf * (dtf * decay_out)[..., None], xf)
     return y.to(x.dtype if out_dtype is None else out_dtype), state, cum
+
+
+def ssd_chunk_bwd_ref(x, dt, A, Bc, Cc, dy, dstate, dcum, out_dtype=None):
+    """The plain backward of ``ssd_chunk_ref``: autograd of the plain
+    forward, with cotangents on all three outputs (dy in y's dtype or
+    f32, dstate and dcum f32; the model's inter-chunk scan reads cum, so
+    dcum is not zero there).  Returns (dx, ddt, dA, dBc, dCc) in the
+    inputs' dtypes; a stride-0 head of Bc or Cc gets its per-head
+    gradient, of the view's shape."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, dt, A, Bc, Cc)]
+        y, state, cum = ssd_chunk_ref(*ins, out_dtype)
+        return torch.autograd.grad((y, state, cum), ins,
+                                   (dy.to(y.dtype), dstate, dcum))

@@ -23,6 +23,12 @@ with ``out_dtype=torch.float32``, in f32.  The plain version is
 ``kernels.ref.ssd_chunk_ref``.  This wrapper launches on CUDA tensors
 only and raises on anything else; ``kernels.ops.ssd_chunk`` is the
 dispatcher that sends CPU tensors to the plain version.
+
+The gradient: ``ssd_chunk_bwd`` (``csrc/ssd_chunk_bwd.cu``, f32 on the
+CUDA cores for both dtypes, four launches with fixed-order sums) takes
+the cotangents of y, the state and cum and returns those of x, dt, A, B
+and C; ``SSDChunkFn`` pairs it with the forward under autograd.  Its
+plain version is ``kernels.ref.ssd_chunk_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -38,6 +44,9 @@ MAX_CHUNK = 1024                # Q: cum and dt of a chunk in shared memory
 MAX_GRID_Z = 65535              # one grid z per (batch, chunk)
 _ARGS = ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] \
     + ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] * 3 + [cuda.I] * 8 \
+    + [cuda.P]
+_ARGS_BWD = ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] \
+    + ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] * 10 + [cuda.I] * 7 \
     + [cuda.P]
 _ARGS_WGMMA = ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] \
     + ([cuda.P] + [cuda.LD] * 4 + [cuda.I]) * 2 + [cuda.P] * 3 \
@@ -80,6 +89,43 @@ def tma_view(name: str, t, broadcast: bool = True):
     return strides, heads
 
 
+def _check_inputs(name, x, dt, A, Bc, Cc) -> int:
+    """Raise unless x, dt, A, Bc and Cc fit the kernels (device, dtype,
+    shapes, P, N, Q, the grid's B*nc, a contiguous A); returns x's
+    storage type code."""
+    dev = x.device
+    code = cuda.check_float("x", x, None)
+    cuda.check_float("dt", dt, dev, torch.float32)
+    cuda.check_float("A", A, dev, torch.float32)
+    cuda.check_float("Bc", Bc, dev, x.dtype)
+    cuda.check_float("Cc", Cc, dev, x.dtype)
+    if x.dim() != 5:
+        raise ValueError(f"{name}: expected x [B, nc, Q, H, P], got "
+                         f"shape {tuple(x.shape)}")
+    Bsz, nc, Q, H, P = x.shape
+    N = Bc.shape[-1] if Bc.dim() == 5 else -1
+    if tuple(dt.shape) != (Bsz, nc, Q, H) or tuple(A.shape) != (H,) \
+            or Bc.dim() != 5 or tuple(Bc.shape[:4]) != (Bsz, nc, Q, H) \
+            or Cc.shape != Bc.shape:
+        raise ValueError(f"{name}: shapes do not fit x {tuple(x.shape)}: "
+                         f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, Bc "
+                         f"{tuple(Bc.shape)}, Cc {tuple(Cc.shape)}")
+    if P not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim P={P} not in {HEAD_DIMS}")
+    if not 1 <= N <= MAX_STATE:
+        raise ValueError(f"{name}: state dim N={N} outside "
+                         f"[1, {MAX_STATE}]")
+    if not 1 <= Q <= MAX_CHUNK:
+        raise ValueError(f"{name}: chunk length Q={Q} outside "
+                         f"[1, {MAX_CHUNK}]")
+    if Bsz * nc > MAX_GRID_Z:
+        raise ValueError(f"{name}: B*nc={Bsz * nc} chunks, at most "
+                         f"{MAX_GRID_Z} per call")
+    if not A.is_contiguous():
+        raise ValueError(f"{name}: A must be contiguous")
+    return code
+
+
 def ssd_chunk(x, dt, A, Bc, Cc, *, out_dtype=None, path=None):
     """x: [B, nc, Q, H, P]; dt: [B, nc, Q, H] f32; A: [H] f32; Bc, Cc:
     [B, nc, Q, H, N] in x's dtype (f32 or bf16; a head stride of 0 is
@@ -90,36 +136,10 @@ def ssd_chunk(x, dt, A, Bc, Cc, *, out_dtype=None, path=None):
     they take (to hold the two routes against each other on the card);
     allocates its outputs, launches on the current stream and does not
     synchronise."""
+    code = _check_inputs("ssd_chunk", x, dt, A, Bc, Cc)
     dev = x.device
-    code = cuda.check_float("x", x, None)
-    cuda.check_float("dt", dt, dev, torch.float32)
-    cuda.check_float("A", A, dev, torch.float32)
-    cuda.check_float("Bc", Bc, dev, x.dtype)
-    cuda.check_float("Cc", Cc, dev, x.dtype)
-    if x.dim() != 5:
-        raise ValueError(f"ssd_chunk: expected x [B, nc, Q, H, P], got "
-                         f"shape {tuple(x.shape)}")
     Bsz, nc, Q, H, P = x.shape
-    N = Bc.shape[-1] if Bc.dim() == 5 else -1
-    if tuple(dt.shape) != (Bsz, nc, Q, H) or tuple(A.shape) != (H,) \
-            or Bc.dim() != 5 or tuple(Bc.shape[:4]) != (Bsz, nc, Q, H) \
-            or Cc.shape != Bc.shape:
-        raise ValueError(f"ssd_chunk: shapes do not fit x {tuple(x.shape)}: "
-                         f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, Bc "
-                         f"{tuple(Bc.shape)}, Cc {tuple(Cc.shape)}")
-    if P not in HEAD_DIMS:
-        raise ValueError(f"ssd_chunk: head dim P={P} not in {HEAD_DIMS}")
-    if not 1 <= N <= MAX_STATE:
-        raise ValueError(f"ssd_chunk: state dim N={N} outside "
-                         f"[1, {MAX_STATE}]")
-    if not 1 <= Q <= MAX_CHUNK:
-        raise ValueError(f"ssd_chunk: chunk length Q={Q} outside "
-                         f"[1, {MAX_CHUNK}]")
-    if Bsz * nc > MAX_GRID_Z:
-        raise ValueError(f"ssd_chunk: B*nc={Bsz * nc} chunks, at most "
-                         f"{MAX_GRID_Z} per call")
-    if not A.is_contiguous():
-        raise ValueError("ssd_chunk: A must be contiguous")
+    N = Bc.shape[-1]
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"ssd_chunk: y in {out_dtype}; the kernels give "
@@ -158,3 +178,76 @@ def ssd_chunk(x, dt, A, Bc, Cc, *, out_dtype=None, path=None):
 
 ssd_chunk.launches = 0
 ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def ssd_chunk_bwd(x, dt, A, Bc, Cc, cum, dy, dstate, dcum):
+    """The gradient of ``ssd_chunk``: x, dt, A, Bc, Cc as the forward took
+    them (a head stride of 0 is fine), its cum [B, nc, Q, H] f32, and the
+    cotangents dy [B, nc, Q, H, P] (f32 or x's dtype), dstate [B, nc, H,
+    N, P] f32 and dcum [B, nc, Q, H] f32.  Returns (dx, ddt, dA, dBc,
+    dCc) as ``ref.ssd_chunk_bwd_ref``: dx, dBc and dCc in x's dtype, of
+    the inputs' shapes and contiguous (per head: a caller that broadcast
+    B or C to the heads sums them, as expand's backward does), ddt and dA
+    in f32.  f32 arithmetic on the CUDA cores for both dtypes; launches
+    on the current stream and does not synchronise."""
+    code = _check_inputs("ssd_chunk_bwd", x, dt, A, Bc, Cc)
+    dev = x.device
+    Bsz, nc, Q, H, P = x.shape
+    N = Bc.shape[-1]
+    cuda.check_float("dy", dy, dev)
+    for name, t, shape in (("dy", dy, (Bsz, nc, Q, H, P)),
+                           ("dstate", dstate, (Bsz, nc, H, N, P)),
+                           ("dcum", dcum, (Bsz, nc, Q, H)),
+                           ("cum", cum, (Bsz, nc, Q, H))):
+        if name != "dy":
+            cuda.check_float(name, t, dev, torch.float32)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"ssd_chunk_bwd: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    if dy.dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"ssd_chunk_bwd: dy in {dy.dtype}; y comes in "
+                        f"x's dtype ({x.dtype}) or float32")
+    dy, dstate, dcum, cum = (t.float().contiguous()
+                             for t in (dy, dstate, dcum, cum))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((Bsz, nc, Q, H, P), dtype=x.dtype, device=dev)
+    dBc, dCc = (torch.empty((Bsz, nc, Q, H, N), dtype=x.dtype, device=dev)
+                for _ in range(2))
+    ddt = torch.empty((Bsz, nc, Q, H), **f32)
+    dA = torch.zeros((H,), **f32)
+    if Bsz * nc * H:
+        scratch = torch.empty(3 * Bsz * nc * Q * H + Bsz * nc * H, **f32)
+        args = [x.data_ptr(), *x.stride()[:4], dt.data_ptr(),
+                *dt.stride()[:4], A.data_ptr(), Bc.data_ptr(),
+                *Bc.stride()[:4], Cc.data_ptr(), *Cc.stride()[:4]]
+        args += [t.data_ptr() for t in (dy, dstate, dcum, cum, dx, dBc, dCc,
+                                        ddt, dA, scratch)]
+        args += [Bsz, nc, Q, H, P, N, code]
+        fn = cuda.function("ssd_chunk_bwd", "halcone_ssd_chunk_bwd",
+                           _ARGS_BWD)
+        cuda.launch(fn, args, dev)
+        ssd_chunk_bwd.launches += 1
+    return dx, ddt, dA, dBc, dCc
+
+
+ssd_chunk_bwd.launches = 0
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """``ssd_chunk`` with ``ssd_chunk_bwd`` as its gradient, both kernels:
+    the forward on the route ``route`` picks, saving its inputs (B and C
+    as the views it was given) and its cum; a recomputed forward
+    (``torch.utils.checkpoint``) saves its own.  Inputs that need no
+    gradient get None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc, out_dtype):
+        y, state, cum = ssd_chunk(x, dt, A, Bc, Cc, out_dtype=out_dtype)
+        ctx.save_for_backward(x, dt, A, Bc, Cc, cum)
+        return y, state, cum
+
+    @staticmethod
+    def backward(ctx, dy, dstate, dcum):
+        grads = ssd_chunk_bwd(*ctx.saved_tensors, dy, dstate, dcum)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)

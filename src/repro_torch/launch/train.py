@@ -1,13 +1,15 @@
 """Training launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke --steps 6 --device cpu
 
 The port of ``repro.launch.train``, with the same flags, plus
 ``--device`` (default: the CUDA card; ``cpu`` runs the plain PyTorch
 versions of the kernels).  The reference's ``--mesh`` (TPU meshes) is
-not ported.  On the card only the dense decoders train: mamba2 and
-zamba2 raise until ``ssd_chunk`` has a backward kernel.
+not ported.  Every ported model trains on the card: the dense decoders,
+mamba2 and zamba2 (``ssd_chunk`` through its forward and backward
+kernels).
 """
 import argparse
 import os

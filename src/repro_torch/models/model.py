@@ -274,8 +274,11 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, cache=None,
         outs = []
         for bp, bc in zip(layers, views):
             if ckpt:
-                h = checkpoint(lambda hh, b: run_layer(hh, b, None)[0], h, bp,
-                               use_reentrant=False)
+                # the segment's own run_layer, bound now: the backward's
+                # recomputation runs after the loop has rebound the name to
+                # a later segment's (zamba2's looped tail)
+                h = checkpoint(lambda hh, b, f=run_layer: f(hh, b, None)[0],
+                               h, bp, use_reentrant=False)
                 continue
             h, ncs = run_layer(h, bp, bc)
             outs.append(ncs)

@@ -15,6 +15,20 @@ The attention cases are those of
 one row of the batch; the rmsnorm cases those of
 ``test_cuda_rmsnorm_bwd_equals_plain``.
 
+``ref.ssd_chunk_bwd_ref`` (what ``csrc/ssd_chunk_bwd.cu`` is held to) is
+held to ``jax.vjp`` of the reference's one-chunk ``ssd_chunk_ref``,
+vmapped over (batch, chunk, head), with nonzero cotangents on y, the
+state and cum.  dt = 0.1 softplus(normal) and A = -exp(U(0, 1.5)), as
+``chip_smoke.py`` draws them, and one case whose cum falls to about -100
+over 64 rows, so that a masked pair's exp(cum_i - cum_j) would
+overflow; B and C one group broadcast to the heads as a stride-0 view
+(as the model passes them) or one array per head.  In f32 each output is
+held to 1e-5 of its largest magnitude: ddt and dA add a reverse cumsum
+of cancelling terms (their sums up to ~1000x smaller than their terms),
+where f32 sums in another order differ by more than 1e-5 of the element
+(``test_torch_ssd_bwd.py::test_f32_ddt_cancels_against_f64``: more than
+1e-4 against f64); ddt and dA are f32 for both dtypes and held so.
+
 The wrappers' host-side choices (the backward's route and
 ``rmsnorm_bwd_plan``) are plain Python and are checked here too.
 """
@@ -152,3 +166,92 @@ def test_rmsnorm_bwd_plan(R, D, vec_len):
     element = rmsnorm_bwd_plan(R, D, vec_len, n_sms, aligned=False)
     assert element[:3] == (0, ELEMENT_PATH[1], BWD_BLOCK_ROWS)
     assert element[3] == rmsnorm_bwd_plan(R, D, D + 1, n_sms)[3]
+
+
+# ------------------------------------------------------------- ssd_chunk
+SSD_CASES = [   # B, nc, Q, H, P, N, stride-0 B/C, dt scale
+    (1, 2, 16, 2, 16, 8, True, 0.1),
+    (2, 1, 64, 3, 16, 16, False, 0.1),
+    (1, 1, 64, 2, 16, 16, True, 1.5),     # cum to about -100
+    (1, 2, 40, 2, 16, 8, False, 0.1),     # a ragged tile
+    (1, 1, 130, 2, 16, 16, True, 0.1),    # three key tiles, one ragged
+]
+
+
+def ssd_inputs(B, nc, Q, H, P, N, stride0, scale, dtype, seed):
+    """(x, dt, A, Bc, Cc, dy, dstate, dcum) as torch tensors; dy holds
+    bf16 values, so that a bf16 cotangent carries it exactly."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    T = lambda a, dt=torch.float32: torch.from_numpy(a).to(dt)
+    x = T(f(B, nc, Q, H, P), dtype)
+    dt = T((np.log1p(np.exp(f(B, nc, Q, H))) * scale).astype(np.float32))
+    A = T((-np.exp(rng.uniform(0.0, 1.5, H))).astype(np.float32))
+    bc = []
+    for _ in range(2):
+        g = T(f(B, nc, Q, 1 if stride0 else H, N), dtype)
+        bc.append(g.expand(B, nc, Q, H, N))
+    dy = T(f(B, nc, Q, H, P)).to(torch.bfloat16).float()
+    dstate = T(f(B, nc, H, N, P))
+    dcum = T(f(B, nc, Q, H))
+    return x, dt, A, bc[0], bc[1], dy, dstate, dcum
+
+
+def ssd_jax_vjp(x, dt, A, Bc, Cc, dy, dstate, dcum):
+    """jax.vjp of the reference's one-chunk ``ssd_chunk_ref`` vmapped over
+    (b, chunk, head), every input per head; y in x's dtype as the
+    reference returns it.  Returns (dx, ddt, dA, dBc, dCc) as numpy in
+    the port's layout."""
+    dtype = JDT[x.dtype]
+    per = lambda t, d: jnp.asarray(np.moveaxis(
+        t.float().contiguous().numpy(), 3, 2), d)     # [B, nc, H, Q, *]
+    hq = lambda t: jnp.asarray(np.moveaxis(t.numpy(), 3, 2))
+    one = jax.vmap(jref.ssd_chunk_ref, in_axes=(0, 0, 0, 0, 0))
+    f = jax.vmap(jax.vmap(one, in_axes=(0, 0, None, 0, 0)),
+                 in_axes=(0, 0, None, 0, 0))
+    _, vjp = jax.vjp(f, per(x, dtype), hq(dt), jnp.asarray(A.numpy()),
+                     per(Bc, dtype), per(Cc, dtype))
+    grads = vjp((per(dy, dtype), jnp.asarray(dstate.numpy()), hq(dcum)))
+    dx, ddt, dA, dB, dC = (np.asarray(g, np.float32) for g in grads)
+    back = lambda a: np.moveaxis(a, 2, 3)
+    return back(dx), back(ddt), dA, back(dB), back(dC)
+
+
+def ssd_close(got, want, dtype, name):
+    """``TOL``; in f32 at the scale of the output's largest magnitude."""
+    got = got.float().numpy()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.shape} vs {want.shape}")
+    tol = TOL[dtype]
+    scale = 1.0 if dtype == torch.bfloat16 else max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale,
+                               err_msg=name)
+
+
+def ssd_check(got, want, dtype):
+    names = ("dx", "ddt", "dA", "dBc", "dCc")
+    for name, g, w in zip(names, got, want):
+        assert torch.isfinite(g.float()).all(), name
+        # ddt and dA are f32 on both sides: held as in f32
+        ssd_close(g, w, torch.float32 if name in ("ddt", "dA") else dtype,
+                  name)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bwd_ref_matches_jax_vjp(case, dtype):
+    args = ssd_inputs(*case, dtype, seed=sum(case[:6]))
+    got = ref.ssd_chunk_bwd_ref(*args)
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32,
+                                      dtype, dtype]
+    assert got[3].shape == args[3].shape            # per head, the view's
+    ssd_check(got, ssd_jax_vjp(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bwd_ref_takes_y_in_f32(dtype):
+    """With y asked in f32 (as the model asks it) dy is an f32 cotangent;
+    holding bf16 values, it gives the bf16-y gradient."""
+    args = ssd_inputs(1, 2, 64, 2, 16, 16, True, 0.1, dtype, seed=7)
+    got = ref.ssd_chunk_bwd_ref(*args, out_dtype=torch.float32)
+    ssd_check(got, ssd_jax_vjp(*args), dtype)

@@ -1192,6 +1192,22 @@ def _grad_close(got, want):
                                **GRAD_TOL[want.dtype])
 
 
+def _ssd_grad_close(name, got, want):
+    """``ssd_chunk_bwd``'s outputs: dx, dB and dC within ``GRAD_TOL``;
+    ddt and dA (f32 for both input dtypes) within rtol = 1e-4 and 1e-4 of
+    their largest magnitude: an element near zero is a difference of
+    terms ~1000x larger (a reverse cumsum of cancelling terms), on which
+    the f32 plain version itself is more than 1e-4 of 1 + |g| off an f64
+    gradient at mamba2's widths
+    (``test_torch_ssd_bwd.py::test_f32_ddt_cancels_against_f64``)."""
+    if name not in ("ddt", "dA"):
+        return _grad_close(got, want)
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,D", [(4096, 960), (8, 960), (7, 80), (5, 100),
                                  (3, 8), (33, 4096), (1, 7)])
@@ -1263,6 +1279,69 @@ def test_cuda_flash_attention_bwd_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,Q,H,P,N,stride0", [
+    (8, 2, 256, 24, 64, 128, True),     # mamba2-130m's training step
+    (8, 2, 256, 64, 64, 64, True),      # zamba2-1.2b's
+    (8, 2, 256, 24, 64, 128, False),    # B/C one per head
+    (2, 1, 16, 8, 16, 16, True),        # the smoke configs
+    (1, 2, 100, 3, 128, 48, True),      # ragged tiles, N off the buckets
+    (2, 3, 64, 4, 32, 16, False),
+    (1, 1, 1024, 2, 64, 256, False),    # the longest chunk, the widest N
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_chunk_bwd_equals_plain(exact_f32, B, nc, Q, H, P, N,
+                                         stride0, dtype):
+    """dx, ddt, dA, dB and dC against ``ssd_chunk_bwd_ref`` (autograd of
+    the plain version, y asked in f32 as the model asks it) as
+    ``_ssd_grad_close`` holds them, from the cum of each route's forward (the tensor-core
+    route's and the CUDA-core one's are the plain version's bit for bit),
+    with nonzero cotangents on y, the state and cum; B and C a stride-0
+    head get their per-head gradient; a rerun is equal bit for bit (no
+    atomics)."""
+    from repro_torch.kernels.ssd_chunk import route, ssd_chunk, ssd_chunk_bwd
+    args = _ssd_inputs(exact_f32, B, nc, Q, H, P, N, dtype, stride0, 0.1,
+                       Q + N + 1)
+    dy = _randn(exact_f32, (B, nc, Q, H, P), torch.float32, 1)
+    dstate = _randn(exact_f32, (B, nc, H, N, P), torch.float32, 2)
+    dcum = _randn(exact_f32, (B, nc, Q, H), torch.float32, 3)
+    want = ref.ssd_chunk_bwd_ref(*args, dy, dstate, dcum, torch.float32)
+    for path in sorted({route(dtype, P, N), "simt"}):
+        cum = ssd_chunk(*args, out_dtype=torch.float32, path=path)[2]
+        before = ssd_chunk_bwd.launches
+        got = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
+        assert ssd_chunk_bwd.launches == before + 1
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+            assert torch.isfinite(g).all()
+            _ssd_grad_close(name, g, w)
+        again = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_chunk_bwd_checks_its_inputs(cuda_device):
+    """The backward takes the forward's inputs (the same checks) and
+    cotangents of the forward's output shapes, dy in f32 or x's dtype."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+    args = _ssd_inputs(cuda_device, 1, 1, 16, 2, 16, 16, torch.bfloat16,
+                       True, 0.1, 0)
+    y, st, cum = ssd_chunk(*args, out_dtype=torch.float32)
+    x, dt, A, Bc, Cc = args
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_chunk_bwd(x[..., :8], dt, A, Bc, Cc, cum, y[..., :8], st, cum)
+    with pytest.raises(ValueError, match="dstate"):
+        ssd_chunk_bwd(*args, cum, y, st[..., :8], cum)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_chunk_bwd(*args, cum, y, st, cum.bfloat16())
+    with pytest.raises(TypeError, match="dy"):
+        ssd_chunk_bwd(*args, cum, y.half(), st, cum)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_chunk_bwd(*args, cum, y, st.cpu(), cum)
+    dx, ddt, dA, dB, dC = ssd_chunk_bwd(*args, cum, y.bfloat16(), st, cum)
+    assert (dx.dtype, dB.shape, dB.is_contiguous()) == (
+        torch.bfloat16, Bc.shape, True)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D,window", [(64, 0), (128, 32)])
 def test_cuda_flash_forward_writes_stats_under_grad_only(cuda_device, D,
                                                          window):
@@ -1313,12 +1392,16 @@ def test_cuda_autograd_goes_through_the_backward_kernels(exact_f32, dtype):
     """``ops.rmsnorm`` and ``ops.flash_attention`` under grad take their
     ``autograd.Function``s (forward and backward kernels) and agree with
     autograd of the plain versions; without grad they launch the forward
-    kernel alone.  ``decode_attention`` and ``ssd_chunk`` under grad
-    raise on the card."""
+    kernel alone.  ``ssd_chunk`` likewise takes ``SSDChunkFn`` (its
+    forward kernel and ``ssd_chunk_bwd``), with B and C a stride-0 head
+    view: its per-head gradient against the plain version's, and expand's
+    backward sums it over the heads.
+    ``decode_attention`` under grad raises on the card."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
     dev = exact_f32
     x = _randn(dev, (2, 64, 96), dtype, 5).requires_grad_()
     w = (_randn(dev, (96,), torch.float32, 6) * 0.1).requires_grad_()
@@ -1346,12 +1429,34 @@ def test_cuda_autograd_goes_through_the_backward_kernels(exact_f32, dtype):
     assert flash_attention_bwd.launches == counts[3] + 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.decode_attention(q[:, :1], k, v, 8)
-    xs = _randn(dev, (1, 1, 64, 2, 64), dtype, 10).requires_grad_()
-    dt = torch.ones(1, 1, 64, 2, device=dev)
-    A = -torch.ones(2, device=dev)
-    bc = _randn(dev, (1, 1, 64, 2, 64), dtype, 11)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssd_chunk(xs, dt, A, bc, bc)
+    x, dt, A, Bc, Cc = _ssd_inputs(dev, 2, 2, 64, 2, 64, 64, dtype, True,
+                                   0.1, 10)
+    outs = []
+    counts = (ssd_chunk.launches, ssd_chunk_bwd.launches)
+    for fn in (ops.ssd_chunk, ref.ssd_chunk_ref):
+        ins = [t.detach().requires_grad_() for t in (x, dt, A)] + [
+            t[:, :, :, :1].detach().requires_grad_() for t in (Bc, Cc)]
+        bc = [t.expand(-1, -1, -1, 2, -1) for t in ins[3:]]
+        for t in bc:
+            t.retain_grad()
+        y, st, cum = fn(*ins[:3], *bc, torch.float32)
+        (y.square().sum() + st.square().sum()
+         + cum.exp().sum()).backward()
+        outs.append([t.grad for t in ins[:3] + bc])
+        # expand's backward sums the per-head gradients of the view
+        for view, group in zip(bc, ins[3:]):
+            assert torch.equal(group.grad, view.grad.sum(3, keepdim=True))
+    assert (ssd_chunk.launches, ssd_chunk_bwd.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    # per head, as the kernel returns them: in bf16 each side rounds each
+    # head's gradient once, so their sums over the heads may differ by
+    # those roundings where the heads cancel
+    for name, got, want in zip(("dx", "ddt", "dA", "dB", "dC"), *outs):
+        _ssd_grad_close(name, got, want)
+    with torch.no_grad():
+        ops.ssd_chunk(x.requires_grad_(), dt, A, Bc, Cc, torch.float32)
+    assert (ssd_chunk.launches, ssd_chunk_bwd.launches) == (
+        counts[0] + 2, counts[1] + 1)
 
 
 @pytest.mark.cuda
@@ -1359,13 +1464,17 @@ def test_cuda_train_step_equals_cpu(exact_f32):
     """The smoke smollm's loss and gradients on the card against the
     CPU: under the f32 policy within rtol = atol = 1e-4 per leaf, under
     the default bf16 policy within a relative L2 of 2e-2 per leaf; the
-    backward kernels launch.  mamba2's loss on the card raises (no
-    ``ssd_chunk`` backward yet)."""
+    backward kernels launch.  The smoke mamba2 under the bf16 policy:
+    ``ssd_chunk_bwd`` launches, and the loss and the whole gradient are
+    the CPU's within a relative L2 of 2e-2, as is every leaf of at least
+    64 values (the per-head vectors of 8 are sums of cancelling terms:
+    ``tests/test_torch_train.py`` holds them by the whole gradient)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
     from repro_torch.models import init_model
     from repro_torch.models.model import loss_fn, tree_map
     from repro_torch.optim.adamw import tree_leaves
@@ -1401,10 +1510,25 @@ def test_cuda_train_step_equals_cpu(exact_f32):
                 assert float((a - b).norm()) <= 2e-2 * float(b.norm()) + 1e-6
     cfg = configs.SMOKE["mamba2-130m"]
     params = init_model(cfg, torch.Generator(exact_f32).manual_seed(4))
-    p = tree_map(lambda t: t.detach().requires_grad_(), params)
-    with pytest.raises(NotImplementedError, match="ssd_chunk"):
-        loss_fn(cfg, p, {"tokens": torch.from_numpy(tok[:, :32]).to(
-            exact_f32)})
+    grads = []
+    for dev in (exact_f32, torch.device("cpu")):
+        p = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        leaves = list(tree_leaves(p))
+        before = ssd_chunk_bwd.launches
+        loss, _ = loss_fn(cfg, p, {"tokens": torch.from_numpy(
+            tok[:, :32]).to(dev)})
+        loss.backward()
+        if dev.type == "cuda":
+            assert ssd_chunk_bwd.launches > before
+        grads.append((float(loss), [t.grad.cpu() for t in leaves]))
+    (l_card, g_card), (l_cpu, g_cpu) = grads
+    assert abs(l_card - l_cpu) <= 2e-2 * abs(l_cpu)
+    whole = lambda gs: torch.cat([g.reshape(-1) for g in gs])
+    assert float((whole(g_card) - whole(g_cpu)).norm()) <= 2e-2 * float(
+        whole(g_cpu).norm())
+    for a, b in zip(g_card, g_cpu):
+        if b.numel() >= 64:
+            assert float((a - b).norm()) <= 2e-2 * float(b.norm()) + 1e-6
 
 
 @pytest.mark.cuda
@@ -1440,6 +1564,50 @@ def test_cuda_trainer_equals_cpu_trainer(cuda_device, tmp_path):
     assert rc["fabric_stats"] == rh["fabric_stats"]
     assert list(tc.fabric.grant_log) == list(th.fabric.grant_log)
     # the restart resumes at step 3: steps 3 and 4 ran twice on the card
+    assert rc["losses"][:2] == fc[3:5]
+    assert all(np.isfinite(rc["losses"]))
+    np.testing.assert_allclose(fc + rc["losses"], fh + rh["losses"],
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_cuda_ssm_trainer_equals_cpu_trainer(cuda_device, tmp_path, arch):
+    """The smoke SSM and hybrid ``Trainer`` on the card and on the CPU
+    from the same initial state, a failure at step 5 and a resume from
+    the step-3 checkpoint: ``ssd_chunk_bwd`` launches, the events, fabric
+    counters and grant log are the CPU's, the losses within 2e-2 of the
+    CPU's, and on the card the resumed steps repeat the first run's
+    losses bit for bit."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+    from repro_torch.models import init_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = configs.SMOKE[arch]
+    params0 = init_model(cfg, torch.Generator().manual_seed(0))
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        before = ssd_chunk_bwd.launches
+        tr = Trainer(cfg, tcfg=TrainerConfig(
+            total_steps=8, ckpt_period=3, ckpt_dir=str(tmp_path / dev.type)),
+            data=SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=32)),
+            device=dev)
+        state = adamw.init_state(adamw.tree_map(
+            lambda t: t.to(dev, copy=True), params0), cfg.policy.moment_dtype)
+        with pytest.raises(RuntimeError, match="simulated node failure"):
+            tr.run(state=state, fail_at=5)
+        first = [loss for _, loss in tr.history]
+        res = tr.resume()
+        if dev.type == "cuda":
+            assert ssd_chunk_bwd.launches > before
+        runs.append((tr, first, res))
+    (tc, fc, rc), (th, fh, rh) = runs
+    assert tc.events == th.events
+    assert rc["fabric_stats"] == rh["fabric_stats"]
+    assert list(tc.fabric.grant_log) == list(th.fabric.grant_log)
     assert rc["losses"][:2] == fc[3:5]
     assert all(np.isfinite(rc["losses"]))
     np.testing.assert_allclose(fc + rc["losses"], fh + rh["losses"],

@@ -258,6 +258,30 @@ def test_remat_changes_no_gradient():
     assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
 
 
+def test_remat_with_a_looped_tail_changes_no_gradient():
+    """zamba2 at 14 layers is a stacked segment (two repeats of five SSM
+    layers and the shared attention block) and a looped tail of two SSM
+    layers: each stacked layer's recomputation in the backward runs its
+    own segment's layers, not the tail's, so the gradients with and
+    without remat are equal bit for bit (at zamba2-1.2b's 38 layers the
+    recomputation once ran the tail's two layers and raised)."""
+    tc = dataclasses.replace(tcfgs.SMOKE["zamba2-1.2b"], n_layers=14)
+    plan = tmodel.build_plan(tc)
+    assert [(s.mode, len(s.pattern), s.repeats) for s in plan] == [
+        ("scan", 6, 2), ("loop", 2, 1)]
+    params = tmodel.init_model(tc, torch.Generator().manual_seed(5))
+    tok = {"tokens": torch.from_numpy(np.random.default_rng(6).integers(
+        2, tc.vocab, (2, 32)).astype(np.int32))}
+    outs = []
+    for remat in (True, False):
+        cfg = dataclasses.replace(tc, policy=dataclasses.replace(
+            tc.policy, remat=remat))
+        loss, _, grads = training.loss_and_grads(cfg, params, tok)
+        outs.append((loss, [g for _, g in _leaves(grads)]))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
+
+
 # ------------------------------------------------------------------- AdamW
 def _ref_state(rc, seed):
     params = _ref_params(rc, seed)
