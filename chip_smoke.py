@@ -136,7 +136,8 @@ Phases (any failure raises and the script exits non-zero):
      zamba2-1.2b (38 layers,
      d_model 2048) on a shorter one (6 steps, a checkpoint every 2, a
      failure at 5), B = 8 x S = 512: the same checks with ``ssd_chunk``
-     and ``ssd_chunk_bwd`` launched (zamba2: flash too); the fabric
+     and ``ssd_chunk_bwd`` launched (zamba2: flash too), every
+     ``ssd_chunk_bwd`` on the tensor-core route; the fabric
      against a CPU trainer of 2 layers (zamba2: all 38 layers at the smoke
      widths, its looped tail has a fabric key a layer); card vs CPU
      gradients at 2 layers (zamba2: 6, the first depth with the shared
@@ -149,9 +150,10 @@ Phases (any failure raises and the script exits non-zero):
      route, beside the library's backward and, at the bf16 training
      shape, the CUDA-core kernel of the first round; ``ssd_chunk_bwd`` at
      both SSM training shapes, B/C a stride-0 head or one per head, and
-     odd ones, its time beside the plain backward's); phases 4 and 5
-     assert that no prefill wrote the backward's row statistics and no
-     backward kernel ran;
+     odd ones, on every route that takes the shape, the routed kernel's
+     time beside the CUDA-core kernel's and the plain backward's); phases
+     4 and 5 assert that no prefill wrote the backward's row statistics
+     and no backward kernel ran;
   9. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
@@ -225,7 +227,8 @@ KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
            ("flash_attention_bwd",
             "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
             "src/repro/kernels/flash_attention.py:79"),
-           ("ssd_chunk_bwd", "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+           ("ssd_chunk_bwd",
+            "src/repro_torch/kernels/csrc/ssd_chunk_bwd_wgmma.cu",
             "src/repro/kernels/ssd_chunk.py:45"))
 # phase 4: the LLM serving path
 ARCH = "smollm-360m"
@@ -1061,12 +1064,15 @@ def check_ssd_bwd_kernel(torch, np, dev, report):
     within GRAD_TOL (ddt and dA: SSD_BWD_SCALED_TOL of their scale), at
     the mamba2-130m and zamba2-1.2b training shapes
     (B = 8, S = 512: nc = 2, Q = 256; B and C a stride-0 head), with B
-    and C one per head, and at odd shapes; bf16 and f32; from the cum of
-    the forward on the route ``route`` names; nonzero cotangents on y,
-    the state and cum; a rerun equal bit for bit.  Each row with the
-    kernel's time, the plain backward's (autograd of the plain forward,
-    on a graph built once) and the bound; no PyTorch call computes this
-    function."""
+    and C one per head, and at odd shapes; bf16 and f32; on every route
+    that takes the shape (the route ``route`` names, and the CUDA-core
+    kernel, ``path="simt"``), each from the cum of its own route's
+    forward; nonzero cotangents on y, the state and cum; a rerun equal
+    bit for bit.  Each row is the routed kernel's, with its time, the
+    CUDA-core kernel's time at the same shape (the first round's kernel
+    at a tensor-core shape), the plain backward's (autograd of the plain
+    forward, on a graph built once) and the bound; no PyTorch call
+    computes this function."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import route, ssd_chunk, ssd_chunk_bwd
 
@@ -1074,6 +1080,7 @@ def check_ssd_bwd_kernel(torch, np, dev, report):
               (TRAIN_B, 2, 256, 64, 64, 64, True),    # zamba2-1.2b
               (TRAIN_B, 2, 256, 24, 64, 128, False),  # B/C one per head
               (1, 2, 100, 3, 128, 48, True),          # ragged, odd N
+              (2, 2, 200, 4, 128, 128, False),        # ragged, P = N = 128
               (2, 3, 64, 4, 32, 16, False))
     for dtype in (torch.bfloat16, torch.float32):
         tol = GRAD_TOL[str(dtype).split(".")[-1]]
@@ -1088,37 +1095,45 @@ def check_ssd_bwd_kernel(torch, np, dev, report):
             dy, dstate, dcum = (T(B, nc, Q, H, P), T(B, nc, H, N, P),
                                 T(B, nc, Q, H))
             path = route(dtype, P, N)
-            cum = ssd_chunk(*args, out_dtype=torch.float32)[2]
-            got = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
             want = ref.ssd_chunk_bwd_ref(*args, dy, dstate, dcum,
                                          torch.float32)
-            torch.cuda.synchronize()
-            errs = {}
-            for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
-                                  want):
-                if g.dtype != w.dtype or g.shape != w.shape:
-                    raise AssertionError(f"ssd_chunk_bwd{shape}: {name} "
-                                         "dtype/shape differ")
-                if not torch.isfinite(g).all():
-                    raise AssertionError(f"ssd_chunk_bwd{shape}: "
-                                         f"non-finite {name}")
-                errs[name] = float((g.float() - w.float()).abs().max())
-                rt = at = tol
-                if name in SSD_BWD_SCALED:
-                    rt = SSD_BWD_SCALED_TOL
-                    at = rt * max(1.0, float(w.abs().max()))
-                if not torch.allclose(g.float(), w.float(), rtol=rt,
-                                      atol=at):
-                    rel = float(((g.float() - w.float()).abs()
-                                 / (1 + w.float().abs())).max())
-                    raise AssertionError(
-                        f"ssd_chunk_bwd{shape} {dtype}: {name} max |err| "
-                        f"{errs[name]} ({rel:.3g} of 1 + |want|) beyond "
-                        f"rtol={rt}, atol={at}")
-            again = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"ssd_chunk_bwd{shape}: differs from "
-                                     "run to run")
+            errs, cums = {}, {}
+            for p in sorted({path, "simt"}):
+                cums[p] = cum = ssd_chunk(*args, out_dtype=torch.float32,
+                                          path=p)[2]
+                before = ssd_chunk_bwd.route_launches[p]
+                got = ssd_chunk_bwd(*args, cum, dy, dstate, dcum, path=p)
+                torch.cuda.synchronize()
+                if ssd_chunk_bwd.route_launches[p] != before + 1:
+                    raise AssertionError(f"ssd_chunk_bwd{shape}: not on "
+                                         f"the {p} route")
+                for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                      want):
+                    if g.dtype != w.dtype or g.shape != w.shape:
+                        raise AssertionError(f"ssd_chunk_bwd{shape}: {name} "
+                                             "dtype/shape differ")
+                    if not torch.isfinite(g).all():
+                        raise AssertionError(f"ssd_chunk_bwd{shape} ({p}): "
+                                             f"non-finite {name}")
+                    e = float((g.float() - w.float()).abs().max())
+                    rt = at = tol
+                    if name in SSD_BWD_SCALED:
+                        rt = SSD_BWD_SCALED_TOL
+                        at = rt * max(1.0, float(w.abs().max()))
+                    if not torch.allclose(g.float(), w.float(), rtol=rt,
+                                          atol=at):
+                        rel = float(((g.float() - w.float()).abs()
+                                     / (1 + w.float().abs())).max())
+                        raise AssertionError(
+                            f"ssd_chunk_bwd{shape} {dtype} ({p}): {name} max "
+                            f"|err| {e} ({rel:.3g} of 1 + |want|) beyond "
+                            f"rtol={rt}, atol={at}")
+                    if p == path:
+                        errs[name] = e
+                again = ssd_chunk_bwd(*args, cum, dy, dstate, dcum, path=p)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"ssd_chunk_bwd{shape} ({p}): "
+                                         "differs from run to run")
             with torch.enable_grad():
                 ins = [t.detach().requires_grad_() for t in args]
                 outs = ref.ssd_chunk_ref(*ins, torch.float32)
@@ -1126,30 +1141,36 @@ def check_ssd_bwd_kernel(torch, np, dev, report):
             def plain():
                 return torch.autograd.grad(outs, ins, (dy, dstate, dcum),
                                            retain_graph=True)
+
+            def timed(p):
+                return device_ms(torch, lambda: ssd_chunk_bwd(
+                    *args, cums[p], dy, dstate, dcum, path=p))
             nbytes, flops = ssd_bwd_bound(B, nc, Q, H, P, N, el, stride0)
             rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
             bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
             row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
-                   "stride0": stride0, "forward_route": path,
+                   "stride0": stride0, "route": path,
                    "max_abs_err": max(errs.values()), "errs": errs,
-                   "tol": tol,
-                   "ms": device_ms(torch, lambda: ssd_chunk_bwd(
-                       *args, cum, dy, dstate, dcum)),
+                   "tol": tol, "ms": timed(path),
+                   "simt_ms": None if path == "simt" else timed("simt"),
                    "plain_ms": device_ms(torch, plain, n=3, trials=3),
                    "library_ms": None, "bound_ms": max(bt, ot),
                    "bound_by": "bytes" if bt >= ot else "operations",
                    "bytes": nbytes, "flops": flops}
+            if row["simt_ms"] is None:
+                row["simt_ms"] = row["ms"]
             del outs, ins
             report.setdefault("ssd_chunk_bwd", []).append(row)
             log(f"  ssd_chunk_bwd{shape} {row['dtype']}"
-                f"{' stride-0 B/C' if stride0 else ''} (forward {path}): "
-                f"max |err| {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
+                f"{' stride-0 B/C' if stride0 else ''} ({path}"
+                f"{' and simt' if path != 'simt' else ''}): max |err| "
+                f"{', '.join(f'{k} {v:.3g}' for k, v in errs.items())}"
                 f" (tol {tol}; ddt, dA {SSD_BWD_SCALED_TOL} of their "
                 "scale), same from run to run; kernel "
-                f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f}"
-                f" us, bound {row['bound_ms'] * 1e3:.3f} us "
-                f"({row['bound_by']}, {row['bound_ms'] / row['ms']:.3f} of "
-                "it); no library call")
+                f"{row['ms'] * 1e3:.2f} us, simt {row['simt_ms'] * 1e3:.2f} "
+                f"us, plain {row['plain_ms'] * 1e3:.2f} us, bound "
+                f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
+                f"{row['bound_ms'] / row['ms']:.3f} of it); no library call")
 
 
 # ------------------------------------------------------------- phase 3
@@ -1503,7 +1524,11 @@ KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                                           "flash_bwd_wgmma_dkdv",
                                           "flash_bwd_rows", "flash_bwd_dkdv",
                                           "flash_bwd_dq"),
-                  "ssd_chunk_bwd": ("ssd_bwd_key_kernel",
+                  "ssd_chunk_bwd": ("ssd_bwd_wgmma_query_kernel",
+                                    "ssd_bwd_wgmma_key_kernel",
+                                    "ssd_bwd_wgmma_chunk_kernel",
+                                    "ssd_bwd_wgmma_da_kernel",
+                                    "ssd_bwd_key_kernel",
                                     "ssd_bwd_query_kernel",
                                     "ssd_bwd_chunk_kernel",
                                     "ssd_bwd_da_kernel")}
@@ -2758,6 +2783,7 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
     from repro_torch.models import init_model
     from repro_torch.models.model import tree_map
     from repro_torch.models.training import loss_and_grads
@@ -2793,6 +2819,8 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
         fn.launches = 0
     bwd_routes = flash_attention_bwd.route_launches
     bwd_routes.update(dict.fromkeys(bwd_routes, 0))
+    ssd_routes = ssd_chunk_bwd.route_launches
+    ssd_routes.update(dict.fromkeys(ssd_routes, 0))
     flash_attention.stats_writes = 0
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
@@ -2851,6 +2879,14 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
             raise AssertionError(f"flash_attention_bwd routes {bwd_routes}, "
                                  f"{flash_attention.stats_writes} forwards "
                                  "with statistics")
+    if scans:
+        # bf16 at P = 64, N = 128 or 64: every backward on the tensor-core
+        # route
+        log(f"  ssd_chunk_bwd routes {ssd_routes}")
+        if ssd_routes["wgmma"] != launches["ssd_chunk_bwd"]:
+            raise AssertionError(f"ssd_chunk_bwd routes {ssd_routes} of "
+                                 f"{launches['ssd_chunk_bwd']} launches")
+        rep["ssd_chunk_bwd_routes"] = dict(ssd_routes)
     rep.update(losses=losses, launches=launches, events=tr.events,
                fabric_stats=res["fabric_stats"])
 

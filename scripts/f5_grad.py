@@ -7,6 +7,7 @@ blocks' per-head vectors (ROADMAP Queue 3, F5).
     python3 scripts/f5_grad.py --device cpu --split
     python3 scripts/f5_grad.py --device cpu --f32-heads
     python3 scripts/f5_grad.py [--device cpu] --full-width [--reference]
+    python3 scripts/f5_grad.py --layers [--seed 6]
 
 The smoke zamba2 (seven SSM layers and the shared attention block,
 d_model 64, 8 heads of 16), weights from the port's init at seeds 1-6,
@@ -34,7 +35,13 @@ f32 (their per-head gradients summed in f32 and rounded once, the
 reference's rounding point) beside the port as it is.  ``--full-width``
 measures the whole gradient instead, at zamba2-1.2b's full width and 6
 layers on one 512-token row (``chip_smoke.py`` phase 8's check), with
-``--reference`` the reference's beside it.
+``--reference`` the reference's beside it.  ``--layers`` splits one
+seed's ``A_log`` error by SSM layer (ROADMAP Queue 3, F6): each layer's
+bf16-vs-f32 relative L2 on ``--device`` (the card) and on the CPU port in
+the same process, their ratio, and, walking the layers in the order the
+backward reaches them (the last first), the first whose error on the
+card is more than 1.25x the CPU's, and the routes ``ssd_chunk_bwd`` took
+on the card (the smoke config's P = 16 takes the CUDA-core kernel).
 """
 import argparse
 import dataclasses
@@ -102,8 +109,8 @@ def inputs(seed):
     return params, tok
 
 
-def port_grads(device, seed) -> dict:
-    """{policy: {kind: gradient}} of the port on ``device``."""
+def port_named(device, seed) -> dict:
+    """{policy: [(path, gradient)]} of the port on ``device``."""
     import torch
 
     from repro_torch.models import convert
@@ -114,8 +121,40 @@ def port_grads(device, seed) -> dict:
         p = convert.params_from_numpy(cfg, params, device=device)
         _, _, g = loss_and_grads(cfg, p, {"tokens": torch.from_numpy(tok).to(
             device)})
-        out[name] = kinds([(k, v.float().cpu().numpy()) for k, v in named(g)])
+        out[name] = [(k, v.float().cpu().numpy()) for k, v in named(g)]
     return out
+
+
+def port_grads(device, seed) -> dict:
+    """{policy: {kind: gradient}} of the port on ``device``."""
+    return {k: kinds(v) for k, v in port_named(device, seed).items()}
+
+
+def per_layer(device, seed) -> dict:
+    """Each SSM layer's ``A_log`` bf16-vs-f32 error on ``device`` and on
+    the CPU port, in layer order, and the first layer (backward order)
+    where ``device``'s is more than 1.25x the CPU's."""
+    errs, whole = {}, {}
+    for dev in (device, "cpu"):
+        g = port_named(dev, seed)
+        k = kinds(g["bf16"]), kinds(g["f32"])
+        whole[str(dev)] = rel(k[0]["A_log"], k[1]["A_log"])
+        g = {k: dict(v) for k, v in g.items()}
+        errs[str(dev)] = {p: rel(g["bf16"][p], g["f32"][p])
+                          for p in g["f32"] if p.endswith("/A_log")}
+    card, cpu = errs[str(device)], errs["cpu"]
+    rows = []
+    for p in card:
+        rows.append((p, card[p], cpu[p], card[p] / cpu[p]))
+        print(f"  {p[:-len('/A_log')]}: {device} {card[p]:.4f}, cpu "
+              f"{cpu[p]:.4f} ({card[p] / cpu[p]:.2f}x)", flush=True)
+    first = next((r[0] for r in reversed(rows) if r[3] > 1.25), None)
+    print(f"seed {seed}: every layer's A_log together: {device} "
+          f"{whole[str(device)]:.4f}, cpu {whole['cpu']:.4f} "
+          f"({whole[str(device)] / whole['cpu']:.2f}x); the first layer in "
+          f"backward order whose {device} error is more than 1.25x the "
+          f"CPU's: {first}", flush=True)
+    return {"layers": rows, "whole": whole, "first_outgrown": first}
 
 
 def reference_grads(seed) -> dict:
@@ -357,6 +396,8 @@ def main() -> None:
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--f32-heads", action="store_true")
     ap.add_argument("--full-width", action="store_true")
+    ap.add_argument("--layers", action="store_true")
+    ap.add_argument("--seed", type=int, default=6)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     import torch
@@ -375,6 +416,16 @@ def main() -> None:
               f"{SPLIT_SEED}: relative L2 of each bf16 cotangent and "
               "gradient from the port's f32 one, chained from the output")
         split()
+        return
+    if args.layers:
+        from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+        print(f"{ARCH}'s smoke config, seed {args.seed}: each SSM layer's "
+              "A_log, bf16 vs f32 policy, relative L2")
+        res = per_layer(dev, args.seed)
+        res["routes"] = dict(ssd_chunk_bwd.route_launches)
+        print(f"  ssd_chunk_bwd routes on {dev}: {res['routes']}")
+        if args.out:
+            pathlib.Path(args.out).write_text(json.dumps(res, indent=1))
         return
     if args.full_width:
         res = full_width(dev, args.reference)

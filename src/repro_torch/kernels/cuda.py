@@ -28,7 +28,7 @@ SOURCES = ("lease_probe", "tier_pass", "rmsnorm", "rmsnorm_bwd",
            "flash_attention", "flash_attention_wgmma",
            "flash_attention_bwd", "flash_attention_bwd_wgmma",
            "decode_attention", "ssd_chunk", "ssd_chunk_wgmma",
-           "ssd_chunk_bwd")
+           "ssd_chunk_bwd", "ssd_chunk_bwd_wgmma")
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")

@@ -24,11 +24,15 @@ with ``out_dtype=torch.float32``, in f32.  The plain version is
 only and raises on anything else; ``kernels.ops.ssd_chunk`` is the
 dispatcher that sends CPU tensors to the plain version.
 
-The gradient: ``ssd_chunk_bwd`` (``csrc/ssd_chunk_bwd.cu``, f32 on the
-CUDA cores for both dtypes, four launches with fixed-order sums) takes
-the cotangents of y, the state and cum and returns those of x, dt, A, B
-and C; ``SSDChunkFn`` pairs it with the forward under autograd.  Its
-plain version is ``kernels.ref.ssd_chunk_bwd_ref``.
+The gradient: ``ssd_chunk_bwd`` takes the cotangents of y, the state and
+cum and returns those of x, dt, A, B and C, on the forward's route:
+``"wgmma"`` (``csrc/ssd_chunk_bwd_wgmma.cu``: a query and a key pass on
+TMA and ``wgmma``, the f32 operands dy, dstate and the weights split into
+bf16 halves; x, B and C under the forward's TMA rules) or ``"simt"``
+(``csrc/ssd_chunk_bwd.cu``, f32 on the CUDA cores); each ends in the same
+chunk and dA passes, four launches with fixed-order sums.
+``SSDChunkFn`` pairs it with the forward under autograd.  Its plain
+version is ``kernels.ref.ssd_chunk_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -51,6 +55,9 @@ _ARGS_BWD = ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] \
 _ARGS_WGMMA = ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] \
     + ([cuda.P] + [cuda.LD] * 4 + [cuda.I]) * 2 + [cuda.P] * 3 \
     + [cuda.I] * 7 + [cuda.P]
+_ARGS_BWD_WGMMA = ([cuda.P] + [cuda.LD] * 4) * 2 + [cuda.P] \
+    + ([cuda.P] + [cuda.LD] * 4 + [cuda.I]) * 2 + [cuda.P] * 11 \
+    + [cuda.I] * 6 + [cuda.P]
 
 
 def route(dtype, P: int, N: int) -> str:
@@ -66,6 +73,18 @@ def route(dtype, P: int, N: int) -> str:
     if dtype == torch.bfloat16 and P in WGMMA_DIMS and N in WGMMA_DIMS:
         return "wgmma"
     return "simt"
+
+
+def pick(name: str, dtype, P: int, N: int, path=None) -> str:
+    """The kernel a call of ``name`` takes: ``route(dtype, P, N)``, or
+    ``path="simt"`` (the CUDA-core kernels take every shape); raises
+    ``ValueError`` on a route that does not take the call."""
+    routed = route(dtype, P, N)
+    path = routed if path is None else path
+    if path not in (routed, "simt"):
+        raise ValueError(f"{name}: the {path!r} kernel does not take "
+                         f"{dtype} at P={P}, N={N}")
+    return path
 
 
 def tma_view(name: str, t, broadcast: bool = True):
@@ -144,11 +163,7 @@ def ssd_chunk(x, dt, A, Bc, Cc, *, out_dtype=None, path=None):
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"ssd_chunk: y in {out_dtype}; the kernels give "
                         f"x's dtype ({x.dtype}) or float32")
-    routed = route(x.dtype, P, N)
-    path = routed if path is None else path
-    if path not in (routed, "simt"):
-        raise ValueError(f"ssd_chunk: the {path!r} kernel does not take "
-                         f"{x.dtype} at P={P}, N={N}")
+    path = pick("ssd_chunk", x.dtype, P, N, path)
     views = [tma_view("x", x, False), tma_view("Bc", Bc),
              tma_view("Cc", Cc)] if path == "wgmma" else None
     f32 = dict(dtype=torch.float32, device=dev)
@@ -180,7 +195,7 @@ ssd_chunk.launches = 0
 ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)
 
 
-def ssd_chunk_bwd(x, dt, A, Bc, Cc, cum, dy, dstate, dcum):
+def ssd_chunk_bwd(x, dt, A, Bc, Cc, cum, dy, dstate, dcum, *, path=None):
     """The gradient of ``ssd_chunk``: x, dt, A, Bc, Cc as the forward took
     them (a head stride of 0 is fine), its cum [B, nc, Q, H] f32, and the
     cotangents dy [B, nc, Q, H, P] (f32 or x's dtype), dstate [B, nc, H,
@@ -188,8 +203,10 @@ def ssd_chunk_bwd(x, dt, A, Bc, Cc, cum, dy, dstate, dcum):
     dCc) as ``ref.ssd_chunk_bwd_ref``: dx, dBc and dCc in x's dtype, of
     the inputs' shapes and contiguous (per head: a caller that broadcast
     B or C to the heads sums them, as expand's backward does), ddt and dA
-    in f32.  f32 arithmetic on the CUDA cores for both dtypes; launches
-    on the current stream and does not synchronise."""
+    in f32.  Takes the forward's route, ``route(x.dtype, P, N)``, or
+    ``path="simt"``, the CUDA-core kernel at any shape it takes (to hold
+    the two routes against each other on the card); launches on the
+    current stream and does not synchronise."""
     code = _check_inputs("ssd_chunk_bwd", x, dt, A, Bc, Cc)
     dev = x.device
     Bsz, nc, Q, H, P = x.shape
@@ -207,8 +224,17 @@ def ssd_chunk_bwd(x, dt, A, Bc, Cc, cum, dy, dstate, dcum):
     if dy.dtype not in (torch.float32, x.dtype):
         raise TypeError(f"ssd_chunk_bwd: dy in {dy.dtype}; y comes in "
                         f"x's dtype ({x.dtype}) or float32")
+    path = pick("ssd_chunk_bwd", x.dtype, P, N, path)
+    views = [tma_view("x", x, False), tma_view("Bc", Bc),
+             tma_view("Cc", Cc)] if path == "wgmma" else None
     dy, dstate, dcum, cum = (t.float().contiguous()
                              for t in (dy, dstate, dcum, cum))
+    if views:
+        # the tensor-core kernels read rows of dy and dstate 16 bytes at a
+        # time
+        for name, t in (("dy", dy), ("dstate", dstate)):
+            cuda.check_rows_16b(f"ssd_chunk_bwd (tensor-core route): {name}",
+                                t)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty((Bsz, nc, Q, H, P), dtype=x.dtype, device=dev)
     dBc, dCc = (torch.empty((Bsz, nc, Q, H, N), dtype=x.dtype, device=dev)
@@ -217,25 +243,48 @@ def ssd_chunk_bwd(x, dt, A, Bc, Cc, cum, dy, dstate, dcum):
     dA = torch.zeros((H,), **f32)
     if Bsz * nc * H:
         scratch = torch.empty(3 * Bsz * nc * Q * H + Bsz * nc * H, **f32)
-        args = [x.data_ptr(), *x.stride()[:4], dt.data_ptr(),
-                *dt.stride()[:4], A.data_ptr(), Bc.data_ptr(),
-                *Bc.stride()[:4], Cc.data_ptr(), *Cc.stride()[:4]]
-        args += [t.data_ptr() for t in (dy, dstate, dcum, cum, dx, dBc, dCc,
-                                        ddt, dA, scratch)]
-        args += [Bsz, nc, Q, H, P, N, code]
-        fn = cuda.function("ssd_chunk_bwd", "halcone_ssd_chunk_bwd",
-                           _ARGS_BWD)
+        if views:
+            dyhl = dy_halves(dy)
+            args = [x.data_ptr(), *views[0][0], dt.data_ptr(),
+                    *dt.stride()[:4], A.data_ptr()]
+            for i, t in ((1, Bc), (2, Cc)):
+                args += [t.data_ptr(), *views[i][0], views[i][1]]
+            args += [t.data_ptr() for t in (dy, dstate, dcum, cum, dyhl, dx,
+                                            dBc, dCc, ddt, dA, scratch)]
+            args += [Bsz, nc, Q, H, P, N]
+            fn = cuda.function("ssd_chunk_bwd_wgmma",
+                               "halcone_ssd_chunk_bwd_wgmma", _ARGS_BWD_WGMMA)
+        else:
+            args = [x.data_ptr(), *x.stride()[:4], dt.data_ptr(),
+                    *dt.stride()[:4], A.data_ptr(), Bc.data_ptr(),
+                    *Bc.stride()[:4], Cc.data_ptr(), *Cc.stride()[:4]]
+            args += [t.data_ptr() for t in (dy, dstate, dcum, cum, dx, dBc,
+                                            dCc, ddt, dA, scratch)]
+            args += [Bsz, nc, Q, H, P, N, code]
+            fn = cuda.function("ssd_chunk_bwd", "halcone_ssd_chunk_bwd",
+                               _ARGS_BWD)
         cuda.launch(fn, args, dev)
         ssd_chunk_bwd.launches += 1
+        ssd_chunk_bwd.route_launches[path] += 1
     return dx, ddt, dA, dBc, dCc
 
 
+def dy_halves(dy):
+    """The scratch of the tensor-core backward's dy: its bf16 hi and lo
+    halves, [2, B, nc, Q, H, P], written by the query pass and read by the
+    key pass through TMA maps that take them as contiguous tensors (H
+    heads)."""
+    return torch.empty((2,) + tuple(dy.shape), dtype=torch.bfloat16,
+                       device=dy.device)
+
+
 ssd_chunk_bwd.launches = 0
+ssd_chunk_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class SSDChunkFn(torch.autograd.Function):
-    """``ssd_chunk`` with ``ssd_chunk_bwd`` as its gradient, both kernels:
-    the forward on the route ``route`` picks, saving its inputs (B and C
+    """``ssd_chunk`` with ``ssd_chunk_bwd`` as its gradient, both kernels
+    on the route ``route`` picks: the forward saves its inputs (B and C
     as the views it was given) and its cum; a recomputed forward
     (``torch.utils.checkpoint``) saves its own.  Inputs that need no
     gradient get None."""

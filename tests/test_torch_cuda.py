@@ -1287,17 +1287,21 @@ def test_cuda_flash_attention_bwd_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
     (1, 2, 100, 3, 128, 48, True),      # ragged tiles, N off the buckets
     (2, 3, 64, 4, 32, 16, False),
     (1, 1, 1024, 2, 64, 256, False),    # the longest chunk, the widest N
+    # the tensor-core route in bf16: ragged tiles, P = 128, N = 128
+    (2, 2, 200, 4, 64, 64, True),
+    (1, 1, 100, 2, 128, 128, False),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ssd_chunk_bwd_equals_plain(exact_f32, B, nc, Q, H, P, N,
                                          stride0, dtype):
     """dx, ddt, dA, dB and dC against ``ssd_chunk_bwd_ref`` (autograd of
     the plain version, y asked in f32 as the model asks it) as
-    ``_ssd_grad_close`` holds them, from the cum of each route's forward (the tensor-core
-    route's and the CUDA-core one's are the plain version's bit for bit),
-    with nonzero cotangents on y, the state and cum; B and C a stride-0
-    head get their per-head gradient; a rerun is equal bit for bit (no
-    atomics)."""
+    ``_ssd_grad_close`` holds them, on every route that takes the shape
+    (the backward's ``path``), each from the cum of the same route's
+    forward (the tensor-core route's and the CUDA-core one's are the
+    plain version's bit for bit), with nonzero cotangents on y, the state
+    and cum; B and C a stride-0 head get their per-head gradient; a rerun
+    is equal bit for bit (no atomics)."""
     from repro_torch.kernels.ssd_chunk import route, ssd_chunk, ssd_chunk_bwd
     args = _ssd_inputs(exact_f32, B, nc, Q, H, P, N, dtype, stride0, 0.1,
                        Q + N + 1)
@@ -1308,13 +1312,105 @@ def test_cuda_ssd_chunk_bwd_equals_plain(exact_f32, B, nc, Q, H, P, N,
     for path in sorted({route(dtype, P, N), "simt"}):
         cum = ssd_chunk(*args, out_dtype=torch.float32, path=path)[2]
         before = ssd_chunk_bwd.launches
-        got = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
+        routed = ssd_chunk_bwd.route_launches[path]
+        got = ssd_chunk_bwd(*args, cum, dy, dstate, dcum, path=path)
         assert ssd_chunk_bwd.launches == before + 1
+        assert ssd_chunk_bwd.route_launches[path] == routed + 1
         for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
             assert torch.isfinite(g).all()
             _ssd_grad_close(name, g, w)
-        again = ssd_chunk_bwd(*args, cum, dy, dstate, dcum)
+        again = ssd_chunk_bwd(*args, cum, dy, dstate, dcum, path=path)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,Q,H,P,N", [
+    (2, 2, 256, 4, 64, 128), (1, 2, 256, 8, 64, 64), (1, 1, 200, 4, 128, 64),
+    (2, 1, 100, 2, 128, 128), (1, 1, 16, 2, 64, 64)])
+def test_cuda_ssd_bwd_wgmma_keeps_split(cuda_device, B, nc, Q, H, P, N):
+    """The tensor-core backward against the CPU emulation of its
+    arithmetic (``ssd_bwd_wgmma_emulation.py``) on the same bf16 inputs
+    and full-f32 cotangents.  With dy, dstate and the weights split into
+    bf16 hi and lo halves the kernel's bf16 dx, dB and dC are the split
+    emulation's rounded outputs on nearly all elements (at most 1% differ:
+    expf and the tensor cores' order of summation may move a value across
+    a rounding boundary); one bf16 rounding of those operands changes
+    44-51% of them (measured on the CPU), so at least 30% must differ
+    from that emulation, and each output's mean error against an f64
+    gradient must be at least 1.5x below the single rounding's (1.78-1.99x
+    on the CPU) and within 2% of the split's.  ddt and dA: within 2e-5 of
+    their scale of the f64 gradient (the split emulation: 0.8-3.5e-6) and
+    at least 10x nearer to it than the single rounding (2.6e-4 to 3.8e-3
+    of their scale)."""
+    from ssd_bwd_wgmma_emulation import emulate_bwd, exact_bwd
+
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+    cpu = torch.device("cpu")
+    args = _ssd_inputs(cpu, B, nc, Q, H, P, N, torch.bfloat16, True, 0.1,
+                       Q + P + N)
+    cot = (_randn(cpu, (B, nc, Q, H, P), torch.float32, 1),
+           _randn(cpu, (B, nc, H, N, P), torch.float32, 2),
+           _randn(cpu, (B, nc, Q, H), torch.float32, 3))
+    dev = [t.to(cuda_device) for t in args + cot]
+    cum = ssd_chunk(*dev[:5], out_dtype=torch.float32)[2]
+    before = ssd_chunk_bwd.route_launches["wgmma"]
+    got = [g.cpu() for g in ssd_chunk_bwd(*dev[:5], cum, *dev[5:])]
+    assert ssd_chunk_bwd.route_launches["wgmma"] == before + 1
+    cum = cum.cpu()
+    split = emulate_bwd(*args, cum, *cot)
+    one = emulate_bwd(*args, cum, *cot, split=False)
+    exact = exact_bwd(*args, *cot)
+
+    def err(t, e):
+        return float((t.double() - e).abs().mean())
+    for name, g, s, o, e in zip(("dx", "ddt", "dA", "dB", "dC"), got, split,
+                                one, exact):
+        if name in ("ddt", "dA"):
+            scale = float(e.abs().max())
+            worst = lambda t: float((t.double() - e).abs().max())
+            found = (name, worst(g) / scale, worst(s) / scale,
+                     worst(o) / scale)
+            assert worst(g) <= 2e-5 * scale, found
+            assert worst(g) * 10 <= worst(o), found
+            continue
+        s16, o16 = s.to(torch.bfloat16), o.to(torch.bfloat16)
+        miss_split = float((g != s16).float().mean())
+        miss_one = float((g != o16).float().mean())
+        found = (name, miss_split, miss_one, err(g, e), err(s16, e),
+                 err(o16, e))
+        assert miss_split <= 0.01 and miss_one >= 0.3, found
+        assert err(g, e) * 1.5 <= err(o16, e), found
+        assert err(g, e) <= err(s16, e) * 1.02, found
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_cuda_ssm_training_takes_the_tensor_core_backward(exact_f32, arch):
+    """Phase 8's models at full width (depth cut to two SSM layers, one
+    row of 256 tokens, the default bf16 policy): every ``ssd_chunk_bwd``
+    of a training step's backward takes the tensor-core route, one a
+    layer, and the gradient is finite."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+    from repro_torch.models import init_model
+    from repro_torch.models.model import loss_fn, tree_map
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = dataclasses.replace(configs.get(arch), n_layers=2)
+    params = init_model(cfg, torch.Generator(exact_f32).manual_seed(5))
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    tok = np.random.default_rng(6).integers(2, cfg.vocab, (1, 256)).astype(
+        np.int32)
+    before = dict(ssd_chunk_bwd.route_launches)
+    loss, _ = loss_fn(cfg, p, {"tokens": torch.from_numpy(tok).to(
+        exact_f32)})
+    loss.backward()
+    routes = {k: ssd_chunk_bwd.route_launches[k] - before[k]
+              for k in before}
+    assert routes == {"wgmma": 2, "simt": 0}, routes
+    assert all(torch.isfinite(t.grad).all() for t in tree_leaves(p))
 
 
 @pytest.mark.cuda
