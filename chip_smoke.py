@@ -26,8 +26,9 @@ Phases (any failure raises and the script exits non-zero):
      at 256 rows, ``write_grant`` at 16 rows of 20000 ways, walked in
      tiles).  The float kernels (rmsnorm at
      decode and prefill rows of every width the models normalise, flash
-     attention, decode attention) at the LLM serving path's shapes and at
-     odd ones, in bf16 and in f32, within stated tolerances, with the
+     attention, decode attention) at the LLM serving path's shapes
+     (phase 9's among them: head dims 80, 128 with 7 query heads a kv
+     head, and 256) and at odd ones, in bf16 and in f32, within stated tolerances, with the
      time of one PyTorch library call of the same function beside them
      (timed only: the port never calls it).  ``ssd_chunk`` at the
      mamba2-130m and zamba2-1.2b prefill shapes (B and C a stride-0
@@ -123,19 +124,20 @@ Phases (any failure raises and the script exits non-zero):
      bit, the losses are finite and fall, ``rmsnorm``,
      ``flash_attention``, their backward kernels and ``lease_probe`` (the
      publish's op scan) launched, every flash backward on the
-     tensor-core route from a forward's row statistics, and the events,
-     fabric counters and grant log equal a 2-layer CPU trainer's (run in
-     a worker process beside the card's); the
+     tensor-core route from a forward's row statistics, and the events
+     (but the wall-clock straggler events, each held to the watchdog's
+     rule instead), fabric counters and grant log equal a 2-layer CPU
+     trainer's (run in a worker process beside the card's); the
      card's loss and gradients at 2 layers equal the CPU's within a
      relative L2 of 2e-2; ``VmappedWorkers`` at
      4 layers (W = 1 equal workers, W = 4 at least 3x fewer collective
      bytes); a step's wall, host enqueue and device time, tokens/s, idle
      share, the backward kernels' share, the model-flops share and a
      checkpoint save's time.  Then mamba2-130m at full width (24 layers,
-     d_model 768; 12 steps, a checkpoint every 4, a failure at 10) and
+     d_model 768; 8 steps, a checkpoint every 3, a failure at 7) and
      zamba2-1.2b (38 layers,
-     d_model 2048) on a shorter one (6 steps, a checkpoint every 2, a
-     failure at 5), B = 8 x S = 512: the same checks with ``ssd_chunk``
+     d_model 2048) on a shorter one (6 steps, a checkpoint every 4, a
+     failure at 5; its checkpoint is 12.2 GB), B = 8 x S = 512: the same checks with ``ssd_chunk``
      and ``ssd_chunk_bwd`` launched (zamba2: flash too), every
      ``ssd_chunk_bwd`` on the tensor-core route; the fabric
      against a CPU trainer of 2 layers (zamba2: all 38 layers at the smoke
@@ -154,7 +156,29 @@ Phases (any failure raises and the script exits non-zero):
      time beside the CUDA-core kernel's and the plain backward's); phases
      4 and 5 assert that no prefill wrote the backward's row statistics
      and no backward kernel ran;
-  9. the kernel summary line, then ``{"ok": true, "device": ...}`` last.
+  9. windowed attention and the modality frontends at full width:
+     ``Server`` with gemma3-4b (34 layers, d_model 2560, 8 over 4 heads
+     of 256, vocab 262144, window 1024 on five layers of six; seeded
+     weights on the card), batch 4, 1536-token prompts (past the window),
+     32 new tokens, two waves (a miss, then a lease hit), with phase 4's
+     checks (every flash on the tensor-core route at D = 256, decode at
+     D = 256 one kernel a call, payload unchanged, ``serve_stream`` ==
+     ``serve``, counters and grant log == a 1-layer CPU server) and the
+     card == CPU at 6 layers (the first global layer) on one prompt,
+     within a relative L2 of 2e-2 for the final hidden state, the
+     first-token logits and 8 decode steps' hidden states; its times and
+     flash's and decode's device time.  Then hubert-xlarge (48 layers, 16
+     heads of 80, non-causal): ``prefill`` of 8 x 512 frames, every flash
+     on the CUDA-core route at D = 80, card == CPU at 4 layers (batch 2);
+     and llava-next-34b at 4 of its 60 layers (34 B parameters do not
+     fit one card), full width: ``prefill`` of 576 patch embeddings and
+     64 tokens at batch 2 on the tensor-core route, 15 decode steps (7
+     query heads a kv head), card == CPU at 2 layers (batch 1); each
+     model's launch counts set to 0 just before its run and read just
+     after;
+ 10. the kernel summary line (with rows for the head dims phase 9 adds),
+     then ``{"ok": true, "device": ...}`` last.  Each phase's start time
+     is printed as ``[N s]``.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
@@ -199,7 +223,7 @@ FABRIC_WORLDS = (("nccl", 1), ("gloo", 2))
 FABRIC_RANK_TIMEOUT_S = 300
 # the profiled closed-loop replay of phase 7 takes the trace's first
 # requests: the profiler's own cost grows with the events it records
-FABRIC_PROFILE_REQUESTS = 512
+FABRIC_PROFILE_REQUESTS = 256
 # tensor-core peak in bf16 (data sheet, dense); f32 math runs on the
 # CUDA cores at the 67 TFLOP/s above
 BF16_FLOPS_PER_S = 989e12
@@ -269,7 +293,7 @@ TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 # of the card-vs-CPU gradient check); zamba2 on a shorter schedule (its
 # checkpoint is 12.2 GB), checked at 6 layers, the first depth that
 # reaches the shared attention block
-SSM_TRAIN = (("mamba2-130m", 12, 4, 10, 2), ("zamba2-1.2b", 6, 2, 5, 6))
+SSM_TRAIN = (("mamba2-130m", 8, 3, 7, 2), ("zamba2-1.2b", 6, 4, 5, 6))
 # card vs CPU gradients: the loss, the whole gradient and each leaf of at
 # least this many values within MODEL_REL_L2; the per-head vectors of the
 # SSM blocks (A_log, D_skip, dt_bias) are sums of cancelling terms whose
@@ -296,6 +320,35 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # is held to rtol = 1e-4 and 1e-4 of its output's largest magnitude
 SSD_BWD_SCALED = ("ddt", "dA")
 SSD_BWD_SCALED_TOL = 1e-4
+# phase 9: windowed attention and the modality frontends at full width.
+# gemma3-4b (34 layers, all of them): batch 4, prompts of 1536 tokens,
+# past the 1024-token window, so the local layers' prefill mask is live
+# and decode's kv_len passes 1024; two waves (a miss, then a lease hit) of
+# 32 new tokens; card vs CPU at 6 layers (the first depth with a global
+# layer, index 5) on one prompt, and 8 decode steps' hidden states
+WINDOW_ARCH = "gemma3-4b"
+WINDOW_B, WINDOW_PROMPT, WINDOW_NEW, WINDOW_WAVES = 4, 1536, 32, 2
+WINDOW_MAX_LEN = WINDOW_PROMPT + WINDOW_NEW + 8
+WINDOW_MODEL_LAYERS, WINDOW_DECODE_CHECK = 6, 8
+# hubert-xlarge (48 layers, all of them): the encoder on 8 x 512 frames;
+# card vs CPU at 4 layers, batch 2 (the CPU side cut)
+AUDIO_ARCH = "hubert-xlarge"
+AUDIO_B, AUDIO_FRAMES, AUDIO_MODEL_LAYERS, AUDIO_CPU_B = 8, 512, 4, 2
+# llava-next-34b: 60 layers are 34 B parameters (137 GB in f32), past one
+# card: depth cut to 4, full width; 576 patch embeddings + 64 text tokens
+# at batch 2, then 16 decode steps; card vs CPU at 2 layers, batch 1
+VISION_ARCH = "llava-next-34b"
+VISION_LAYERS, VISION_B, VISION_TEXT, VISION_NEW = 4, 2, 64, 16
+VISION_MODEL_LAYERS, VISION_CPU_B = 2, 1
+# phase 2's rows at phase 9's shapes: (B, S, Hq, Hkv, D, causal, window)
+# and (B, Sk, Hq, Hkv, D, kv_len)
+PHASE9_FLASH = ((WINDOW_B, WINDOW_PROMPT, 8, 4, 256, True, 1024),
+                (WINDOW_B, WINDOW_PROMPT, 8, 4, 256, True, 0),
+                (AUDIO_B, AUDIO_FRAMES, 16, 16, 80, False, 0),
+                (VISION_B, 576 + VISION_TEXT, 56, 8, 128, True, 0))
+PHASE9_DECODE = ((WINDOW_B, WINDOW_MAX_LEN, 8, 4, 256, WINDOW_PROMPT + 32),
+                 (VISION_B, 576 + VISION_TEXT + VISION_NEW + 8, 56, 8, 128,
+                  576 + VISION_TEXT + 1))
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -317,15 +370,26 @@ RMSNORM_SHAPES = tuple((R, D) for R in (SERVE_B, SERVE_B * PROMPT_LEN)
 def device_ms(torch, fn, n=20, trials=5) -> float:
     """Median CUDA-event time of one call of ``fn``: a sleep kernel holds
     the stream while the host enqueues ``n`` calls, so the events time
-    the calls back to back on the device, not the host's launch rate."""
+    the calls back to back on the device, not the host's launch rate.
+    The sleep lasts twice the host's measured time to enqueue ``n``
+    calls, at least 10^7 cycles (a fixed 2 x 10^8 cycles held the card
+    ~0.1 s a trial, whatever the call)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # cycles at 2 GHz, above the H100's boost clock, so at any clock the
+    # sleep outlasts twice the enqueue
+    cycles = int(max(1e7, 2 * enqueue_s * 2e9))
     out = []
     for _ in range(trials):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)
+        torch.cuda._sleep(cycles)
         s.record()
         for _ in range(n):
             fn()
@@ -673,11 +737,13 @@ def check_kernels(torch, np, dev, report):
 
 
 # ------------------------------------------------ phase 2, float kernels
-def _visible_pairs(Sq, Sk, causal):
-    """(query, key) pairs the causal mask leaves visible."""
-    if not causal:
-        return Sq * Sk
-    return sum(min(i + 1, Sk) for i in range(Sq))
+def _visible_pairs(Sq, Sk, causal, window=0):
+    """(query, key) pairs the causal mask and the window leave visible."""
+    def keys(i):
+        hi = min(i + 1, Sk) if causal else Sk
+        lo = max(0, i - window + 1) if window else 0
+        return max(0, hi - lo)
+    return sum(keys(i) for i in range(Sq))
 
 
 def check_float_kernels(torch, np, dev, report):
@@ -756,6 +822,29 @@ def check_float_kernels(torch, np, dev, report):
                     (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * el,
                     4 * D * B * Hq * _visible_pairs(S, S, True), dtype,
                     [B, S, Hq, Hkv, D], route(dtype, D))
+        # phase 9's prefills: gemma3-4b (D = 256) local and global, hubert-
+        # xlarge (D = 80, non-causal), llava-next-34b (D = 128, GQA 7)
+        for B, S, Hq, Hkv, D, causal, window in PHASE9_FLASH:
+            q = randn((B, S, Hq, D), dtype, 1)
+            k = randn((B, S, Hkv, D), dtype, 2)
+            v = randn((B, S, Hkv, D), dtype, 3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & \
+                (i[:, None] - i[None, :] < (window or S))
+            compare("flash_attention",
+                    lambda: flash_attention(q, k, v, causal=causal,
+                                            window=window),
+                    lambda: ref.attention_ref(q, k, v, causal=causal,
+                                              window=window),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                    if window else F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True),
+                    (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * el,
+                    4 * D * B * Hq * _visible_pairs(S, S, causal, window),
+                    dtype, [B, S, Hq, Hkv, D, int(causal), window],
+                    route(dtype, D))
         # smollm-360m's cache at three fill levels, zamba2-1.2b's at one
         for Sk, Hq, Hkv, kv_len in ((MAX_LEN, 15, 5, 1),
                                     (MAX_LEN, 15, 5, PROMPT_LEN + 1),
@@ -766,6 +855,26 @@ def check_float_kernels(torch, np, dev, report):
             k = randn((B, Sk, Hkv * D), dtype, 5).view(B, Sk, Hkv, D)
             v = randn((B, Sk, Hkv * D), dtype, 6).view(B, Sk, Hkv, D)
             k[:, kv_len:] = float("nan")       # never read: no NaN out
+            v[:, kv_len:] = float("nan")
+            qt = q.transpose(1, 2)
+            kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
+            kp, vp = (t.nan_to_num() for t in (k, v))
+            compare("decode_attention",
+                    lambda: decode_attention(q, k, v, kv_len),
+                    lambda: ref.attention_ref(q, kp, vp, causal=False,
+                                              kv_len=kv_len),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, enable_gqa=True),
+                    (2 * B * Hq * D + 2 * B * kv_len * Hkv * D) * el,
+                    4 * D * B * Hq * kv_len, dtype,
+                    [B, Sk, Hq, Hkv, D, kv_len])
+        # phase 9's decode steps: gemma3-4b past its window (D = 256),
+        # llava-next-34b (7 query heads a kv head)
+        for B, Sk, Hq, Hkv, D, kv_len in PHASE9_DECODE:
+            q = randn((B, 1, Hq, D), dtype, 4)
+            k = randn((B, Sk, Hkv * D), dtype, 5).view(B, Sk, Hkv, D)
+            v = randn((B, Sk, Hkv * D), dtype, 6).view(B, Sk, Hkv, D)
+            k[:, kv_len:] = float("nan")
             v[:, kv_len:] = float("nan")
             qt = q.transpose(1, 2)
             kt, vt = (t[:, :kv_len].transpose(1, 2) for t in (k, v))
@@ -1514,7 +1623,8 @@ KERNEL_SYMBOLS = {"lease_probe": ("lease_probe_kernel",),
                   "miss_round": ("miss_round_kernel",),
                   "write_grant": ("write_grant_kernel",),
                   "rmsnorm": ("rmsnorm_reg_kernel", "rmsnorm_elem_kernel"),
-                  "flash_attention": ("flash_kernel", "flash_wgmma_kernel"),
+                  "flash_attention": ("flash_kernel", "flash_split_kernel",
+                                      "flash_wgmma_kernel"),
                   "decode_attention": ("decode_cluster_kernel",),
                   "ssd_chunk": ("ssd_wgmma_kernel", "ssd_output_kernel",
                                 "ssd_state_kernel"),
@@ -1540,7 +1650,10 @@ def device_breakdown(prof, wall_us):
     idle share, device time by kernel name, the ported kernels' share and
     the host's top operators by self time."""
     from torch.autograd import DeviceType
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a scheduled profiler's step ranges ("ProfilerStep#N") are mirrored
+    # on the device as annotations spanning the whole step: not work
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("ProfilerStep")]
     if not dev:
         raise AssertionError("the profiler recorded no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
@@ -1561,7 +1674,8 @@ def device_breakdown(prof, wall_us):
     ported = {name: [n for n in by_name if any(sym in n for sym in syms)]
               for name, syms in KERNEL_SYMBOLS.items()}
     top_host = sorted(((a.key, a.count, a.self_cpu_time_total)
-                       for a in averages if a.self_cpu_time_total > 0),
+                       for a in averages if a.self_cpu_time_total > 0
+                       and not a.key.startswith("ProfilerStep")),
                       key=lambda r: -r[2])[:15]
     # the all-gathers: c10d calls, their host time, NCCL's kernels (gloo's
     # copies are not told apart from the others)
@@ -1588,35 +1702,52 @@ def device_breakdown(prof, wall_us):
             "collective_us": coll}
 
 
-def profile_calls(torch, fn, calls):
+def profile_calls(torch, fn, calls, counter=None):
     """``calls`` calls of ``fn`` (each ending in a host sync, as the
     serving loop's steps do) under ``torch.profiler``: the device's busy
-    time per call and ``device_breakdown``'s tables."""
-    from torch.profiler import ProfilerActivity, profile
+    time per call and ``device_breakdown``'s tables.  One more call runs
+    first, in the profiler's warm-up step (tracing prepared, nothing
+    kept): started with no warm-up, the profiler missed the first device
+    events of its window (a layer's first kernels; once one of 272 decode
+    launches).
+    ``counter``, a kernel wrapper: its launches during the recorded
+    calls, as ``launches``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        fn()
+        prof.step()
+        n0 = counter.launches if counter is not None else 0
         t0 = time.perf_counter()
-        for _ in range(calls):
+        for k in range(calls):
             fn()
+            if k < calls - 1:
+                prof.step()
         wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()          # ends the window: the trace's processing
+                             # stays out of the wall clock
     out = device_breakdown(prof, wall_us)
     out.update({"calls": calls,
                 "device_ms_per_call": out["device_busy_us"] / calls / 1e3})
+    if counter is not None:
+        out["launches"] = counter.launches - n0
     return out
 
 
 # ------------------------------------------------------------- phase 4
-def serve_waves(np, vocab, n_waves, max_new):
-    """``n_waves`` waves of ``SERVE_B`` requests; request i's prompt is
-    drawn with seed i % SERVE_B (``launch/serve.py``'s rule), so every
+def serve_waves(np, vocab, n_waves, max_new, batch=SERVE_B,
+                prompt_len=PROMPT_LEN):
+    """``n_waves`` waves of ``batch`` requests; request i's prompt is
+    drawn with seed i % batch (``launch/serve.py``'s rule), so every
     wave is one decode group with wave 1's group prompt."""
     from repro_torch.runtime.server import Request
     prompts = [np.random.default_rng(seed).integers(
-        2, vocab, PROMPT_LEN).astype(np.int32) for seed in range(SERVE_B)]
-    reqs = [Request(rid=i, prompt=prompts[i % SERVE_B], max_new=max_new)
-            for i in range(n_waves * SERVE_B)]
-    return [reqs[w * SERVE_B:(w + 1) * SERVE_B] for w in range(n_waves)]
+        2, vocab, prompt_len).astype(np.int32) for seed in range(batch)]
+    reqs = [Request(rid=i, prompt=prompts[i % batch], max_new=max_new)
+            for i in range(n_waves * batch)]
+    return [reqs[w * batch:(w + 1) * batch] for w in range(n_waves)]
 
 
 def leaves(tree):
@@ -1676,10 +1807,11 @@ def serve_timings(torch, np, cfg, srv, tokens, max_new):
     from ``torch.profiler`` (the union of its kernel and copy
     intervals)."""
     from repro_torch.models import decode_step, init_cache, prefill
+    S = tokens.shape[1]
 
     def run_prefill():
         return prefill(cfg, srv.params, tokens,
-                       init_cache(cfg, SERVE_B, MAX_LEN, tokens.device))
+                       init_cache(cfg, srv.B, srv.max_len, tokens.device))
 
     walls = []
     for _ in range(3):
@@ -1693,18 +1825,17 @@ def serve_timings(torch, np, cfg, srv, tokens, max_new):
     for t in range(max_new - 1):
         t0 = time.perf_counter()
         nxt, cache = decode_step(cfg, srv.params, cache, nxt[:, None],
-                                 PROMPT_LEN + t)
+                                 S + t)
         t1 = time.perf_counter()
         nxt.cpu()
         host.append(t1 - t0)
         steps.append(time.perf_counter() - t0)
     from repro_torch.kernels.decode_attention import decode_attention
     prof_prefill = profile_calls(torch, lambda: run_prefill()[0].cpu(), 2)
-    n0 = decode_attention.launches
     prof_decode = profile_calls(
         torch, lambda: decode_step(cfg, srv.params, cache0, ids0[:, None],
-                                   PROMPT_LEN)[0].cpu(), 8)
-    prof_decode["decode_attention_calls"] = decode_attention.launches - n0
+                                   S)[0].cpu(), 8, counter=decode_attention)
+    prof_decode["decode_attention_calls"] = prof_decode["launches"]
     return {"prefill_ms": statistics.median(walls) * 1e3,
             "prefill_device_ms": prof_prefill["device_ms_per_call"],
             "decode_step_ms": statistics.mean(steps) * 1e3,
@@ -1876,25 +2007,30 @@ def ssm_step_errors(torch, cfg, bp, h, dev="cuda"):
 
 def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
                   max_new=MAX_NEW, model_layers=CPU_MODEL_LAYERS,
-                  full=True):
-    """A serving path at full width on the card (phases 4 and 5): every
+                  full=True, batch=SERVE_B, prompt_len=PROMPT_LEN,
+                  max_len=MAX_LEN, model_batch=CPU_MODEL_BATCH,
+                  decode_check=0):
+    """A serving path at full width on the card (phases 4, 5 and 9): every
     launch count set to 0 just before the waves and read just after;
     the kernels in ``need`` must have launched.  ``full`` adds the
-    ``serve_stream`` and CPU-server comparisons."""
+    ``serve_stream`` and CPU-server comparisons; ``decode_check`` > 0
+    also holds that many decode steps' hidden states, card vs CPU, in
+    the model check (both sides decode the card's tokens)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_chunk import ssd_chunk
-    from repro_torch.models import cast_params, forward, init_model
+    from repro_torch.models import cast_params, forward, init_cache, \
+        init_model
     from repro_torch.models.model import tree_map, unembed_matrix
     from repro_torch.runtime.server import Server
 
     cfg = configs.get(arch)
-    waves = serve_waves(np, cfg.vocab, n_waves, max_new)
+    waves = serve_waves(np, cfg.vocab, n_waves, max_new, batch, prompt_len)
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED))
-    srv = Server(cfg, params, batch_size=SERVE_B, max_len=MAX_LEN,
+    srv = Server(cfg, params, batch_size=batch, max_len=max_len,
                  device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
@@ -1926,8 +2062,8 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     serve_s = time.perf_counter() - t_all
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
-    log(f"  card: {n_waves} waves x {SERVE_B} requests, prompts "
-        f"{PROMPT_LEN}, {max_new} new tokens: "
+    log(f"  card: {n_waves} waves x {batch} requests, prompts "
+        f"{prompt_len}, {max_new} new tokens: "
         f"{', '.join(f'{x:.2f}' for x in walls)} s per wave; lease hits "
         f"after each wave {hits}; launches {launches}")
     if hits[1] < 1:
@@ -1940,8 +2076,8 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
         raise AssertionError(f"serving launched a backward kernel: "
                              f"{launches}")
     if "flash_attention" in need:
-        # bf16 at D = 64: every prefill on the tensor-core kernel, none on
-        # the CUDA-core one
+        # bf16 at D = 64 (256 for gemma3): every prefill on the
+        # tensor-core kernel, none on the CUDA-core one
         log(f"  flash_attention routes: {flash_routes}; launches that "
             f"wrote row statistics: {flash_attention.stats_writes}")
         if flash_routes["wgmma"] < 1 or flash_routes["simt"]:
@@ -1963,7 +2099,7 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
             torch.equal(a, b) for a, b in zip(snap, leaves(posted[0][1]))):
         raise AssertionError("the prefix payload changed while decoding "
                              "from it")
-    want = {i: out[i % SERVE_B] for i in range(n_waves * SERVE_B)}
+    want = {i: out[i % batch] for i in range(n_waves * batch)}
     for rid, toks in out.items():
         if toks.shape != (max_new,) or toks.dtype != np.int32 or \
                 toks.min() < 0 or toks.max() >= cfg.vocab:
@@ -1975,12 +2111,12 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
         f"after decoding from it; waves 2-{n_waves} give wave 1's tokens")
     rep = {"launches": launches, "lease_hits": hits, "wave_s": walls,
            "serve_s": serve_s, "n_params": n_params,
-           "tokens_per_s": n_waves * SERVE_B * max_new / serve_s,
-           "hit_wave_tokens_per_s": SERVE_B * max_new
+           "tokens_per_s": n_waves * batch * max_new / serve_s,
+           "hit_wave_tokens_per_s": batch * max_new
            / statistics.mean(walls[1:])}
 
     if full:
-        srv_s = Server(cfg, params, batch_size=SERVE_B, max_len=MAX_LEN,
+        srv_s = Server(cfg, params, batch_size=batch, max_len=max_len,
                        device=dev)
         t0 = time.perf_counter()
         out_s = srv_s.serve_stream(iter(waves))
@@ -1994,7 +2130,7 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
 
         cfg2 = dataclasses.replace(cfg, n_layers=CPU_FABRIC_LAYERS)
         srv_h = Server(cfg2, init_model(cfg2, torch.Generator().manual_seed(
-            WEIGHT_SEED)), batch_size=SERVE_B, max_len=MAX_LEN, device="cpu")
+            WEIGHT_SEED)), batch_size=batch, max_len=max_len, device="cpu")
         t0 = time.perf_counter()
         for wave in waves:
             srv_h.serve(wave)
@@ -2010,25 +2146,51 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
         cfg4, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
     p4h = tree_map(lambda t: t.cpu(), p4)
     tok = torch.from_numpy(np.stack([r.prompt for r in waves[0]]))
-    tok4 = tok[:CPU_MODEL_BATCH]
+    tok4 = tok[:model_batch]
     t0 = time.perf_counter()
-    with torch.no_grad():
-        h_c, _ = forward(cfg4, p4, tok4.to(dev))
-    blocks = []
-    h_h, hs_h = forward_layers(torch, cfg4, p4h, tok4, blocks)
+    if decode_check:
+        # the prompt through a cache on both devices, then decode steps
+        L = prompt_len + decode_check + 8
+        with torch.no_grad():
+            h_c, c_c = forward(cfg4, p4, tok4.to(dev), cache=init_cache(
+                cfg4, model_batch, L, dev))
+            h_h, c_h = forward(cfg4, p4h, tok4, cache=init_cache(
+                cfg4, model_batch, L, "cpu"))
+    else:
+        with torch.no_grad():
+            h_c, _ = forward(cfg4, p4, tok4.to(dev))
+        blocks = []
+        h_h, hs_h = forward_layers(torch, cfg4, p4h, tok4, blocks)
     lg_c = h_c[:, -1] @ unembed_matrix(cfg4, p4)
     lg_h = h_h[:, -1] @ unembed_matrix(cfg4, p4h)
     errs = {"hidden_rel_l2": rel_l2(h_c, h_h),
             "logits_rel_l2": rel_l2(lg_c, lg_h)}
+    if decode_check:
+        dec, ids = [], torch.argmax(lg_c.float(), -1)
+        with torch.no_grad():
+            for t in range(decode_check):
+                x = ids[:, None].to(torch.int32)
+                hd_c, c_c = forward(cfg4, p4, x, cache=c_c,
+                                    pos=prompt_len + t)
+                hd_h, c_h = forward(cfg4, p4h, x.cpu(), cache=c_h,
+                                    pos=prompt_len + t)
+                dec.append(rel_l2(hd_c, hd_h))
+                ids = torch.argmax((hd_c[:, -1] @ unembed_matrix(
+                    cfg4, p4)).float(), -1)
+        errs["decode_hidden_rel_l2"] = max(dec)
     limit = MODEL_REL_L2_BY_ARCH.get(arch, MODEL_REL_L2)
     if not all(torch.isfinite(t).all() for t in (h_c, lg_c)) or \
             max(errs.values()) > limit:
         raise AssertionError(f"card vs CPU model at {model_layers} "
                              f"layers: {errs} (limit {limit})")
     log(f"  card == CPU model at {model_layers} layers "
-        f"({[cfg4.layer_kind(i) for i in range(model_layers)]}), full "
-        f"width, batch {CPU_MODEL_BATCH}, bf16, "
-        f"{time.perf_counter() - t0:.1f} s: relative L2 {errs} <= {limit}")
+        f"({[cfg4.layer_kind(i) for i in range(model_layers)]}, windows "
+        f"{[cfg4.attn_window(i) for i in range(model_layers)]}), full "
+        f"width, batch {model_batch}, bf16"
+        + (f", then {decode_check} decode steps (relative L2 each: "
+           f"{', '.join(f'{e:.4f}' for e in dec)})" if decode_check else "")
+        + f", {time.perf_counter() - t0:.1f} s: relative L2 {errs} <= "
+        f"{limit}")
     rep.update({"model_errs": errs, "cache_stats": srv.cache_stats,
                 "fabric_stats": srv.fabric_stats})
     if "ssd_chunk" in need:
@@ -2071,7 +2233,7 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
                                  f"kernels {dec}")
         log(f"  decode_attention is one kernel a call: {calls} calls, "
             f"{dec['count']} launches of {dec['symbols'][0][:60]}")
-    log(f"  prefill (B={SERVE_B}, S={PROMPT_LEN}) {tm['prefill_ms']:.1f} ms "
+    log(f"  prefill (B={batch}, S={prompt_len}) {tm['prefill_ms']:.1f} ms "
         f"wall, {tm['prefill_device_ms']:.1f} ms device; decode step "
         f"{tm['decode_step_ms']:.2f} ms wall (host enqueue "
         f"{tm['decode_host_ms']:.2f} ms, device "
@@ -2091,6 +2253,185 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
             f" device events; device by kernel: {top}; ported kernels per "
             f"call {ported}; host by op (self): {host}")
     return launches, rep
+
+
+# ------------------------------------------------------------- phase 9
+def zero_counts():
+    """Every launch count (and flash's per-route counts) set to 0."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    for fn in kernel_wrappers():
+        fn.launches = 0
+    flash_attention.route_launches.update(
+        dict.fromkeys(flash_attention.route_launches, 0))
+
+
+def read_counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+    return ({fn.__name__: fn.launches for fn in kernel_wrappers()},
+            dict(flash_attention.route_launches))
+
+
+def check_frontend(torch, np, dev, arch):
+    """hubert-xlarge's encoder on frames (all 48 layers) or llava-next-34b
+    at VISION_LAYERS on 576 patch embeddings and text tokens, then its
+    decode steps, at full width on the card: counts set to 0 just before
+    and read just after; the card against the CPU port at a cut depth and
+    batch; wall and device times."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import (cast_params, decode_step, forward,
+                                    init_cache, init_model, prefill)
+    from repro_torch.models.model import tree_map, unembed_matrix
+
+    audio = arch == AUDIO_ARCH
+    cfg = configs.get(arch)
+    if not audio:
+        cfg = dataclasses.replace(cfg, n_layers=VISION_LAYERS)
+    B = AUDIO_B if audio else VISION_B
+    S = AUDIO_FRAMES if audio else cfg.n_patch_tokens + VISION_TEXT
+    rng = np.random.default_rng(WEIGHT_SEED)
+    t0 = time.perf_counter()
+    params = cast_params(cfg, init_model(
+        cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"  {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, "
+        f"{n_params / 1e9:.3f} B parameters in bf16 on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if audio:
+        inputs = {"frames": rng.standard_normal(
+            (B, S, cfg.d_frontend)).astype(np.float32)}
+        tokens = None
+    else:
+        # patch embeddings at the scale of the token embeddings (0.02)
+        inputs = {"patches": (0.02 * rng.standard_normal(
+            (B, cfg.n_patch_tokens, cfg.d_model))).astype(np.float32)}
+        tokens = torch.from_numpy(rng.integers(
+            2, cfg.vocab, (B, S)).astype(np.int32))
+    card = {k: torch.from_numpy(v).to(dev, torch.bfloat16)
+            for k, v in inputs.items()}
+    tok_c = None if tokens is None else tokens.to(dev)
+    max_len = S + (0 if audio else VISION_NEW + 8)
+
+    def run_prefill():
+        return prefill(cfg, params, tok_c, init_cache(cfg, B, max_len, dev),
+                       **card)
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, cache = run_prefill()
+    ids = [nxt.cpu()]
+    steps = []
+    for t in range(0 if audio else VISION_NEW - 1):
+        t1 = time.perf_counter()
+        nxt, cache = decode_step(cfg, params, cache, nxt[:, None], S + t)
+        ids.append(nxt.cpu())
+        steps.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, routes = read_counts()
+    ids = torch.stack(ids, 1)
+    log(f"  card: prefill of {B} x {S} "
+        + ("frames" if audio else f"({cfg.n_patch_tokens} patches + "
+           f"{VISION_TEXT} tokens), {VISION_NEW - 1} decode steps")
+        + f" in {run_s:.2f} s; launches {launches}; flash routes {routes}")
+    want_route = "simt" if audio else "wgmma"
+    if launches["flash_attention"] < 1 or routes[want_route] < 1 or \
+            routes[want_route] != launches["flash_attention"]:
+        raise AssertionError(f"{arch}: flash_attention did not take the "
+                             f"{want_route!r} route on every prefill: "
+                             f"{routes}")
+    need = ("rmsnorm",) if audio else ("rmsnorm", "decode_attention")
+    if any(launches[n] < 1 for n in need):
+        raise AssertionError(f"{arch}: {need} not all launched: {launches}")
+    if ids.min() < 0 or ids.max() >= cfg.vocab:
+        raise AssertionError(f"{arch}: bad ids {ids}")
+
+    # card vs CPU at a cut depth and batch, the same weights
+    layers_ = AUDIO_MODEL_LAYERS if audio else VISION_MODEL_LAYERS
+    nb = AUDIO_CPU_B if audio else VISION_CPU_B
+    cfg_m = dataclasses.replace(cfg, n_layers=layers_)
+    p_m = cast_params(cfg_m, init_model(
+        cfg_m, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
+    p_h = tree_map(lambda t: t.cpu(), p_m)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h_c, _ = forward(cfg_m, p_m, None if tok_c is None else tok_c[:nb],
+                         **{k: v[:nb] for k, v in card.items()})
+        h_h, _ = forward(cfg_m, p_h, None if tokens is None else tokens[:nb],
+                         **{k: v[:nb].cpu() for k, v in card.items()})
+    lg_c = h_c[:, -1] @ unembed_matrix(cfg_m, p_m)
+    lg_h = h_h[:, -1] @ unembed_matrix(cfg_m, p_h)
+    errs = {"hidden_rel_l2": rel_l2(h_c, h_h),
+            "logits_rel_l2": rel_l2(lg_c, lg_h)}
+    if not all(torch.isfinite(t).all() for t in (h_c, lg_c)) or \
+            max(errs.values()) > MODEL_REL_L2:
+        raise AssertionError(f"{arch}: card vs CPU at {layers_} layers: "
+                             f"{errs} (limit {MODEL_REL_L2})")
+    log(f"  card == CPU model at {layers_} layers, full width, batch {nb}, "
+        f"bf16, {time.perf_counter() - t0:.1f} s: relative L2 {errs} <= "
+        f"{MODEL_REL_L2}")
+    del p_m, p_h
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_prefill()[0].cpu()
+        walls.append(time.perf_counter() - t0)
+    prof = profile_calls(torch, lambda: run_prefill()[0].cpu(), 2)
+    rep = {"launches": launches, "flash_routes": routes,
+           "n_params": n_params, "layers": cfg.n_layers, "batch": B,
+           "seq": S, "model_errs": errs,
+           "prefill_ms": statistics.median(walls) * 1e3,
+           "prefill_device_ms": prof["device_ms_per_call"],
+           "flash_prefill_device_ms":
+           prof["ported_kernels"]["flash_attention"]["us"] / 2e3,
+           "profile_prefill": prof}
+    if steps:
+        rep["decode_step_ms"] = statistics.mean(steps[1:]) * 1e3
+    log(f"  prefill {rep['prefill_ms']:.1f} ms wall, "
+        f"{rep['prefill_device_ms']:.2f} ms device (flash "
+        f"{rep['flash_prefill_device_ms']:.3f} ms in "
+        f"{prof['ported_kernels']['flash_attention']['count'] // 2} "
+        "launches)"
+        + (f"; decode step {rep['decode_step_ms']:.2f} ms wall"
+           if steps else ""))
+    return launches, rep
+
+
+def check_phase9(torch, np, dev):
+    """gemma3-4b served at full width and depth (phase 4's checks, 1536-
+    token prompts past the window, the model check with decode steps),
+    then hubert-xlarge and llava-next-34b through ``prefill``."""
+    t0 = time.perf_counter()
+    launches, gem = check_serving(
+        torch, np, dev, WINDOW_ARCH,
+        need=("rmsnorm", "flash_attention", "decode_attention"),
+        n_waves=WINDOW_WAVES, max_new=WINDOW_NEW,
+        model_layers=WINDOW_MODEL_LAYERS, batch=WINDOW_B,
+        prompt_len=WINDOW_PROMPT, max_len=WINDOW_MAX_LEN, model_batch=1,
+        decode_check=WINDOW_DECODE_CHECK)
+    for what in ("prefill", "decode"):
+        prof = gem[f"profile_{what}"]
+        for name in ("flash_attention", "decode_attention"):
+            k = prof["ported_kernels"][name]
+            gem[f"{name}_{what}_device_ms"] = k["us"] / prof["calls"] / 1e3
+    log(f"  {WINDOW_ARCH}: flash_attention "
+        f"{gem['flash_attention_prefill_device_ms']:.3f} ms of device time a "
+        f"prefill, decode_attention "
+        f"{gem['decode_attention_decode_device_ms']:.3f} ms a step "
+        f"({time.perf_counter() - t0:.0f} s for {WINDOW_ARCH})")
+    counts = {WINDOW_ARCH: launches}
+    reps = {WINDOW_ARCH: gem}
+    for arch in (AUDIO_ARCH, VISION_ARCH):
+        t0 = time.perf_counter()
+        counts[arch], reps[arch] = check_frontend(torch, np, dev, arch)
+        log(f"  ({time.perf_counter() - t0:.0f} s for {arch})")
+    return counts, reps
 
 
 # ------------------------------------------------------------- phase 6
@@ -2788,7 +3129,7 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
     from repro_torch.models.model import tree_map
     from repro_torch.models.training import loss_and_grads
     from repro_torch.optim import adamw
-    from repro_torch.runtime.trainer import param_keys
+    from repro_torch.runtime.trainer import TrainerConfig, param_keys
 
     cfg = configs.get(arch)
     opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
@@ -2890,10 +3231,31 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
     rep.update(losses=losses, launches=launches, events=tr.events,
                fabric_stats=res["fabric_stats"])
 
-    if events != tr.events or stats != res["fabric_stats"] or \
+    # the watchdog's straggler events are readings of each run's own wall
+    # clock (a step slower than straggler_factor x the EMA of the steps
+    # before it), so two runs on different devices need not share them:
+    # each is held to the watchdog's rule, and every other event (leases,
+    # the restore) must be equal
+    factor = TrainerConfig().straggler_factor
+    slow = {"card": [e for e in tr.events if e["kind"] == "straggler"],
+            "cpu": [e for e in events if e["kind"] == "straggler"]}
+    bad = [e for side in slow.values() for e in side
+           if not (e["step"] > 3 and e["dt"] > factor * e["ema"])]
+    if bad:
+        raise AssertionError(f"straggler events that break the watchdog's "
+                             f"rule (step > 3, dt > {factor} x ema): {bad}")
+    rep["stragglers"] = slow
+    if slow["card"] or slow["cpu"]:
+        log(f"  straggler events (wall clock, not compared): {slow}")
+    card_events = [e for e in tr.events if e["kind"] != "straggler"]
+    cpu_events = [e for e in events if e["kind"] != "straggler"]
+    if cpu_events != card_events or stats != res["fabric_stats"] or \
             grants != list(tr.fabric.grant_log):
-        raise AssertionError("card and CPU trainers' events, fabric "
-                             "counters or grant logs differ")
+        raise AssertionError(
+            f"card and CPU trainers' events, fabric counters or grant logs "
+            f"differ: events {card_events} vs {cpu_events}; counters "
+            f"{res['fabric_stats']} vs {stats}; grant logs of "
+            f"{len(tr.fabric.grant_log)} and {len(grants)}")
     log(f"  card == cpu trainer ({small.n_layers} layers, d_model "
         f"{small.d_model}, {cpu_s:.1f} s in a worker process beside the "
         f"card's run): events, fabric counters "
@@ -3105,6 +3467,11 @@ def main() -> None:
     from repro_torch.runtime import loadgen
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def elapsed() -> str:                 # the script's time so far
+        return f"[{time.perf_counter() - t_start:.0f} s]"
+
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     report = {}
@@ -3138,7 +3505,7 @@ def main() -> None:
 
     # ---- 2. kernels against their plain versions
     log("phase 2: kernels vs plain versions on the card (coherence exact, "
-        "float within tolerance)")
+        f"float within tolerance) {elapsed()}")
     kreport = {}
     check_kernels(torch, np, dev, kreport)
     check_float_kernels(torch, np, dev, kreport)
@@ -3151,7 +3518,8 @@ def main() -> None:
     log("  miss-path dispatch enqueues with no host sync (sync debug mode)")
 
     # ---- 3. the main path, card vs CPU
-    log(f"phase 3: main path, {N_KEYS} keys, {N_REQUESTS} requests")
+    log(f"phase 3: main path, {N_KEYS} keys, {N_REQUESTS} requests "
+        f"{elapsed()}")
     trace = phase3_trace(loadgen)
     counters = (lease_probe, miss_round, write_grant)
     for fn in counters:
@@ -3212,7 +3580,7 @@ def main() -> None:
             f"ported kernels {prof['ported_kernels']}")
 
     # ---- 4. the LLM serving path
-    log(f"phase 4: LLM serving path, {ARCH} at full width")
+    log(f"phase 4: LLM serving path, {ARCH} at full width {elapsed()}")
     served, report["serving"] = check_serving(
         torch, np, dev, ARCH,
         need=("rmsnorm", "flash_attention", "decode_attention"))
@@ -3220,7 +3588,7 @@ def main() -> None:
 
     # ---- 5. the SSM serving path
     log(f"phase 5: SSM serving path, {SSM_ARCH} then {HYBRID_ARCH} at full "
-        "width")
+        f"width {elapsed()}")
     served, ssm = check_serving(torch, np, dev, SSM_ARCH,
                                 need=("ssd_chunk", "rmsnorm"))
     launches["ssd_chunk"] = served["ssd_chunk"]
@@ -3242,34 +3610,45 @@ def main() -> None:
 
     # ---- 6. the figure engine, card vs CPU
     log("phase 6: the figure engine (Fig. 7 matrix, Fig. 8's 16-GPU point, "
-        "Fig. 9's Xtreme suite, Fig. 5's litmus), card vs CPU")
+        f"Fig. 9's Xtreme suite, Fig. 5's litmus), card vs CPU {elapsed()}")
     report["engine"] = check_engine(torch, np)
 
     # ---- 7. the sharded fabric on the card, card vs phase 3's CPU replay
     log("phase 7: the sharded fabric (phase 3's trace over a fabric group: "
-        + ", ".join(f"{b} x {w}" for b, w in FABRIC_WORLDS) + ")")
+        + ", ".join(f"{b} x {w}" for b, w in FABRIC_WORLDS) + f") "
+        f"{elapsed()}")
     report["sharded"] = check_sharded(torch, np, fab_h, serv_h, rounds_h)
 
     # ---- 8. the training path at full width, card vs CPU
     log(f"phase 8: training {ARCH} at full width ({TRAIN_STEPS} steps, "
-        f"checkpoint every {TRAIN_CKPT}, failure at {TRAIN_FAIL}, resume)")
+        f"checkpoint every {TRAIN_CKPT}, failure at {TRAIN_FAIL}, resume) "
+        f"{elapsed()}")
     trained, report["training"] = check_training(torch, np, dev)
     for name in ("rmsnorm_bwd", "flash_attention_bwd"):
         launches[name] = trained[name]
     report["ssm_training"] = {}
     for arch, steps, ckpt, fail, layers in SSM_TRAIN:
         log(f"phase 8: training {arch} at full width ({steps} steps, "
-            f"checkpoint every {ckpt}, failure at {fail}, resume)")
+            f"checkpoint every {ckpt}, failure at {fail}, resume) "
+            f"{elapsed()}")
         trained, report["ssm_training"][arch] = check_training(
             torch, np, dev, arch, steps, ckpt, fail, layers, extras=False)
         launches["ssd_chunk_bwd"] = launches.get("ssd_chunk_bwd", 0) \
             + trained["ssd_chunk_bwd"]
 
+    # ---- 9. windowed attention and the modality frontends
+    log(f"phase 9: {WINDOW_ARCH} served at full width, {AUDIO_ARCH} and "
+        f"{VISION_ARCH} ({VISION_LAYERS} layers) through prefill "
+        f"{elapsed()}")
+    p9_counts, report["phase9"] = check_phase9(torch, np, dev)
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    report["script_s"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log(f"phases 1-9 took {report['script_s']:.0f} s")
 
-    # ---- 9. summary lines: each kernel's row at the main path's shapes
+    # ---- 10. summary lines: each kernel's row at the main path's shapes
     main_shape = {"lease_probe": [64, 8], "miss_round": [8, 64, 1024],
                   "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
@@ -3292,6 +3671,31 @@ def main() -> None:
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": max(r["max_abs_err"]
                                         for r in kreport[name]),
+                     "ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row.get("library_ms")})
+    # the head dims phase 9 added, each at its model's prefill or decode
+    # shape, its launches from phase 9's run of that model
+    csrc = "src/repro_torch/kernels/csrc/"
+    for name, kernel, source, arch, shape in (
+            ("flash_attention_d256", "flash_attention",
+             "flash_attention_wgmma.cu", WINDOW_ARCH, list(PHASE9_FLASH[0])),
+            ("flash_attention_d80", "flash_attention", "flash_attention.cu",
+             AUDIO_ARCH, list(PHASE9_FLASH[2])),
+            ("decode_attention_d256", "decode_attention",
+             "decode_attention.cu", WINDOW_ARCH, list(PHASE9_DECODE[0]))):
+        shape[5:6] = [int(shape[5])] if kernel == "flash_attention" \
+            else shape[5:6]
+        row = next(r for r in kreport[kernel] if r["shape"] == shape
+                   and r["dtype"] == "bfloat16")
+        replaces = next(r for n, _, r in KERNELS if n == kernel)
+        line.append({"name": name, "route": "cuda", "source": csrc + source,
+                     "replaces": replaces,
+                     "launches": p9_counts[arch][kernel],
+                     "max_abs_err": max(r["max_abs_err"]
+                                        for r in kreport[kernel]
+                                        if r["shape"][4] == shape[4]),
                      "ms": row["ms"], "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],

@@ -19,7 +19,8 @@
 // Design: one cluster of up to 8 blocks of 128 threads per (b, kv head),
 // the cluster size chosen by the host for about three blocks an SM (8 at
 // smollm-360m's 40 pairs, 2 at zamba2-1.2b's 256).  Block r of a cluster
-// of n walks cache tiles r, r + n, ... of 64 rows.
+// of n walks cache tiles r, r + n, ... of 64 rows (32 at D = 256, where
+// two stages of 64-row K and V tiles would take 256 KB in f32).
 // - Loads: K and V tiles come into shared memory with 16-byte cp.async
 //   copies, double-buffered, so the next tile's K and V are in flight
 //   while this one is scored.  A row at or past kv_len is copied with the
@@ -31,8 +32,9 @@
 //   shared memory, padded with zero rows to G in {1, 4, 16} (a template
 //   argument), so no loop over heads tests its bound and the shared-memory
 //   reads of a step issue together (the tile is latency-bound, not
-//   bandwidth-bound).  Thread t scores row t % 64 against
-//   the heads of its half, once for the whole group; one warp per head
+//   bandwidth-bound).  Thread t scores row t % kTile against the heads of
+//   its part (128 / kTile parts, at most G), once for the whole group;
+//   one warp per head
 //   keeps the online softmax (m, l) and writes p over the scores; then
 //   thread t owns two head-dim columns and a stride of rows and
 //   accumulates p * V from shared memory with 4- or 8-byte vector reads.
@@ -43,6 +45,13 @@
 //   out = sum_r e^(m_r - M) acc_r / max(sum_r e^(m_r - M) l_r, 1e-30).
 //   A block with no rows would keep m = -inf and l = 0 and weigh
 //   e^(-inf) = 0.  No scratch in device memory and no second kernel.
+//   At D = 256 block 0's eight slots (132 KB for G = 16) do not fit beside
+//   the stages, so they share the stages' region, after the row groups'
+//   sums: every block arrives at the cluster barrier only once its own
+//   stages are free (block 0's included), and stores into block 0 only
+//   after the wait, so no store lands on a stage block 0 still reads.
+//   gemma3-4b decodes at D = 256 with 2 query heads a kv head (G = 4),
+//   llava-next-34b at D = 128 with 7 (G = 16).
 #include <cooperative_groups.h>
 
 #include "float_io.cuh"
@@ -53,7 +62,6 @@ namespace {
 
 constexpr int kMaxCluster = 8;     // blocks per (b, kv head), at most
 constexpr int kThreads = 128;
-constexpr int kTile = 64;          // cache rows per tile
 constexpr int kMaxQpk = 16;        // query heads per kv head
 
 // G: the group's query heads rounded up to 1, 4 or 16; the rows past
@@ -64,23 +72,31 @@ constexpr int kMaxQpk = 16;        // query heads per kv head
 // query heads per kv head), 16 takes every other group.
 template <typename T, int D, int G>
 struct Layout {
+  static constexpr int kTile = D > 128 ? 32 : 64;         // cache rows a tile
   static constexpr int kVec = halcone::vec_len<T>();      // per 16 bytes
   static constexpr int kChunks = D / kVec;               // per row
   static constexpr int kSwizzle = kChunks < 8 ? kChunks : 8;
   static constexpr int kPairs = D / 2;                    // p.V columns
   static constexpr int kGroups = kThreads / kPairs;       // p.V row groups
-  static constexpr int kHalves = G > 1 ? 2 : 1;           // scoring threads
+  // scoring threads: row t % kTile, heads of part t / kTile
+  static constexpr int kParts =
+      kThreads / kTile < G ? kThreads / kTile : G;
   static constexpr int kTileElems = kTile * D;
   // K, V x 2 stages; after the last tile, the row groups' partial sums
+  // (and at D = 256 block 0's slots after them: kLate)
+  static constexpr bool kLate = D > 128;
   static constexpr size_t kStageBytes = 4 * kTileElems * sizeof(T);
   static constexpr size_t kPartBytes = sizeof(float) * kGroups * G * D;
+  static constexpr size_t kSlotBytes =
+      sizeof(float) * kMaxCluster * G * (D + 2);
+  static constexpr size_t kAfter = kPartBytes + (kLate ? kSlotBytes : 0);
   static constexpr size_t kRegion =
-      kStageBytes > kPartBytes ? kStageBytes : kPartBytes;
+      kStageBytes > kAfter ? kStageBytes : kAfter;
   static constexpr size_t kBytes =
       kRegion + sizeof(float) * (G * D                    // q rows
-                                 + G * kTile              // scores, then p
-                                 + kMaxCluster * G * (D + 2)  // slots
-                                 + 3 * G);                // m, l, alpha
+                                 + G * kTile)             // scores, then p
+      + (kLate ? 0 : kSlotBytes)                          // slots
+      + sizeof(float) * 3 * G;                            // m, l, alpha
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -105,14 +121,17 @@ decode_cluster_kernel(const T* __restrict__ q, long long qsb, long long qsh,
                       long long vss, long long vsh, T* __restrict__ out,
                       int Hq, int qpk, int kv_len, float scale) {
   using L = Layout<T, D, G>;
+  constexpr int kTile = L::kTile;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kbuf = reinterpret_cast<T*>(smem);                   // [2][64][D]
-  T* vbuf = kbuf + 2 * L::kTileElems;                     // [2][64][D]
+  T* kbuf = reinterpret_cast<T*>(smem);                   // [2][kTile][D]
+  T* vbuf = kbuf + 2 * L::kTileElems;                     // [2][kTile][D]
   float* part = reinterpret_cast<float*>(smem);           // [groups][G][D]
   float* Qs = reinterpret_cast<float*>(smem + L::kRegion);   // [G][D]
-  float* S = Qs + G * D;                                  // [G][64]
-  float* slot = S + G * kTile;               // block 0: [8][G][D + 2]
-  float* m_b = slot + kMaxCluster * G * (D + 2);
+  float* S = Qs + G * D;                                  // [G][kTile]
+  // block 0: [8][G][D + 2]; at D = 256 in the region, after the sums
+  float* slot = L::kLate ? part + L::kGroups * G * D : S + G * kTile;
+  float* m_b = S + G * kTile
+               + (L::kLate ? 0 : kMaxCluster * G * (D + 2));
   float* l_b = m_b + G;
   float* a_b = l_b + G;
 
@@ -126,7 +145,9 @@ decode_cluster_kernel(const T* __restrict__ q, long long qsb, long long qsh,
   const T* vb = v + b * vsb + hk * vsh;
   // block 0's shared memory takes the others' stores only once every
   // block of the cluster runs: arrive now, wait before the first store
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // (at D = 256 once the stages are free: see the header)
+  if constexpr (!L::kLate)
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   auto load_tile = [&](int tile, int stage) {
     const int s0 = tile * kTile;
@@ -174,10 +195,10 @@ decode_cluster_kernel(const T* __restrict__ q, long long qsb, long long qsh,
     const T* kt = kbuf + stage * L::kTileElems;
     const T* vt = vbuf + stage * L::kTileElems;
 
-    {  // scores: thread t takes row t % 64 and the heads of its half
+    {  // scores: thread t takes row t % kTile and the heads of its part
       const int j = tid % kTile, half = tid / kTile;
-      if (j < n && half < L::kHalves) {
-        constexpr int GH = G / L::kHalves;
+      if (j < n && half < L::kParts) {
+        constexpr int GH = G / L::kParts;
         float dot[GH];
 #pragma unroll
         for (int i = 0; i < GH; ++i) dot[i] = 0.f;
@@ -187,21 +208,21 @@ decode_cluster_kernel(const T* __restrict__ q, long long qsb, long long qsh,
           halcone::load_vec(kt + j * D + (c ^ (j % L::kSwizzle)) * L::kVec, kf);
 #pragma unroll
           for (int i = 0; i < GH; ++i) {
-            const float* qr = Qs + (half + L::kHalves * i) * D + c * L::kVec;
+            const float* qr = Qs + (half + L::kParts * i) * D + c * L::kVec;
 #pragma unroll
             for (int e = 0; e < L::kVec; ++e) dot[i] += qr[e] * kf[e];
           }
         }
 #pragma unroll
         for (int i = 0; i < GH; ++i)
-          S[(half + L::kHalves * i) * kTile + j] = dot[i] * scale;
+          S[(half + L::kParts * i) * kTile + j] = dot[i] * scale;
       }
     }
     __syncthreads();
 
     for (int g = warp; g < qpk; g += kThreads / 32) {   // online softmax
       float* sg = S + g * kTile;
-      const bool in0 = lane < n, in1 = lane + 32 < n;
+      const bool in0 = lane < n, in1 = kTile > 32 && lane + 32 < n;
       const float s0 = in0 ? sg[lane] : -CUDART_INF_F;
       const float s1 = in1 ? sg[lane + 32] : -CUDART_INF_F;
       const float m_old = m_b[g];
@@ -248,6 +269,8 @@ decode_cluster_kernel(const T* __restrict__ q, long long qsb, long long qsh,
     pr[1] = acc[g][1];
   }
   __syncthreads();
+  if constexpr (L::kLate)        // this block's stages are free now
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   float* dst = cluster.map_shared_rank(slot, 0) + rank * G * (D + 2);
   for (int e = tid; e < qpk * D; e += kThreads) {
@@ -311,7 +334,8 @@ int launch(const void* q, const long long* qs, const void* k,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
-  const int nclu = cluster_size(B, Hkv, (kv_len + kTile - 1) / kTile);
+  const int nclu = cluster_size(B, Hkv,
+                                (kv_len + L::kTile - 1) / L::kTile);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nclu, Hkv, B);
   cfg.blockDim = dim3(kThreads);
@@ -363,6 +387,8 @@ int dispatch_d(int D, const void* q, const long long* qs, const void* k,
                                       Hkv, kv_len, scale, s);
     case 128: return dispatch_g<T, 128>(qpk, q, qs, k, ks, v, vs, out, B, Hq,
                                         Hkv, kv_len, scale, s);
+    case 256: return dispatch_g<T, 256>(qpk, q, qs, k, ks, v, vs, out, B, Hq,
+                                        Hkv, kv_len, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -371,8 +397,8 @@ int dispatch_d(int D, const void* q, const long long* qs, const void* k,
 
 // q strides over (B, H), k/v strides over (B, S, H), in elements; the
 // head dim is contiguous, k and v rows 16-byte aligned.  1 <= kv_len <=
-// Sk, Hq / Hkv <= 16, D in {16, 32, 64, 128}; dt: halcone::kF32 or kBF16;
-// scale: D^-0.5 as an f32.  Returns a cudaError_t.
+// Sk, Hq / Hkv <= 16, D in {16, 32, 64, 128, 256}; dt: halcone::kF32 or
+// kBF16; scale: D^-0.5 as an f32.  Returns a cudaError_t.
 extern "C" int halcone_decode_attention(
     const void* q, long long qsb, long long qsh, const void* k,
     long long ksb, long long kss, long long ksh, const void* v,

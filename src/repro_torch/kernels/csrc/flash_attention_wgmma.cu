@@ -1,9 +1,10 @@
 // Flash attention (forward, prefill) on Hopper's tensor cores (sm_90a):
-// the bf16 route for head dims 64 and 128.
+// the bf16 route for head dims 64, 128 and 256.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::_flash_kernel
 // (pallas_call at flash_attention.py:79) for bf16 q, k, v with D in {64,
-// 128}; f32, and bf16 at D in {16, 32}, stay on flash_attention.cu.  Same
+// 128, 256}; f32, and bf16 at D in {16, 32, 80}, stay on
+// flash_attention.cu.  Same
 // contract: q [B, Sq, Hq, D], k and v [B, Sk, Hkv, D] with any strides over
 // B, S and H (each a multiple of 16 bytes, for TMA) and the head dim
 // contiguous; out [B, Sq, Hq, D] contiguous bf16.  Query head h reads kv
@@ -17,17 +18,31 @@
 // shared memory and keeps each block's K/V loads in flight behind its
 // math.
 //
+// At gemma3-4b's prefill (B = 4, S = 1536, Hq = 8, Hkv = 4, D = 256,
+// window 1024 on five layers of six) the products bound it: ~34 GFLOP a
+// local layer (x1.25 for the split P) against 75.5 MB.
+//
 // Design (FA3's shape, simplified): one block per (b, q head, 128 query
-// rows); two consumer warpgroups of 64 rows each and one producer warp;
-// key tiles of 64.  At D = 64 a thread needs 96 registers, so two blocks
-// share an SM and one block's loads and softmax hide behind the other's
-// tensor work.
+// rows, DV output columns); two consumer warpgroups of 64 rows each and
+// one producer warp; key tiles of 64.  At D = 64 a thread needs 96
+// registers, so two blocks share an SM and one block's loads and softmax
+// hide behind the other's tensor work.  DV = D up to 128.  At D = 256 a
+// whole O would take 128 f32 registers a consumer thread, and ptxas
+// gives a block of 288 threads (register-allocated as 384) 168 a thread:
+// with S and P's halves that spilled 384 bytes a thread (first build).
+// So DV = 128: two blocks share each row tile, each computing all of
+// S = Q K^T (256 dims) and O for its half of the columns, with the
+// register profile of D = 128 (ptxas: 163 registers at D = 256, 165 at
+// 128, 96 at 64, no spills; the build's .log).  That
+// costs S and the softmax twice, 4/3 of the tensor work of one block.
+// Shared memory at D = 256: Q 64 KB and two stages of K (32 KB) and V's
+// half (16 KB), 161 KB, one block an SM.
 // - The producer loads the Q tile once and then keeps a ring of two K/V
 //   stages full with TMA (rank-4 maps over (D, H, S, B) with the tensors'
-//   own strides, 128-byte swizzle, 64-column boxes: one for D = 64, two
-//   for D = 128); each load completes on a stage's "full" mbarrier, and the
-//   consumers release a stage on its "empty" mbarrier.  TMA zero-fills rows
-//   past Sq and Sk.
+//   own strides, 128-byte swizzle, 64-column boxes: D / 64 of Q and K,
+//   DV / 64 of V); each load completes on a stage's "full" mbarrier, and
+//   the consumers release a stage on its "empty" mbarrier.  TMA
+//   zero-fills rows past Sq and Sk.
 // - S = Q K^T is wgmma m64n64k16 with both operands K-major in shared
 //   memory: bf16 x bf16 is exact in the f32 accumulator, as in the
 //   reference, which upcasts before its dot; the scale D^-0.5 multiplies
@@ -42,8 +57,12 @@
 //   by one fma would weigh it by the rounding error of 1e30 c: inf at
 //   D = 64).  O is rescaled only when a row's max moved.  Causal blocks
 //   stop at their last row's key, a warpgroup skips tiles wholly above
-//   its rows, and only tiles that cross the diagonal, a window or Sk are
-//   masked, with selects, not branches.
+//   its rows, and only tiles that cross the diagonal, a window's edge or
+//   Sk are masked, with selects, not branches.  With a window and Sq <= Sk (so
+//   every row sees its own key), key tiles wholly behind the window of a
+//   block's first row are not loaded, and a warpgroup skips those behind
+//   its first row's: each of their weights would be 2^(-1e30 c) = 0 next
+//   to that key's.
 //   Keys at or past Sk get -inf, so their weight is exactly 0.
 // - O += P V: the reference computes p @ v in f32.  P is split in registers
 //   into P_hi = bf16(P) and P_lo = bf16(P - P_hi), and two wgmma (A from
@@ -71,16 +90,19 @@ constexpr int kRows = 64 * kWarpgroups;          // query rows per block
 constexpr int kThreads = 128 * kWarpgroups + 32; // + one producer warp
 constexpr int kStages = 2;                       // K/V ring depth
 
-// 64 keys a tile: S takes 32 f32 registers a thread and O D / 2.
+// 64 keys a tile: S takes 32 f32 registers a thread and O DV / 2.
 template <int D>
 struct Shape {
   static constexpr int BK = 64;
-  // two blocks an SM at D = 64 (96 registers a thread), one at D = 128
+  static constexpr int DV = D < 128 ? D : 128;     // output columns a block
+  static constexpr int kVSplit = D / DV;           // blocks a row tile
+  // two blocks an SM at D = 64 (96 registers a thread), one at D >= 128
   static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
-  static constexpr int kBoxes = D / kBox;
+  static constexpr int kBoxes = D / kBox;          // of Q and K
+  static constexpr int kVBoxes = DV / kBox;
   static constexpr int kQBytes = kRows * D * 2;
-  static constexpr int kKVBytes = BK * D * 2;      // one of K, V per stage
-  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kKBytes = BK * D * 2;       // K per stage
+  static constexpr int kStageBytes = kKBytes + BK * DV * 2;
   static constexpr int kSmem = kSwizzleAtom + kQBytes + kStages * kStageBytes
                                + 8 * (1 + 2 * kStages);
 };
@@ -94,7 +116,7 @@ flash_wgmma_kernel(
     float* __restrict__ stats, int Sq, int Sk, int Hq, int qpk, float scale,
     int causal, int window) {
   using Sh = Shape<D>;
-  constexpr int BK = Sh::BK;
+  constexpr int BK = Sh::BK, DV = Sh::DV;
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle and the wgmma descriptors want 1024-byte tiles
   const uint32_t raw = smem_u32(smem_raw);
@@ -106,9 +128,14 @@ flash_wgmma_kernel(
   uint64_t* empty = full + kStages;
 
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * kRows, h = blockIdx.y, b = blockIdx.z, hk = h / qpk;
+  // blockIdx.y: the query head, then which DV columns of O (vpart)
+  const int h = blockIdx.y / Sh::kVSplit, vpart = blockIdx.y % Sh::kVSplit;
+  const int q0 = qt * kRows, b = blockIdx.z, hk = h / qpk;
   const int kv_end = causal ? min(Sk, min(q0 + kRows, Sq)) : Sk;
   const int ntiles = (kv_end + BK - 1) / BK;
+  // tiles wholly behind the block's first row's window (see the header)
+  const bool skip_back = window > 0 && Sq <= Sk;
+  const int t0 = skip_back ? max(0, q0 - window + 1) / BK : 0;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -126,16 +153,16 @@ flash_wgmma_kernel(
       mbar_expect_tx(qbar, Sh::kQBytes);
       for (int x = 0; x < Sh::kBoxes; ++x)
         tma_load(qs + x * kRows * 128, &qmap, qbar, x * kBox, h, q0, b);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % kStages;
-        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+      for (int t = t0; t < ntiles; ++t) {
+        const int s = (t - t0) % kStages;
+        mbar_wait(&empty[s], (((t - t0) / kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], Sh::kStageBytes);
         uint8_t* ks = kv + s * Sh::kStageBytes;
-        for (int x = 0; x < Sh::kBoxes; ++x) {
+        for (int x = 0; x < Sh::kBoxes; ++x)
           tma_load(ks + x * BK * 128, &kmap, &full[s], x * kBox, hk, t * BK, b);
-          tma_load(ks + Sh::kKVBytes + x * BK * 128, &vmap, &full[s],
-                   x * kBox, hk, t * BK, b);
-        }
+        for (int x = 0; x < Sh::kVBoxes; ++x)
+          tma_load(ks + Sh::kKBytes + x * BK * 128, &vmap, &full[s],
+                   vpart * DV + x * kBox, hk, t * BK, b);
       }
     }
     return;
@@ -151,9 +178,9 @@ flash_wgmma_kernel(
   const int last_row = min(r0 + 63, Sq - 1);
   const uint8_t* qw = qs + 64 * wg * 128;
 
-  float o[D / 2], sacc[BK / 2];
+  float o[DV / 2], sacc[BK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
   float m[2] = {halcone::kNegInf, halcone::kNegInf}, l[2] = {0.f, 0.f};
@@ -162,13 +189,14 @@ flash_wgmma_kernel(
   const float sl = scale * kLog2e;
 
 #pragma unroll 1
-  for (int t = 0; t < ntiles; ++t) {
-    const int s = t % kStages;
+  for (int t = t0; t < ntiles; ++t) {
+    const int s = (t - t0) % kStages;
     const int k0 = t * BK;
-    mbar_wait(&full[s], (t / kStages) & 1);
-    if (r0 < Sq && (!causal || k0 <= last_row)) {
+    mbar_wait(&full[s], ((t - t0) / kStages) & 1);
+    if (r0 < Sq && (!causal || k0 <= last_row)
+        && (!skip_back || k0 + BK - 1 > r0 - window)) {
       const uint8_t* ks = kv + s * Sh::kStageBytes;
-      const uint8_t* vs = ks + Sh::kKVBytes;
+      const uint8_t* vs = ks + Sh::kKBytes;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {      // 16 head dims a step
@@ -183,7 +211,8 @@ flash_wgmma_kernel(
       wgmma_commit();
       wgmma_wait_all();
 
-      const bool masked = (causal && k0 + BK - 1 > r0) || window > 0
+      const bool masked = (causal && k0 + BK - 1 > r0)
+                          || (window > 0 && r0 + 63 - k0 >= window)
                           || k0 + BK > Sk;
       float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -228,18 +257,18 @@ flash_wgmma_kernel(
       // O needs rescaling only where a row's max moved (alpha < 1)
       if (__any_sync(halcone::kAllLanes, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+        for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i / 2) & 1];
       }
 
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < BK / 16; ++kt)       // 16 keys a step
-        wgmma_rs<D>(o, phi[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
-                                           kSwizzleAtom));
+        wgmma_rs<DV>(o, phi[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
+                                            kSwizzleAtom));
 #pragma unroll
       for (int kt = 0; kt < BK / 16; ++kt)
-        wgmma_rs<D>(o, plo[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
-                                           kSwizzleAtom));
+        wgmma_rs<DV>(o, plo[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
+                                            kSwizzleAtom));
       wgmma_commit();
       wgmma_wait_all();
     }
@@ -256,8 +285,9 @@ flash_wgmma_kernel(
     inv[r] = 1.f / fmaxf(x, 1e-30f);
   }
   // the row statistics: stats[0] = m, stats[1] = 1 / max(l, 1e-30), each
-  // [B, Hq, Sq]; the quad's four lanes hold the same values
-  if (stats != nullptr && lane % 4 == 0) {
+  // [B, Hq, Sq]; the quad's four lanes hold the same values, and so do
+  // the row tile's blocks: the first writes them
+  if (stats != nullptr && lane % 4 == 0 && vpart == 0) {
     const int64_t n = static_cast<int64_t>(gridDim.z) * Hq * Sq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -273,9 +303,10 @@ flash_wgmma_kernel(
     const int row = row_a + 8 * r;
     if (row >= Sq) continue;
     __nv_bfloat16* orow =
-        out + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * D + cq;
+        out + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * D
+        + vpart * DV + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r],
                                 o[4 * j + 2 * r + 1] * inv[r]);
@@ -302,7 +333,7 @@ int launch(const void* q, const long long* qs, const void* k,
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
-  const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
+  const dim3 grid((Sq + kRows - 1) / kRows, Hq * Sh::kVSplit, B);
   flash_wgmma_kernel<D><<<grid, kThreads, Sh::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), stats, Sq, Sk, Hq,
       Hq / Hkv, scale, causal, window);
@@ -313,7 +344,7 @@ int launch(const void* q, const long long* qs, const void* k,
 
 // bf16 q/k/v with strides in elements over (B, S, H), each a multiple of 8
 // (16 bytes) and 16-byte-aligned base pointers; the head dim contiguous.
-// D in {64, 128}; scale: D^-0.5 as an f32.  stats: null, or [2, B, Hq,
+// D in {64, 128, 256}; scale: D^-0.5 as an f32.  stats: null, or [2, B, Hq,
 // Sq] f32 that receives each row's m and 1 / max(l, 1e-30).  Returns a
 // cudaError_t.
 extern "C" int halcone_flash_attention_wgmma(
@@ -331,6 +362,9 @@ extern "C" int halcone_flash_attention_wgmma(
                       scale, causal, window, s);
   if (D == 128)
     return launch<128>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
+                       scale, causal, window, s);
+  if (D == 256)
+    return launch<256>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
                        scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,10 @@ The CUDA kernel (``csrc/decode_attention.cu``) replaces the Pallas kernel
 is ``kernels.ref.attention_ref(..., causal=False, kv_len=kv_len)``.  It
 reads only the first ``kv_len`` cache rows, in one launch: a cluster of
 up to 8 blocks per (batch row, kv head) that combine their partial
-softmax through distributed shared memory.  ``kv_len`` is a host int (the
+softmax through distributed shared memory.  Head dims: ``HEAD_DIMS``
+(D = 80 is not built: hubert-xlarge, its only user, is an encoder with
+no decode step; ROADMAP Queue 1 item 23 builds it if a decoder needs
+it).  ``kv_len`` is a host int (the
 reference prefetches it as a device scalar).  k and v rows are copied
 16 bytes at a time, so their base pointers and strides over B, S and H
 must be multiples of 16 bytes.  This wrapper launches on CUDA tensors
@@ -20,6 +23,7 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.flash_attention import check_qkv
 
 MAX_Q_PER_KV = 16             # csrc/decode_attention.cu kMaxQpk
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _ARGS = ([cuda.P, cuda.LD, cuda.LD] + [cuda.P, cuda.LD, cuda.LD, cuda.LD] * 2
          + [cuda.P] + [cuda.I] * 5 + [cuda.F, cuda.I, cuda.P])
 
@@ -29,7 +33,8 @@ def decode_attention(q, k, v, kv_len):
     Returns [B, 1, Hq, D] in q's dtype.  Allocates its output (and
     nothing else), launches on the current stream and does not
     synchronise."""
-    dt = check_qkv(q, k, v, "decode_attention")
+    dt = check_qkv(q, k, v, "decode_attention", HEAD_DIMS,
+                   " (D = 80 is ROADMAP Queue 1 item 23)")
     if isinstance(kv_len, torch.Tensor):
         raise TypeError("decode_attention: kv_len must be a host int (a "
                         "tensor would cost a device sync)")

@@ -4,17 +4,24 @@ Two CUDA kernels replace the Pallas kernel
 ``repro/kernels/flash_attention.py::_flash_kernel``; ``route(dtype, D)``
 picks one, as a plain function of the dtype and the head dim:
 
-- ``"wgmma"``: bf16 with D in (64, 128) goes to the tensor-core kernel
-  (``csrc/flash_attention_wgmma.cu``: TMA loads, ``wgmma`` products, P
-  split into two bf16 halves for the P.V product).  TMA wants each stride
-  over B, S and H, and each base pointer, to be a multiple of 16 bytes;
-  the wrapper raises otherwise.  Asked with ``stats=``, it also writes
-  each row's softmax max m and 1 / max(l, 1e-30).
+- ``"wgmma"``: bf16 with D in (64, 128, 256) goes to the tensor-core
+  kernel (``csrc/flash_attention_wgmma.cu``: TMA loads, ``wgmma``
+  products, P split into two bf16 halves for the P.V product; at D = 256
+  two blocks share a row tile, each with half of O's columns).  TMA
+  wants each stride over B, S and H, and each base pointer, to be a
+  multiple of 16 bytes; the wrapper raises otherwise.  Asked with
+  ``stats=``, it also writes each row's softmax max m and
+  1 / max(l, 1e-30).
 - ``"simt"``: f32 (held to 1e-5, which TF32 tensor cores would not meet),
-  and bf16 at D in (16, 32), go to the CUDA-core kernel
-  (``csrc/flash_attention.cu``).
+  and bf16 at D in (16, 32, 80), go to the CUDA-core kernel
+  (``csrc/flash_attention.cu``; at D = 80 and 256 each query row is
+  split over four threads).  D = 80 (hubert-xlarge) stays off the
+  tensor cores: its 160-byte rows do not fill whole 128-byte swizzled
+  boxes.
 
-The gradient ``flash_attention_bwd`` takes the same route: ``"wgmma"``
+The gradient ``flash_attention_bwd`` takes the same route, at the head
+dims of ``BWD_HEAD_DIMS`` only (D = 80 and 256 have no backward kernel
+yet: ``kernels.ops`` raises under grad there): ``"wgmma"``
 runs ``csrc/flash_attention_bwd_wgmma.cu`` (two launches on the tensor
 cores, P recomputed from the forward's m and 1 / l, P and dS split into
 bf16 halves), ``"simt"`` ``csrc/flash_attention_bwd.cu`` (three launches
@@ -35,8 +42,10 @@ import torch
 
 from repro_torch.kernels import cuda
 
-HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+# the head dims flash_attention_bwd's kernels are built for
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 ROUTES = ("wgmma", "simt")
 _ARGS = ([cuda.P, cuda.LD, cuda.LD, cuda.LD] * 3 + [cuda.P] + [cuda.I] * 6
          + [cuda.F, cuda.I, cuda.I, cuda.I, cuda.P])
@@ -44,10 +53,12 @@ _ARGS = ([cuda.P, cuda.LD, cuda.LD, cuda.LD] * 3 + [cuda.P] + [cuda.I] * 6
 _ARGS_WGMMA = _ARGS[:13] + [cuda.P] + _ARGS[13:-2] + [cuda.P]
 
 
-def check_qkv(q, k, v, name: str):
+def check_qkv(q, k, v, name: str, head_dims=HEAD_DIMS, unbuilt=""):
     """Shared argument checks of the attention wrappers: 4-D CUDA tensors
     of one float dtype, k and v of one shape, GQA heads that divide, a
-    head dim the kernels are built for.  Returns q's storage type code."""
+    head dim in ``head_dims`` (the ones the caller's kernels are built
+    for; ``unbuilt`` is added to the error for any other).  Returns q's
+    storage type code."""
     dev = q.device
     dt = cuda.check_float("q", q, None)
     for nm, t in (("k", k), ("v", v)):
@@ -61,8 +72,9 @@ def check_qkv(q, k, v, name: str):
             or Hq % k.shape[2]:
         raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not fit "
                          f"q {tuple(q.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{name}: head dim {D} not in {head_dims}"
+                         f"{unbuilt}")
     return dt
 
 
@@ -182,7 +194,7 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0,
     to time the two routes against each other on the card; nothing on the
     training path passes it.  Allocates its outputs, launches on the
     current stream and does not synchronise."""
-    dt = check_qkv(q, k, v, "flash_attention_bwd")
+    dt = check_qkv(q, k, v, "flash_attention_bwd", BWD_HEAD_DIMS)
     dev = q.device
     for name, t in (("out", out), ("dout", dout)):
         cuda.check_float(name, t, dev, q.dtype)

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b --prompt-len 24
 
 The port of ``repro.launch.serve``, with the same flags and the same
 default (the smoke config of the arch), plus ``--device``: the CUDA card
 unless told otherwise.  Every prefix-KV lease comes from the port's
 single-device ``ArrayFabric`` via ONE batched probe per serve call.
+Requests are token prompts: an encoder-only arch (hubert-xlarge) has no
+decode step to serve, and raises ``ValueError``.
 """
 import argparse
 import json
@@ -38,8 +41,11 @@ def main(argv=None):
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = cfgs.SMOKE[args.arch]            # serving demo runs the smoke cfg
+    if not cfg.causal:
+        raise ValueError(f"{args.arch} is encoder-only: it has no decode "
+                         "step to serve (run models.prefill on its frames)")
+    dev = resolve_device(args.device)
     params = init_model(cfg, torch.Generator(dev).manual_seed(0))
     fabric = default_fabric(FabricConfig(n_shards=args.tsu_shards,
                                          rd_lease=args.rd_lease,

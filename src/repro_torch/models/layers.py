@@ -48,18 +48,19 @@ def attention(q, k, v, *, causal=True, window=0, kv_len=None):
 
     ``kv_len is None`` (train/prefill): flash attention over all of k/v,
     causal and/or windowed.  ``kv_len`` set (decode): one query token over
-    the first ``kv_len`` cache rows, which needs ``Sq == 1``, no causal
-    mask and no window.  Other combinations raise.
+    the first ``kv_len`` cache rows, which needs ``Sq == 1`` and no causal
+    mask; a window masks nothing there (below).  Other combinations raise.
     """
     if kv_len is None:
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     if q.shape[1] != 1 or causal:
         raise ValueError("decode attention takes one query token and no "
                          f"causal mask, got Sq={q.shape[1]}, causal={causal}")
-    if window:
-        raise NotImplementedError(
-            "windowed decode attention is not ported (ROADMAP Queue 1 item "
-            "12e: windowed attention)")
+    # A windowed decode attends to every one of the first kv_len rows, as
+    # the reference does (ROADMAP Queue 3 R1): its decode passes q_offset 0
+    # (repro/models/attention.py:63-64), so the query sits at position 0,
+    # and its window mask, q_pos - k_pos >= window (repro/models/
+    # layers.py:45-46), is never true for k_pos >= 0.
     return ops.decode_attention(q, k, v, kv_len)
 
 

@@ -1,18 +1,23 @@
-"""Model assembly: the serving and training paths of the dense decoders,
-mamba2 and zamba2's hybrid stack — the port of ``repro.models.model``.
+"""Model assembly: the serving and training paths of the dense decoders
+(gemma3's 5:1 local:global sliding window among them), mamba2, zamba2's
+hybrid stack and the two modality-frontend stubs (hubert's audio frames,
+llava's vision patches) — the port of ``repro.models.model``.
 
 A config is compiled into the reference's *plan*: an optional prefix of
 looped layers plus a run of stacked pattern-repeats (and a looped tail).
 The parameter and cache trees keep the reference's names and layout
 (stacked ``[L, ...]`` leaves under ``segments/seg<i>``, zamba2's shared
 attention block at the top level under ``shared_attn``, an empty ``{}``
-block at each of its positions), so the tests compare like with like;
+block at each of its positions, hubert's frame projection at the top
+level under ``frontend``), so the tests compare like with like;
 the reference's ``lax.scan`` over the stack becomes a Python loop over
 the layer index, each stacked leaf unbound into its layers once (so
 autograd stacks the layers' gradients in one step).  Dense, SSM and
-shared-attention blocks with global attention are ported: MoE blocks,
-MLA, sliding windows and modality frontends raise ``NotImplementedError``
-naming the ROADMAP item that will port them.
+shared-attention blocks, global or windowed, and both frontend stubs are
+ported: MoE blocks and MLA raise ``NotImplementedError`` naming the
+ROADMAP item that will port them.  A windowed layer's decode step attends
+to the whole filled cache, as the reference's does (``layers.attention``;
+ROADMAP Queue 3 R1).
 
 Training (``loss_fn``): the f32 master weights go in as they are, and
 every float weight of two or more dims is cast to the compute dtype where
@@ -43,8 +48,6 @@ _PORTED = ("dense", "ssm", "attn_shared")
 _TODO = {
     "moe": "12c: MoE blocks (models/moe.py)",
     "mla": "12d: MLA attention",
-    "window": "12e: windowed attention and the modality frontends",
-    "frontend": "12e: windowed attention and the modality frontends",
 }
 
 
@@ -62,10 +65,6 @@ def check_supported(cfg: ModelConfig) -> None:
             raise _unsupported(kind, cfg)
     if cfg.is_mla:
         raise _unsupported("mla", cfg)
-    if cfg.window:
-        raise _unsupported("window", cfg)
-    if cfg.frontend != "none":
-        raise _unsupported("frontend", cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +133,8 @@ def model_spec(cfg: ModelConfig) -> dict:
     check_supported(cfg)
     D, V = cfg.d_model, cfg.vocab
     spec: dict = {"embed": P((V, D), ("vocab", "embed"))}
+    if cfg.frontend == "audio":
+        spec["frontend"] = P((cfg.d_frontend, D), (None, "embed"))
     seg_specs = {}
     segs = build_plan(cfg)
     for si, seg in enumerate(segs):
@@ -234,16 +235,26 @@ def _apply_block(cfg: ModelConfig, desc: LayerDesc, bp: dict, h, *,
     return h + m, nc
 
 
-def forward(cfg: ModelConfig, params: dict, tokens, *, cache=None,
-            pos=None):
-    """tokens: [B, S] int; ``pos`` (host int) = cache fill level for a
-    decode step.  Returns (h_final [B, S, D], new_cache); the given cache
-    is never written.  With ``cfg.policy.remat``, no cache and grad mode
-    on (training), each layer of a stacked segment is checkpointed."""
+def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
+            frames=None, cache=None, pos=None):
+    """tokens: [B, S] int (None with ``frames``); ``frames`` [B, S,
+    d_frontend]: audio frame embeddings, projected by ``frontend`` in
+    place of the token embedding; ``patches`` [B, n, D]: vision patch
+    embeddings that replace the first n positions' embeddings; ``pos``
+    (host int) = cache fill level for a decode step.  Returns (h_final
+    [B, S, D], new_cache); the given cache is never written.  With
+    ``cfg.policy.remat``, no cache and grad mode on (training), each layer
+    of a stacked segment is checkpointed."""
     check_supported(cfg)
     cd = cfg.policy.compute_dtype
-    B, S = tokens.shape
-    h = params["embed"].to(cd)[tokens]
+    if frames is not None:
+        h = frames.to(cd) @ params["frontend"].to(cd)
+        S = frames.shape[1]
+    else:
+        S = tokens.shape[1]
+        h = params["embed"].to(cd)[tokens]
+    if patches is not None:
+        h = torch.cat([patches.to(cd), h[:, patches.shape[1]:]], 1)
     shared_attn = params.get("shared_attn")
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     if pos is not None:
@@ -297,12 +308,14 @@ def unembed_matrix(cfg: ModelConfig, params: dict):
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     """Training loss.  batch: ``tokens`` [B, S] (or ``labels`` and an
-    optional ``mask``), tensors on the params' device.  Next-token CE:
-    labels are the tokens rolled by one, the last position masked; the
+    optional ``mask``; an encoder always takes them), and ``patches`` or
+    ``frames`` for a frontend, tensors on the params' device.  Next-token
+    CE: labels are the tokens rolled by one, the last position masked; the
     loss is ``ce + 0.01 * aux`` with aux 0 for the ported block kinds.
     Returns (loss, {"ce", "aux"}), f32 scalars."""
     tokens = batch.get("tokens")
-    h, _ = forward(cfg, params, tokens)
+    h, _ = forward(cfg, params, tokens, patches=batch.get("patches"),
+                   frames=batch.get("frames"))
     W = unembed_matrix(cfg, params)
     if cfg.causal and "labels" not in batch:
         ll = torch.roll(tokens, -1, dims=1)       # h[t] predicts tokens[t+1]
@@ -324,9 +337,13 @@ def _next_ids(cfg: ModelConfig, params: dict, h):
 
 
 # ------------------------------------------------------------------ serving
-def prefill(cfg: ModelConfig, params: dict, tokens, cache):
-    """Fill the cache from a prompt; returns (next_token_ids [B], cache)."""
-    h, new_cache = forward(cfg, params, tokens, cache=cache)
+def prefill(cfg: ModelConfig, params: dict, tokens, cache, *, patches=None,
+            frames=None):
+    """Fill the cache from a prompt (tokens, or ``frames``; ``patches``
+    over the first positions, as in ``forward``); returns
+    (next_token_ids [B], cache)."""
+    h, new_cache = forward(cfg, params, tokens, patches=patches,
+                           frames=frames, cache=cache)
     return _next_ids(cfg, params, h), new_cache
 
 

@@ -49,6 +49,11 @@ def _block(n):
     (1, 200, 200, 4, 2, 64, False, 32),
     (1, 50, 130, 4, 2, 64, False, 0),         # rectangular
     (1, 130, 50, 4, 2, 64, True, 0),          # more queries than keys
+    # D = 256 (gemma3-4b; two blocks a row tile, each with half of O's
+    # columns and all of S): windowed and global, GQA 2
+    (1, 256, 256, 4, 2, 256, True, 64),
+    (1, 200, 200, 4, 2, 256, True, 0),
+    (1, 100, 150, 2, 1, 256, False, 0),
 ])
 def test_split_emulation_matches_pallas_and_beats_one_rounding(
         B, Sq, Sk, Hq, Hkv, D, causal, window):
@@ -81,7 +86,8 @@ def test_flash_route_by_dtype_and_head_dim(dtype, D):
         with pytest.raises(ValueError, match="no kernel"):
             route(dtype, D)
         return
-    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256) \
+        else "simt"
     assert route(dtype, D) == want
 
 

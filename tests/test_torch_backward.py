@@ -40,7 +40,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, check_stats,
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, check_stats,
                                                  route)
 from repro_torch.kernels.rmsnorm import (BWD_BLOCK_ROWS, ELEMENT_PATH,
                                          plan, rmsnorm_bwd_plan)
@@ -125,7 +125,7 @@ def test_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, Hq, Hkv, D, causal,
         _close(g, w, dtype)
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", BWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_takes_the_forward_route(dtype, D):
     """The backward takes the forward's ``route``: the tensor-core

@@ -688,6 +688,20 @@ def test_cuda_rmsnorm_weight_off_16_bytes(exact_f32, R, D, dtype):
     (1, 200, 200, 4, 2, 64, False, 32),
     (1, 50, 130, 4, 2, 64, False, 0),         # rectangular, tensor cores
     (1, 130, 50, 4, 2, 64, True, 0),          # more queries than keys
+    # D = 256 (gemma3-4b; bf16 on the tensor cores with 32-key tiles, f32
+    # split over four threads a row): its prefill, windowed and global,
+    # then windows that skip whole key tiles, odd and rectangular shapes
+    (4, 1536, 1536, 8, 4, 256, True, 1024),
+    (4, 1536, 1536, 8, 4, 256, True, 0),
+    (1, 333, 333, 8, 4, 256, True, 128),
+    (1, 200, 200, 4, 2, 256, False, 32),
+    (1, 77, 130, 4, 2, 256, False, 0),
+    (1, 130, 50, 4, 2, 256, True, 0),
+    # D = 80 (hubert-xlarge, non-causal; the CUDA-core kernel in both
+    # dtypes): its encoder shape, then windowed and odd ones
+    (8, 512, 512, 16, 16, 80, False, 0),
+    (1, 130, 130, 4, 2, 80, True, 32),
+    (1, 50, 77, 4, 1, 80, False, 16),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
@@ -706,8 +720,8 @@ def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
     _close(got, ref.attention_ref(q, k, v, causal=causal, window=window))
     assert flash_attention.launches == before + 1
     assert flash_attention.route_launches[path] == before_route + 1
-    assert path == ("wgmma" if dtype == torch.bfloat16 and D >= 64
-                    else "simt")
+    assert path == ("wgmma" if dtype == torch.bfloat16
+                    and D in (64, 128, 256) else "simt")
 
 
 @pytest.mark.cuda
@@ -716,6 +730,8 @@ def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
     (1, 200, 200, 4, 2, 64, False, 32),
     (1, 50, 130, 4, 2, 64, False, 0),
     (1, 128, 128, 2, 1, 128, True, 0),
+    (1, 256, 256, 4, 2, 256, True, 64),       # D = 256: 32-key tiles
+    (1, 100, 150, 2, 1, 256, False, 0),
 ])
 def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
                                         causal, window):
@@ -818,7 +834,13 @@ def test_cuda_flash_bwd_wgmma_keeps_split(cuda_device, B, Sq, Sk, Hq, Hkv,
     (8, 584, 15, 5, 64, 65),
     (8, 536, 32, 32, 64, 513),                # zamba2-1.2b decode, qpk=1
     (2, 4096, 15, 5, 64, 4000),               # several tiles per block
-    (2, 200, 4, 2, 32, 150), (1, 100, 8, 1, 64, 77)])   # qpk 2 and 8
+    (2, 200, 4, 2, 32, 150), (1, 100, 8, 1, 64, 77),    # qpk 2 and 8
+    # D = 256 (32-row tiles, block 0's slots in the stages' region):
+    # gemma3-4b's decode past its window (G = 4), then G = 1 and 16
+    (4, 1576, 8, 4, 256, 1568), (2, 300, 4, 4, 256, 33),
+    (1, 100, 16, 1, 256, 77), (2, 200, 14, 2, 256, 150),
+    (2, 64, 8, 4, 256, 31), (2, 64, 8, 4, 256, 64),
+    (2, 700, 56, 8, 128, 641)])              # llava-next-34b, qpk 7
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decode_attention_equals_plain(exact_f32, B, Sk, Hq, Hkv, D,
                                             kv_len, dtype):
@@ -849,9 +871,12 @@ def test_cuda_float_wrappers_check_their_inputs(cuda_device):
         rmsnorm(x.t(), torch.zeros(4, device=dev))
     with pytest.raises(TypeError, match="float32"):
         rmsnorm(x, torch.zeros(32, device=dev, dtype=torch.bfloat16))
-    q = torch.ones(1, 4, 4, 80, device=dev)
+    q = torch.ones(1, 4, 4, 96, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
+    q = torch.ones(1, 1, 4, 80, device=dev)
+    with pytest.raises(ValueError, match="head dim 80 .* item 23"):
+        decode_attention(q, q, q, 1)          # no decode kernel at D = 80
     q = torch.ones(1, 1, 4, 64, device=dev)
     k = torch.ones(1, 8, 2, 64, device=dev)
     with pytest.raises(ValueError, match="kv_len"):
@@ -867,6 +892,25 @@ def test_cuda_float_wrappers_check_their_inputs(cuda_device):
     with pytest.raises(ValueError, match="16 bytes"):
         decode_attention(wide[:, :1, :, :64], wide[..., :64],
                          wide[..., :64], 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [80, 256])
+def test_cuda_flash_raises_under_grad_without_a_backward_kernel(cuda_device,
+                                                               D):
+    """At head dims with no backward kernel, ``ops.flash_attention`` on
+    CUDA tensors that require grad raises, naming the ROADMAP item, and
+    launches nothing; without grad it launches the forward kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(1, 64, 4, D, device=cuda_device, dtype=torch.bfloat16)
+    before = flash_attention.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 22"):
+        ops.flash_attention(q.requires_grad_(), q, q)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        ops.flash_attention(q, q, q)
+    assert flash_attention.launches == before + 1
 
 
 @pytest.mark.cuda

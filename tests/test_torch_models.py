@@ -119,7 +119,8 @@ def test_rmsnorm_plan_odd_rows(R, D, vec, want):
     assert rmsnorm_plan(R, D, vec, 132) == want
 
 
-_FLASH = [(1, 128, 4, 4, 64), (2, 64, 6, 2, 16), (1, 128, 4, 2, 80)]
+_FLASH = [(1, 128, 4, 4, 64), (2, 64, 6, 2, 16), (1, 128, 4, 2, 80),
+          (1, 128, 4, 2, 256)]
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,D", _FLASH)
@@ -147,7 +148,10 @@ def test_flash_plain_matches_pallas_and_jnp(B, S, Hq, Hkv, D, dt, causal,
 
 @pytest.mark.parametrize("B,Sk,Hq,Hkv,D,kv_len", [
     (2, 256, 6, 2, 16, 1), (2, 256, 6, 2, 16, 100), (1, 512, 4, 1, 64, 512),
-    (1, 128, 4, 2, 80, 77)])
+    (1, 128, 4, 2, 80, 77),
+    # D = 256 (gemma3-4b decodes with 2 query heads a kv head; 1 and 7
+    # as the CUDA kernel's other head groups)
+    (1, 128, 8, 4, 256, 77), (1, 96, 2, 2, 256, 77), (1, 96, 14, 2, 256, 77)])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_decode_plain_matches_pallas_and_jnp(B, Sk, Hq, Hkv, D, kv_len, dt):
     rng = np.random.default_rng(Sk + kv_len + D)
@@ -171,14 +175,20 @@ def test_decode_plain_matches_pallas_and_jnp(B, Sk, Hq, Hkv, D, kv_len, dt):
 
 
 def test_attention_dispatch_rules():
+    """A decode takes one query token and no causal mask; a window there
+    masks nothing, as in the reference (ROADMAP Queue 3 R1)."""
     q = torch.zeros(1, 2, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="one query token"):
         layers.attention(q, k, k, causal=False, kv_len=4)
     with pytest.raises(ValueError, match="causal"):
         layers.attention(q[:, :1], k, k, causal=True, kv_len=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layers.attention(q[:, :1], k, k, causal=False, window=4, kv_len=4)
+    rng = np.random.default_rng(0)
+    q1, kk, vv = (torch.from_numpy(_normal(rng, s)) for s in
+                  ((1, 1, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16)))
+    np.testing.assert_array_equal(
+        _np(layers.attention(q1, kk, vv, causal=False, window=4, kv_len=7)),
+        _np(layers.attention(q1, kk, vv, causal=False, kv_len=7)))
 
 
 def test_float_wrappers_refuse_cpu_tensors():
@@ -229,7 +239,8 @@ def _f32(cfg):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "qwen2.5-14b",
-                                  "mamba2-130m", "zamba2-1.2b"])
+                                  "mamba2-130m", "zamba2-1.2b", "gemma3-4b",
+                                  "hubert-xlarge", "llava-next-34b"])
 @pytest.mark.parametrize("table", ["ARCHS", "SMOKE"])
 def test_specs_match_reference(arch, table):
     rc, tc = getattr(rcfgs, table)[arch], getattr(tcfgs, table)[arch]
@@ -277,8 +288,7 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
-                                  "deepseek-v2-236b", "gemma3-4b",
-                                  "llava-next-34b", "hubert-xlarge"])
+                                  "deepseek-v2-236b"])
 def test_unported_blocks_raise(arch):
     cfg = tcfgs.SMOKE[arch]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
