@@ -176,9 +176,28 @@ Phases (any failure raises and the script exits non-zero):
      query heads a kv head), card == CPU at 2 layers (batch 1); each
      model's launch counts set to 0 just before its run and read just
      after;
- 10. the kernel summary line (with rows for the head dims phase 9 adds),
-     then ``{"ok": true, "device": ...}`` last.  Each phase's start time
-     is printed as ``[N s]``.
+ 10. MoE and MLA at full width: ``Server`` with deepseek-v2-236b at 4 of
+     its 60 layers (236 B parameters do not fit one card: the dense layer
+     0, then 3 MoE layers of 160 routed experts, top-6, and 2 shared;
+     MLA, whose prefill takes flash at q and k of 192 columns and v of
+     128 on the tensor cores, and whose absorbed decode is einsums over
+     the latent cache) and llama4-maverick-400b-a17b at 2 of 48 (one
+     dense and one MoE layer of 128 experts, top-1, and 1 shared), each
+     built on the card from seeded weights in its own bf16-param policy
+     and freed before the next: batch 2, 512-token prompts, 32 (llama4:
+     16) new tokens, two waves (a miss, then a lease hit), with phase
+     4's checks (launch counts, every flash on the tensor-core route,
+     the profiled deepseek prefill's flash the (192, 128) instantiation,
+     payload unchanged); every MoE layer against its token-by-token
+     evaluation in f32 on the card (``moe_by_token``: each kept choice
+     through its expert times its gate, plus the shared experts; routed
+     and dropped choices logged); card vs CPU at 2 layers (deepseek: the
+     dense and the first MoE layer, one prompt and 4 decode steps) and 1
+     (llama4's dense layer 0) within a relative L2 of 2e-2, tokens whose
+     experts split at a near-tie left out; times and peak memory;
+ 11. the kernel summary line (with rows for the head dims phase 9 adds
+     and the shapes phase 10 adds), then ``{"ok": true, "device": ...}``
+     last.  Each phase's start time is printed as ``[N s]``.
 
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
@@ -223,7 +242,8 @@ FABRIC_WORLDS = (("nccl", 1), ("gloo", 2))
 FABRIC_RANK_TIMEOUT_S = 300
 # the profiled closed-loop replay of phase 7 takes the trace's first
 # requests: the profiler's own cost grows with the events it records
-FABRIC_PROFILE_REQUESTS = 256
+# (128 since phase 10 joined the script; 256 before, 512 before PR 24)
+FABRIC_PROFILE_REQUESTS = 128
 # tensor-core peak in bf16 (data sheet, dense); f32 math runs on the
 # CUDA cores at the 67 TFLOP/s above
 BF16_FLOPS_PER_S = 989e12
@@ -349,6 +369,35 @@ PHASE9_FLASH = ((WINDOW_B, WINDOW_PROMPT, 8, 4, 256, True, 1024),
 PHASE9_DECODE = ((WINDOW_B, WINDOW_MAX_LEN, 8, 4, 256, WINDOW_PROMPT + 32),
                  (VISION_B, 576 + VISION_TEXT + VISION_NEW + 8, 56, 8, 128,
                   576 + VISION_TEXT + 1))
+# phase 10: MoE and MLA at full width, each model built on the card from
+# seeded weights in its own policy (bf16 params) and freed before the next.
+# deepseek-v2-236b: 60 layers are 236 B parameters, past one card: depth
+# cut to 4 (the dense layer 0, then 3 MoE layers, a stacked segment; 13.3 B
+# parameters, 26.6 GB); batch 2, 512-token prompts, 32 new tokens, two
+# waves; card vs CPU at 2 layers (the dense layer and the first MoE layer)
+# on one prompt plus 4 decode steps.  llama4-maverick-400b-a17b: depth cut
+# to 2 of 48 (one dense and one MoE layer, the pattern's period; 18.6 B
+# parameters, 37.1 GB: four layers would be 70.1 GB); 16 new tokens; card
+# vs CPU at its dense layer 0.  (arch, layers, new tokens, CPU-check
+# layers, decode steps checked)
+MLA_ARCH, MOE_ARCH = "deepseek-v2-236b", "llama4-maverick-400b-a17b"
+PHASE10 = ((MLA_ARCH, 4, 32, 2, 4), (MOE_ARCH, 2, 16, 1, 0))
+PHASE10_B, PHASE10_PROMPT, PHASE10_WAVES = 2, 512, 2
+# phase 2's rows at phase 10's shapes: flash (B, S, Hq, Hkv, D, Dv, causal)
+# at deepseek's MLA prefill and llama4's, decode (B, Sk, Hq, Hkv, D,
+# kv_len) at llama4's first and last step
+PHASE10_FLASH = ((PHASE10_B, PHASE10_PROMPT, 128, 128, 192, 128, True),
+                 (PHASE10_B, PHASE10_PROMPT, 40, 8, 128, 128, True))
+PHASE10_DECODE = tuple((PHASE10_B, PHASE10_PROMPT + 16 + 8, 40, 8, 128,
+                        kv_len) for kv_len in (PHASE10_PROMPT + 1,
+                                               PHASE10_PROMPT + 16))
+# a MoE routing split between the card and the CPU (their bf16 roundings
+# upstream differ, by up to ~1% of the hidden state, so the router logits
+# by a few bf16 steps) must sit at a near-tie of the CPU's gates: its k-th
+# and (k+1)-th within this relative gap, four bf16 steps of a router logit
+# at 2-4 (2^-6 each; deepseek's splits sat 0, 1 and 2 steps apart); such
+# tokens are left out of the card-vs-CPU comparison, at most one in eight
+NEAR_TIE = 2 ** -4
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -361,9 +410,11 @@ def log(*a) -> None:
 
 # rmsnorm's rows: decode (R = 8) and prefill (R = 4096) at the widths
 # the serving path normalises (smollm 960, mamba2 768 and its d_inner
-# 1536, zamba2 2048 and its d_inner 4096), then an odd one
+# 1536, zamba2 2048 and its d_inner 4096; deepseek-v2's kv_ln 512, q_ln
+# 1536 and its and llama4's d_model 5120), then an odd one
 RMSNORM_SHAPES = tuple((R, D) for R in (SERVE_B, SERVE_B * PROMPT_LEN)
-                       for D in (768, 960, 1536, 2048, 4096)) + ((7, 80),)
+                       for D in (512, 768, 960, 1536, 2048, 4096, 5120)
+                       ) + ((7, 80),)
 
 
 # ------------------------------------------------------------------ timing
@@ -845,6 +896,30 @@ def check_float_kernels(torch, np, dev, report):
                     4 * D * B * Hq * _visible_pairs(S, S, causal, window),
                     dtype, [B, S, Hq, Hkv, D, int(causal), window],
                     route(dtype, D))
+        # phase 10's prefills: deepseek-v2's MLA (q and k 192 wide with v
+        # 128, k built as the model builds it: the rope columns broadcast
+        # over the heads) and llama4-maverick's (5 query heads a kv head)
+        for B, S, Hq, Hkv, D, Dv, causal in PHASE10_FLASH:
+            q = randn((B, S, Hq, D), dtype, 1)
+            k = randn((B, S, Hkv, D), dtype, 2)
+            if Dv != D:
+                kr = randn((B, S, D - Dv), dtype, 7)
+                k = torch.cat([k[..., :Dv], kr[..., None, :].expand(
+                    B, S, Hkv, D - Dv)], -1)
+            v = randn((B, S, Hkv, Dv), dtype, 3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                     vt, is_causal=causal, enable_gqa=True)
+            compare("flash_attention",
+                    lambda: flash_attention(q, k, v, causal=causal),
+                    lambda: ref.attention_ref(q, k, v, causal=causal), sdpa,
+                    (B * S * Hq * (D + Dv) + B * S * Hkv * (D + Dv)) * el,
+                    2 * (D + Dv) * B * Hq * _visible_pairs(S, S, causal),
+                    dtype, [B, S, Hq, Hkv, D, Dv, int(causal)],
+                    route(dtype, D, Dv))
+            row = report["flash_attention"][-1]
+            row["library_kernel"] = sdpa_backend(torch, sdpa)
+            log(f"    SDPA ran {row['library_kernel'][:90]}")
         # smollm-360m's cache at three fill levels, zamba2-1.2b's at one
         for Sk, Hq, Hkv, kv_len in ((MAX_LEN, 15, 5, 1),
                                     (MAX_LEN, 15, 5, PROMPT_LEN + 1),
@@ -869,8 +944,9 @@ def check_float_kernels(torch, np, dev, report):
                     4 * D * B * Hq * kv_len, dtype,
                     [B, Sk, Hq, Hkv, D, kv_len])
         # phase 9's decode steps: gemma3-4b past its window (D = 256),
-        # llava-next-34b (7 query heads a kv head)
-        for B, Sk, Hq, Hkv, D, kv_len in PHASE9_DECODE:
+        # llava-next-34b (7 query heads a kv head); phase 10's:
+        # llama4-maverick (5) at its first and last step
+        for B, Sk, Hq, Hkv, D, kv_len in PHASE9_DECODE + PHASE10_DECODE:
             q = randn((B, 1, Hq, D), dtype, 4)
             k = randn((B, Sk, Hkv * D), dtype, 5).view(B, Sk, Hkv, D)
             v = randn((B, Sk, Hkv * D), dtype, 6).view(B, Sk, Hkv, D)
@@ -888,6 +964,12 @@ def check_float_kernels(torch, np, dev, report):
                     (2 * B * Hq * D + 2 * B * kv_len * Hkv * D) * el,
                     4 * D * B * Hq * kv_len, dtype,
                     [B, Sk, Hq, Hkv, D, kv_len])
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The device kernel that takes most of two calls of ``fn`` under
+    ``torch.profiler``: which of its backends SDPA picked."""
+    return profile_calls(torch, fn, 2)["device_by_name"][0]["name"]
 
 
 def log_rmsnorm_vs_library(report) -> None:
@@ -1703,13 +1785,15 @@ def device_breakdown(prof, wall_us):
 
 
 def profile_calls(torch, fn, calls, counter=None):
-    """``calls`` calls of ``fn`` (each ending in a host sync, as the
-    serving loop's steps do) under ``torch.profiler``: the device's busy
-    time per call and ``device_breakdown``'s tables.  One more call runs
-    first, in the profiler's warm-up step (tracing prepared, nothing
-    kept): started with no warm-up, the profiler missed the first device
-    events of its window (a layer's first kernels; once one of 272 decode
-    launches).
+    """``calls`` calls of ``fn`` under ``torch.profiler``, each followed
+    by a device sync (the serving loop's steps end in one anyway): the
+    device's busy time per call and ``device_breakdown``'s tables.  The
+    sync keeps a call's kernels inside its step: a lone SDPA call, still
+    running when the window closed, once left the trace with no device
+    event.  One more call runs first, in the profiler's warm-up step
+    (tracing prepared, nothing kept): started with no warm-up, the
+    profiler missed the first device events of its window (a layer's
+    first kernels; once one of 272 decode launches).
     ``counter``, a kernel wrapper: its launches during the recorded
     calls, as ``launches``."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1718,11 +1802,13 @@ def profile_calls(torch, fn, calls, counter=None):
                  schedule=schedule(wait=0, warmup=1, active=calls,
                                    repeat=1)) as prof:
         fn()
+        torch.cuda.synchronize()
         prof.step()
         n0 = counter.launches if counter is not None else 0
         t0 = time.perf_counter()
         for k in range(calls):
             fn()
+            torch.cuda.synchronize()
             if k < calls - 1:
                 prof.step()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -1869,9 +1955,9 @@ def forward_layers(torch, cfg, params, tokens, inputs=None):
     def record(cfg_, desc, bp, h, **kw):
         if inputs is not None:
             inputs.append((desc.kind, bp, h))
-        h, nc = apply(cfg_, desc, bp, h, **kw)
+        h, nc, aux = apply(cfg_, desc, bp, h, **kw)
         hs.append(h)
-        return h, nc
+        return h, nc, aux
 
     model_mod._apply_block = record
     try:
@@ -2009,13 +2095,16 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
                   max_new=MAX_NEW, model_layers=CPU_MODEL_LAYERS,
                   full=True, batch=SERVE_B, prompt_len=PROMPT_LEN,
                   max_len=MAX_LEN, model_batch=CPU_MODEL_BATCH,
-                  decode_check=0):
-    """A serving path at full width on the card (phases 4, 5 and 9): every
-    launch count set to 0 just before the waves and read just after;
-    the kernels in ``need`` must have launched.  ``full`` adds the
+                  decode_check=0, layers=None):
+    """A serving path at full width on the card (phases 4, 5, 9 and 10):
+    every launch count set to 0 just before the waves and read just
+    after; the kernels in ``need`` must have launched.  ``full`` adds the
     ``serve_stream`` and CPU-server comparisons; ``decode_check`` > 0
     also holds that many decode steps' hidden states, card vs CPU, in
-    the model check (both sides decode the card's tokens)."""
+    the model check (both sides decode the card's tokens); ``layers``
+    cuts the served model's depth.  A MoE model's layers are each held to
+    ``moe_by_token`` on the card, and its card-vs-CPU check leaves out
+    the tokens whose experts split at a near-tie (``RouteLog``)."""
     import dataclasses
 
     from repro_torch import configs
@@ -2027,6 +2116,8 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     from repro_torch.runtime.server import Server
 
     cfg = configs.get(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     waves = serve_waves(np, cfg.vocab, n_waves, max_new, batch, prompt_len)
     t0 = time.perf_counter()
     params = init_model(cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED))
@@ -2114,6 +2205,10 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
            "tokens_per_s": n_waves * batch * max_new / serve_s,
            "hit_wave_tokens_per_s": batch * max_new
            / statistics.mean(walls[1:])}
+    tok = torch.from_numpy(np.stack([r.prompt for r in waves[0]]))
+    if cfg.n_experts:
+        rep["moe_layers"] = check_moe_layers(torch, np, cfg, srv.params,
+                                             tok.to(dev))
 
     if full:
         srv_s = Server(cfg, params, batch_size=batch, max_len=max_len,
@@ -2144,40 +2239,53 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
     cfg4 = dataclasses.replace(cfg, n_layers=model_layers)
     p4 = cast_params(cfg4, init_model(
         cfg4, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
+    t0 = time.perf_counter()
     p4h = tree_map(lambda t: t.cpu(), p4)
-    tok = torch.from_numpy(np.stack([r.prompt for r in waves[0]]))
+    copy_s = time.perf_counter() - t0
     tok4 = tok[:model_batch]
     t0 = time.perf_counter()
-    if decode_check:
-        # the prompt through a cache on both devices, then decode steps
-        L = prompt_len + decode_check + 8
-        with torch.no_grad():
-            h_c, c_c = forward(cfg4, p4, tok4.to(dev), cache=init_cache(
-                cfg4, model_batch, L, dev))
-            h_h, c_h = forward(cfg4, p4h, tok4, cache=init_cache(
-                cfg4, model_batch, L, "cpu"))
-    else:
-        with torch.no_grad():
-            h_c, _ = forward(cfg4, p4, tok4.to(dev))
-        blocks = []
-        h_h, hs_h = forward_layers(torch, cfg4, p4h, tok4, blocks)
-    lg_c = h_c[:, -1] @ unembed_matrix(cfg4, p4)
-    lg_h = h_h[:, -1] @ unembed_matrix(cfg4, p4h)
-    errs = {"hidden_rel_l2": rel_l2(h_c, h_h),
-            "logits_rel_l2": rel_l2(lg_c, lg_h)}
-    if decode_check:
-        dec, ids = [], torch.argmax(lg_c.float(), -1)
-        with torch.no_grad():
-            for t in range(decode_check):
-                x = ids[:, None].to(torch.int32)
-                hd_c, c_c = forward(cfg4, p4, x, cache=c_c,
-                                    pos=prompt_len + t)
-                hd_h, c_h = forward(cfg4, p4h, x.cpu(), cache=c_h,
-                                    pos=prompt_len + t)
-                dec.append(rel_l2(hd_c, hd_h))
-                ids = torch.argmax((hd_c[:, -1] @ unembed_matrix(
-                    cfg4, p4)).float(), -1)
-        errs["decode_hidden_rel_l2"] = max(dec)
+    routes = RouteLog(torch, np, cfg4.top_k)
+    with routes:
+        if decode_check:
+            # the prompt through a cache on both devices, then decode steps
+            L = prompt_len + decode_check + 8
+            with torch.no_grad():
+                h_c, c_c = forward(cfg4, p4, tok4.to(dev), cache=init_cache(
+                    cfg4, model_batch, L, dev))
+                h_h, c_h = forward(cfg4, p4h, tok4, cache=init_cache(
+                    cfg4, model_batch, L, "cpu"))
+        else:
+            with torch.no_grad():
+                h_c, _ = forward(cfg4, p4, tok4.to(dev))
+            blocks = []
+            h_h, hs_h = forward_layers(torch, cfg4, p4h, tok4, blocks)
+        keep = routes.agreed(h_c.shape[0] * h_c.shape[1])
+        lg_c = h_c[:, -1] @ unembed_matrix(cfg4, p4)
+        lg_h = h_h[:, -1] @ unembed_matrix(cfg4, p4h)
+        last = keep.view(h_c.shape[:2])[:, -1]
+        errs = {"hidden_rel_l2": rel_l2(
+                    h_c.reshape(-1, h_c.shape[-1])[keep.to(dev)],
+                    h_h.reshape(-1, h_h.shape[-1])[keep]),
+                "logits_rel_l2": rel_l2(lg_c[last.to(dev)], lg_h[last])}
+        if decode_check:
+            dec, ids = [], torch.argmax(lg_c.float(), -1)
+            with torch.no_grad():
+                for t in range(decode_check):
+                    x = ids[:, None].to(torch.int32)
+                    hd_c, c_c = forward(cfg4, p4, x, cache=c_c,
+                                        pos=prompt_len + t)
+                    hd_h, c_h = forward(cfg4, p4h, x.cpu(), cache=c_h,
+                                        pos=prompt_len + t)
+                    k_t = routes.agreed(hd_c.shape[0])
+                    if k_t.any():
+                        dec.append(rel_l2(hd_c[k_t.to(dev)], hd_h[k_t]))
+                    ids = torch.argmax((hd_c[:, -1] @ unembed_matrix(
+                        cfg4, p4)).float(), -1)
+            if not dec:
+                raise AssertionError("every decode step's token split its "
+                                     "MoE routing card vs CPU")
+            errs["decode_hidden_rel_l2"] = max(dec)
+        routes.check()
     limit = MODEL_REL_L2_BY_ARCH.get(arch, MODEL_REL_L2)
     if not all(torch.isfinite(t).all() for t in (h_c, lg_c)) or \
             max(errs.values()) > limit:
@@ -2189,10 +2297,18 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
         f"width, batch {model_batch}, bf16"
         + (f", then {decode_check} decode steps (relative L2 each: "
            f"{', '.join(f'{e:.4f}' for e in dec)})" if decode_check else "")
-        + f", {time.perf_counter() - t0:.1f} s: relative L2 {errs} <= "
-        f"{limit}")
+        + f", {time.perf_counter() - t0:.1f} s (weights to the host "
+        f"{copy_s:.1f} s): relative L2 {errs} <= {limit}"
+        + (f"; MoE routing split at a near-tie on {routes.split} of "
+           f"{routes.tokens} tokens, left out" if cfg4.n_experts else ""))
     rep.update({"model_errs": errs, "cache_stats": srv.cache_stats,
-                "fabric_stats": srv.fabric_stats})
+                "fabric_stats": srv.fabric_stats,
+                "model_check_split_tokens": routes.split})
+    if routes.split:
+        # not held: the split tokens' hidden states follow other experts
+        rep["hidden_rel_l2_all_tokens"] = rel_l2(h_c, h_h)
+        log(f"  (relative L2 of the hidden states over every token, the "
+            f"split ones too: {rep['hidden_rel_l2_all_tokens']:.4f})")
     if "ssd_chunk" in need:
         per = layer_errors(torch, cfg4, p4, tok4, h_h, hs_h)
         rep["layer_errs"] = per
@@ -2253,6 +2369,190 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
             f" device events; device by kernel: {top}; ported kernels per "
             f"call {ported}; host by op (self): {host}")
     return launches, rep
+
+
+# ------------------------------------------------------------- phase 10
+class RouteLog:
+    """While active, every MoE layer's f32 gates ``[T, E]`` as
+    ``models.moe.route`` computes them, in call order (a card forward, then
+    the same forward on the CPU).  ``agreed`` pairs the card's calls with
+    the CPU's since the last call and returns a ``[T]`` mask of the tokens
+    whose top-k experts agree in every layer; a token whose experts split
+    must sit at a near-tie of the CPU's gates (``NEAR_TIE``), a discrete
+    choice the two devices' bf16 roundings upstream may flip; ``check``
+    then holds the split tokens to at most one in eight of all compared.
+    A model without MoE layers records nothing and keeps every token."""
+
+    def __init__(self, torch, np, k):
+        from repro_torch.models import moe
+        self.torch, self.np, self.k, self.moe = torch, np, k, moe
+        self.calls, self.split, self.tokens = [], 0, 0
+
+    def __enter__(self):
+        self.route = self.moe.route
+
+        def rec(cfg, p, x):
+            out = self.route(cfg, p, x)
+            self.calls.append(out[0].cpu().numpy())
+            return out
+        self.moe.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+    def agreed(self, n_tokens):
+        np, k = self.np, self.k
+        calls, self.calls = self.calls, []
+        half = len(calls) // 2
+        keep = np.ones(n_tokens, bool)
+        for g_c, g_h in zip(calls[:half], calls[half:]):
+            top_c = np.sort(np.argsort(-g_c, -1, kind="stable")[:, :k], -1)
+            top_h = np.sort(np.argsort(-g_h, -1, kind="stable")[:, :k], -1)
+            differs = (top_c != top_h).any(-1)
+            srt = -np.sort(-g_h, -1)
+            gap = (srt[:, k - 1] - srt[:, k]) / srt[:, k - 1]
+            if (gap[differs] > NEAR_TIE).any():
+                raise AssertionError(f"MoE routing split card vs CPU away "
+                                     f"from a near-tie: gaps "
+                                     f"{gap[differs]}")
+            keep &= ~differs
+        self.split += int((~keep).sum())
+        self.tokens += n_tokens
+        return self.torch.from_numpy(keep)
+
+    def check(self):
+        if self.split * 8 > self.tokens:
+            raise AssertionError(f"MoE routing split card vs CPU on "
+                                 f"{self.split} of {self.tokens} tokens")
+
+
+def moe_by_token(torch, np, cfg, p, h):
+    """The MoE block's definition on the card in f32, token by token and
+    with no dispatch buffer: each token's top-k experts by its gates
+    (softmax of its router logits, taken in the compute dtype, as the
+    block's; picked by repeated argmax, the lower index first on ties;
+    renormalised over the k), its choices taken in token order, each
+    kept while its expert has had fewer than C (the capacity: T k / E
+    times the capacity factor, rounded up to a multiple of 8, at least 8);
+    the output the sum of each kept choice's gate times its expert's
+    SwiGLU of the token, plus the shared experts'.  Returns (out [T, D]
+    f32, kept choices, dropped choices)."""
+    import math
+
+    import torch.nn.functional as F
+    x = h.reshape(-1, h.shape[-1])
+    T, E, k = x.shape[0], cfg.n_experts, cfg.top_k
+    C = max(8, math.ceil(math.ceil(T * k / E * cfg.capacity_factor) / 8) * 8)
+    g = torch.softmax((x @ p["router"].to(x.dtype)).float(), -1)
+    topi, topv = [], []
+    for _ in range(k):
+        i = torch.argmax(g, -1)
+        topi.append(i)
+        topv.append(g.gather(1, i[:, None])[:, 0])
+        g = g.scatter(1, i[:, None], -1.0)
+    topi, topv = torch.stack(topi, 1), torch.stack(topv, 1)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    fe = topi.reshape(-1).cpu().numpy()
+    seen = np.zeros(E, np.int64)
+    kept = np.zeros(T * k, bool)
+    for j, e in enumerate(fe):
+        kept[j] = seen[e] < C
+        seen[e] += 1
+    xf = x.float()
+    out = torch.zeros_like(xf)
+    gate = topv.reshape(-1)
+    for e in np.unique(fe[kept]):
+        js = torch.from_numpy(np.nonzero(kept & (fe == e))[0]).to(x.device)
+        tok = js // k
+        xe = xf[tok]
+        y = (F.silu(xe @ p["wg"][e].float()) * (xe @ p["wi"][e].float())) \
+            @ p["wo"][e].float()
+        out.index_add_(0, tok, y * gate[js][:, None])
+    if cfg.n_shared_experts:
+        sp = p["shared"]
+        out += (F.silu(xf @ sp["wg"].float()) * (xf @ sp["wi"].float())) \
+            @ sp["wo"].float()
+    return out, int(kept.sum()), int((~kept).sum())
+
+
+def check_moe_layers(torch, np, cfg, params, tokens):
+    """Every MoE layer of a forward over ``tokens`` on the card: its block
+    output against ``moe_by_token`` on the same input, within a relative
+    L2 of ``MODEL_REL_L2`` (the block computes in bf16); a wrong slot,
+    drop or gate cannot pass.  Logs each layer's routed and dropped
+    choices."""
+    from repro_torch.models import forward
+    from repro_torch.models import moe
+    seen, apply = [], moe.moe_apply
+
+    def record(cfg_, p, h, **kw):
+        out = apply(cfg_, p, h, **kw)
+        seen.append((p, h, out[0]))
+        return out
+
+    moe.moe_apply = record
+    try:
+        with torch.no_grad():
+            forward(cfg, params, tokens)
+    finally:
+        moe.moe_apply = apply
+    rows = []
+    for p, h, got in seen:
+        want, routed, dropped = moe_by_token(torch, np, cfg, p, h)
+        err = rel_l2(got.reshape(want.shape), want)
+        rows.append({"routed": routed, "dropped": dropped, "rel_l2": err})
+        if not err <= MODEL_REL_L2:
+            raise AssertionError(f"MoE layer {len(rows)} vs its token-by-"
+                                 f"token evaluation: relative L2 {err}")
+    log(f"  MoE layers == their token-by-token evaluation in f32 "
+        f"({tokens.shape[0]} x {tokens.shape[1]} tokens, top-{cfg.top_k} of "
+        f"{cfg.n_experts}): " + "; ".join(
+            f"layer {i + 1}: {r['routed']} routed, {r['dropped']} dropped, "
+            f"relative L2 {r['rel_l2']:.4f}" for i, r in enumerate(rows)))
+    return rows
+
+
+def check_phase10(torch, np, dev):
+    """deepseek-v2 (MLA and MoE) and llama4-maverick (MoE) served at full
+    width and cut depth, each built on the card in its bf16-param policy
+    and freed before the next: the serving checks, the MoE layers against
+    their token-by-token evaluation, card vs CPU, peak memory; every
+    deepseek prefill's flash on the tensor-core kernel at (192, 128)."""
+    counts, reps = {}, {}
+    for arch, layers, new, model_layers, decode_check in PHASE10:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        need = ("rmsnorm", "flash_attention") + (
+            () if arch == MLA_ARCH else ("decode_attention",))
+        counts[arch], rep = check_serving(
+            torch, np, dev, arch, need=need, n_waves=PHASE10_WAVES,
+            max_new=new, model_layers=model_layers, full=False,
+            batch=PHASE10_B, prompt_len=PHASE10_PROMPT,
+            max_len=PHASE10_PROMPT + new + 8, model_batch=1,
+            decode_check=decode_check, layers=layers)
+        rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for what in ("prefill", "decode"):
+            prof = rep[f"profile_{what}"]
+            for name in ("flash_attention", "decode_attention"):
+                kern = prof["ported_kernels"][name]
+                rep[f"{name}_{what}_device_ms"] = \
+                    kern["us"] / prof["calls"] / 1e3
+        if arch == MLA_ARCH:
+            syms = rep["profile_prefill"]["ported_kernels"][
+                "flash_attention"]["symbols"]
+            if not syms or any("flash_wgmma_kernel<192, 128>" not in n
+                               for n in syms):
+                raise AssertionError(f"{arch}: a prefill's flash was not the "
+                                     f"tensor-core kernel at (192, 128): "
+                                     f"{syms}")
+        log(f"  {arch}: peak memory {rep['peak_memory_gb']:.1f} GB; flash "
+            f"{rep['flash_attention_prefill_device_ms']:.3f} ms of device "
+            f"time a prefill; {time.perf_counter() - t0:.0f} s for {arch}")
+        reps[arch] = rep
+        torch.cuda.empty_cache()
+    return counts, reps
 
 
 # ------------------------------------------------------------- phase 9
@@ -2447,8 +2747,11 @@ XTREME_SIZES = ((24, 10, "192KB"), (96, 4, "768KB"), (384, 2, "3MB"))
 # the paper's simulated geomean speedups over RDMA-WB-NC (Fig. 7, 4 GPUs)
 FIG7_PAPER = {"RDMA-WB-C-HMG": 1.5, "SM-WB-NC": 3.9, "SM-WT-NC": 4.6,
               "SM-WT-C-HALCONE": 4.6}
-# rounds of the HALCONE group profiled
-PROFILE_ROUNDS = 512
+# rounds of the HALCONE group profiled: 128 since phase 10 joined the
+# script (512 before), to hold its time; the profiler's processing of
+# ~300 device events a round and their host operators grows with the
+# window, and a round's count and idle share are steady well before 128
+PROFILE_ROUNDS = 128
 
 
 def h2d_setup_cycles(cfg, touched_blocks: int) -> float:
@@ -2736,9 +3039,11 @@ def check_engine(torch, np):
         "CPU (whole state, logs)")
 
     # ---- one group under the profiler: the device's share of the loop
+    t0 = time.perf_counter()
     prof = profile_calls(torch, lambda: engine.sweep(
         [cfgs[-1]], ops[:, :, :PROFILE_ROUNDS],
         addrs[:, :, :PROFILE_ROUNDS]), 1)
+    prof["profile_s"] = time.perf_counter() - t0
     out["profile_halcone"] = prof
     lp = prof["ported_kernels"]["lease_probe"]
     top = ", ".join(f"{r['name'][:40]} {r['us']:.0f} us x {r['count']}"
@@ -2749,7 +3054,8 @@ def check_engine(torch, np):
         f"{prof['device_idle_share']:.3f}, "
         f"{prof['device_events'] / PROFILE_ROUNDS:.0f} device events a "
         f"round; lease_probe {lp['us'] / 1e3:.2f} ms in {lp['count']} "
-        f"launches; device by kernel: {top}")
+        f"launches; device by kernel: {top} (profiled and processed in "
+        f"{prof['profile_s']:.1f} s)")
     return out
 
 
@@ -3642,13 +3948,19 @@ def main() -> None:
         f"{elapsed()}")
     p9_counts, report["phase9"] = check_phase9(torch, np, dev)
 
+    # ---- 10. MoE and MLA
+    log(f"phase 10: {MLA_ARCH} and {MOE_ARCH} served at full width "
+        f"({', '.join(f'{a}: {n} layers' for a, n, *_ in PHASE10)}) "
+        f"{elapsed()}")
+    p10_counts, report["phase10"] = check_phase10(torch, np, dev)
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"phases 1-9 took {report['script_s']:.0f} s")
+    log(f"phases 1-10 took {report['script_s']:.0f} s")
 
-    # ---- 10. summary lines: each kernel's row at the main path's shapes
+    # ---- 11. summary lines: each kernel's row at the main path's shapes
     main_shape = {"lease_probe": [64, 8], "miss_round": [8, 64, 1024],
                   "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
@@ -3696,6 +4008,27 @@ def main() -> None:
                      "max_abs_err": max(r["max_abs_err"]
                                         for r in kreport[kernel]
                                         if r["shape"][4] == shape[4]),
+                     "ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row.get("library_ms")})
+    # the shapes phase 10 added, each with its launches from phase 10's
+    # run of that model
+    for name, kernel, source, arch, shape in (
+            ("flash_attention_d192_v128", "flash_attention",
+             "flash_attention_wgmma.cu", MLA_ARCH, PHASE10_FLASH[0]),
+            ("flash_attention_llama4", "flash_attention",
+             "flash_attention_wgmma.cu", MOE_ARCH, PHASE10_FLASH[1]),
+            ("decode_attention_llama4", "decode_attention",
+             "decode_attention.cu", MOE_ARCH, PHASE10_DECODE[0])):
+        shape = [int(x) for x in shape]
+        rows = [r for r in kreport[kernel] if r["shape"] == shape]
+        row = next(r for r in rows if r["dtype"] == "bfloat16")
+        line.append({"name": name, "route": "cuda", "source": csrc + source,
+                     "replaces": next(r for n, _, r in KERNELS
+                                      if n == kernel),
+                     "launches": p10_counts[arch][kernel],
+                     "max_abs_err": max(r["max_abs_err"] for r in rows),
                      "ms": row["ms"], "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],

@@ -1,5 +1,6 @@
 // Flash attention (forward, prefill) on Hopper's CUDA cores (sm_90a): the
-// f32 route, and the bf16 route at head dims 16, 32 and 80.
+// f32 route (MLA's q and k of 192 columns with v of 128 among it), and the
+// bf16 route at head dims 16, 32 and 80.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::_flash_kernel
 // (pallas_call at flash_attention.py:79) where
@@ -10,6 +11,8 @@
 // swizzled boxes).  bf16 at D = 64, 128 and 256, the serving path's
 // prefill, takes flash_attention_wgmma.cu; this library builds no bf16
 // code for those head dims and returns cudaErrorInvalidValue if asked.
+// At (D, Dv) = (192, 128) (deepseek-v2's MLA prefill; f32 only here, bf16
+// takes the tensor-core kernel) v and the output are Dv wide.
 // Causal / sliding-window GQA softmax attention with an online softmax
 // over KV tiles and f32 accumulation.  q: [B, Sq, Hq, D], k and v: [B, Sk,
 // Hkv, D] (any strides over B, S and H, the head dim contiguous); out:
@@ -51,7 +54,10 @@
 // thread a row and 847 us split, about the plain version's time and far
 // from the f32 CUDA cores' 160 us; scoring two keys a step in eight
 // independent partial sums changed nothing (853 us), so the chains of
-// dependent FMAs are not what holds it back.
+// dependent FMAs are not what holds it back.  MLA's (192, 128) (f32) takes
+// the split kernel with V's tile and each thread's accumulator DV wide:
+// D / 16 values of q and DV / 16 of the accumulator a thread, K and V
+// tiles 24 + 16 KB.
 #include <type_traits>
 
 #include "float_io.cuh"
@@ -147,23 +153,25 @@ __global__ void __launch_bounds__(kRows) flash_kernel(
   }
 }
 
-// D = 80 and 256: a query row over kSplit threads, the K/V tiles in
-// dynamic shared memory (see the header).
+// D = 80 and 256, and (D, DV) = (192, 128): a query row over kSplit
+// threads, the K/V tiles in dynamic shared memory (see the header).
 constexpr int kSplit = 4;                      // threads per query row
 constexpr int kSplitThreads = kRows * kSplit;
 constexpr int kLoads = 8;                      // tile loads a thread in flight
 
-template <typename T, int D, int BK>
+template <typename T, int D, int DV, int BK>
 __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
     const T* __restrict__ q, long long qsb, long long qss, long long qsh,
     const T* __restrict__ k, long long ksb, long long kss, long long ksh,
     const T* __restrict__ v, long long vsb, long long vss, long long vsh,
     T* __restrict__ out, int Sq, int Sk, int Hq, int qpk, float scale,
     int causal, int window) {
+  static_assert(DV <= D, "v no wider than q and k");
   constexpr int kOwn = D / 4 / kSplit;         // 16-byte chunks a thread
+  constexpr int kOwnV = DV / 4 / kSplit;       // of the accumulator
   extern __shared__ __align__(16) float kv_smem[];
   float* Ks = kv_smem;                         // [BK][D]
-  float* Vs = kv_smem + BK * D;                // [BK][D]
+  float* Vs = kv_smem + BK * D;                // [BK][DV]
   __shared__ float Ss[kRows][kChunk + 1];      // each row's chunk scores
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
   const int hk = h / qpk;
@@ -173,7 +181,7 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
   const bool active = i < Sq;
 
   // chunk jj of this thread is the row's chunk jj * kSplit + part
-  float qr[kOwn][4], acc[kOwn][4];
+  float qr[kOwn][4], acc[kOwnV][4];
 #pragma unroll
   for (int jj = 0; jj < kOwn; ++jj) {
 #pragma unroll
@@ -181,8 +189,12 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
       const int d = (jj * kSplit + part) * 4 + e;
       qr[jj][e] = active ? halcone::to_f32(q[b * qsb + i * qss + h * qsh + d])
                          : 0.f;
-      acc[jj][e] = 0.f;
     }
+  }
+#pragma unroll
+  for (int jj = 0; jj < kOwnV; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
   }
   float m = halcone::kNegInf, l = 0.f;
 
@@ -195,7 +207,8 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
     const int n = min(BK, kv_end - k0);
     __syncthreads();                           // the last tile is consumed
     // kLoads elements of K and of V a thread in flight at once, then
-    // stored: a rolled loop would wait out one load's latency each
+    // stored: a rolled loop would wait out one load's latency each.  V's
+    // element (r, c) rides with K's for c < DV.
     for (int e0 = tid; e0 < BK * D; e0 += kLoads * kSplitThreads) {
       float kk[kLoads], vv[kLoads];
 #pragma unroll
@@ -203,14 +216,15 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
         const int e = e0 + u * kSplitThreads, r = e / D, c = e % D;
         const bool live = e < BK * D && r < n;
         kk[u] = live ? halcone::to_f32(kb[(k0 + r) * kss + c]) : 0.f;
-        vv[u] = live ? halcone::to_f32(vb[(k0 + r) * vss + c]) : 0.f;
+        vv[u] = live && c < DV ? halcone::to_f32(vb[(k0 + r) * vss + c])
+                               : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
-        const int e = e0 + u * kSplitThreads;
+        const int e = e0 + u * kSplitThreads, r = e / D, c = e % D;
         if (e < BK * D) {
           Ks[e] = kk[u];
-          Vs[e] = vv[u];
+          if (c < DV) Vs[r * DV + c] = vv[u];
         }
       }
     }
@@ -244,7 +258,7 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
       const float alpha = expf(m - mx);
       l *= alpha;
 #pragma unroll
-      for (int jj = 0; jj < kOwn; ++jj) {
+      for (int jj = 0; jj < kOwnV; ++jj) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[jj][e] *= alpha;
       }
@@ -252,9 +266,10 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
       for (int c = 0; c < cn; ++c) {
         const float p = expf(Ss[rl][c] - mx);
         l += p;
-        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + c) * D);
+        const float4* vr =
+            reinterpret_cast<const float4*>(Vs + (j0 + c) * DV);
 #pragma unroll
-        for (int jj = 0; jj < kOwn; ++jj) {
+        for (int jj = 0; jj < kOwnV; ++jj) {
           const float4 vv = vr[jj * kSplit + part];
           acc[jj][0] += p * vv.x;
           acc[jj][1] += p * vv.y;
@@ -268,9 +283,9 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
   }
   if (active) {
     const float denom = fmaxf(l, 1e-30f);
-    T* o = out + ((static_cast<int64_t>(b) * Sq + i) * Hq + h) * D;
+    T* o = out + ((static_cast<int64_t>(b) * Sq + i) * Hq + h) * DV;
 #pragma unroll
-    for (int jj = 0; jj < kOwn; ++jj) {
+    for (int jj = 0; jj < kOwnV; ++jj) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         o[(jj * kSplit + part) * 4 + e] =
@@ -279,24 +294,25 @@ __global__ void __launch_bounds__(kSplitThreads) flash_split_kernel(
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 int launch(const void* q, const long long* qs, const void* k,
            const long long* ks, const void* v, const long long* vs, void* out,
            int B, int Sq, int Sk, int Hq, int Hkv, float scale, int causal,
            int window, cudaStream_t stream) {
   const dim3 grid((Sq + kRows - 1) / kRows, Hq, B);
-  if constexpr (D == 80 || D == 256) {
+  if constexpr (D == 80 || D == 256 || DV != D) {
     constexpr int BK = 32;
-    constexpr int kBytes = 2 * BK * D * static_cast<int>(sizeof(float));
+    constexpr int kBytes = BK * (D + DV) * static_cast<int>(sizeof(float));
     static bool attr = false;
     if (!attr) {
       const cudaError_t e = cudaFuncSetAttribute(
-          flash_split_kernel<T, D, BK>,
+          flash_split_kernel<T, D, DV, BK>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
       if (e != cudaSuccess) return static_cast<int>(e);
       attr = true;
     }
-    flash_split_kernel<T, D, BK><<<grid, kSplitThreads, kBytes, stream>>>(
+    flash_split_kernel<T, D, DV, BK>
+        <<<grid, kSplitThreads, kBytes, stream>>>(
         static_cast<const T*>(q), qs[0], qs[1], qs[2],
         static_cast<const T*>(k), ks[0], ks[1], ks[2],
         static_cast<const T*>(v), vs[0], vs[1], vs[2], static_cast<T*>(out),
@@ -312,13 +328,20 @@ int launch(const void* q, const long long* qs, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32 at every head dim; bf16 only at D = 16, 32 and 80 (the others take
-// the tensor-core kernel)
+// f32 at every head dim and at (192, 128); bf16 only at D = 16, 32 and 80
+// (the others take the tensor-core kernel)
 template <typename T>
-int dispatch_d(int D, const void* q, const long long* qs, const void* k,
-               const long long* ks, const void* v, const long long* vs,
-               void* out, int B, int Sq, int Sk, int Hq, int Hkv, float scale,
-               int causal, int window, cudaStream_t s) {
+int dispatch_d(int D, int Dv, const void* q, const long long* qs,
+               const void* k, const long long* ks, const void* v,
+               const long long* vs, void* out, int B, int Sq, int Sk, int Hq,
+               int Hkv, float scale, int causal, int window,
+               cudaStream_t s) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (D == 192 && Dv == 128)
+      return launch<T, 192, 128>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq,
+                                 Hkv, scale, causal, window, s);
+  }
+  if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 16: return launch<T, 16>(q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq,
                                   Hkv, scale, causal, window, s);
@@ -343,23 +366,23 @@ int dispatch_d(int D, const void* q, const long long* qs, const void* k,
 }  // namespace
 
 // q/k/v strides are in elements, over (B, S, H); the head dim is
-// contiguous.  dt: halcone::kF32 with D in {16, 32, 64, 80, 128, 256}, or
-// halcone::kBF16 with D in {16, 32, 80};
+// contiguous.  dt: halcone::kF32 with D = Dv in {16, 32, 64, 80, 128, 256}
+// or (D, Dv) = (192, 128), or halcone::kBF16 with D = Dv in {16, 32, 80};
 // scale: the softmax scale D^-0.5 as an f32.
 extern "C" int halcone_flash_attention(
     const void* q, long long qsb, long long qss, long long qsh,
     const void* k, long long ksb, long long kss, long long ksh,
     const void* v, long long vsb, long long vss, long long vsh, void* out,
-    int B, int Sq, int Sk, int Hq, int Hkv, int D, float scale, int causal,
-    int window, int dt, void* stream) {
+    int B, int Sq, int Sk, int Hq, int Hkv, int D, int Dv, float scale,
+    int causal, int window, int dt, void* stream) {
   const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh},
                   vs[3] = {vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dt == halcone::kF32)
-    return dispatch_d<float>(D, q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq, Hkv,
-                             scale, causal, window, s);
+    return dispatch_d<float>(D, Dv, q, qs, k, ks, v, vs, out, B, Sq, Sk, Hq,
+                             Hkv, scale, causal, window, s);
   if (dt == halcone::kBF16)
-    return dispatch_d<__nv_bfloat16>(D, q, qs, k, ks, v, vs, out, B, Sq, Sk,
-                                     Hq, Hkv, scale, causal, window, s);
+    return dispatch_d<__nv_bfloat16>(D, Dv, q, qs, k, ks, v, vs, out, B, Sq,
+                                     Sk, Hq, Hkv, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

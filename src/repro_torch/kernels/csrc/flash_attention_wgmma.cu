@@ -1,13 +1,14 @@
 // Flash attention (forward, prefill) on Hopper's tensor cores (sm_90a):
-// the bf16 route for head dims 64, 128 and 256.
+// the bf16 route for head dims 64, 128 and 256, and for MLA's q and k of
+// 192 columns with v of 128 (deepseek-v2).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::_flash_kernel
-// (pallas_call at flash_attention.py:79) for bf16 q, k, v with D in {64,
-// 128, 256}; f32, and bf16 at D in {16, 32, 80}, stay on
-// flash_attention.cu.  Same
-// contract: q [B, Sq, Hq, D], k and v [B, Sk, Hkv, D] with any strides over
-// B, S and H (each a multiple of 16 bytes, for TMA) and the head dim
-// contiguous; out [B, Sq, Hq, D] contiguous bf16.  Query head h reads kv
+// (pallas_call at flash_attention.py:79) for bf16 q, k, v with (D, Dv) in
+// {(64, 64), (128, 128), (256, 256), (192, 128)}; f32, and bf16 at D in
+// {16, 32, 80}, stay on flash_attention.cu.  Same contract: q [B, Sq, Hq,
+// D], k [B, Sk, Hkv, D] and v [B, Sk, Hkv, Dv] with any strides over B, S
+// and H (each a multiple of 16 bytes, for TMA) and the head dim
+// contiguous; out [B, Sq, Hq, Dv] contiguous bf16.  Query head h reads kv
 // head h / (Hq / Hkv).  Masked scores get NEG_INF = -1e30 added, keys at or
 // past Sk weigh exactly 0, and the denominator is max(l, 1e-30).
 //
@@ -37,6 +38,10 @@
 // costs S and the softmax twice, 4/3 of the tensor work of one block.
 // Shared memory at D = 256: Q 64 KB and two stages of K (32 KB) and V's
 // half (16 KB), 161 KB, one block an SM.
+// At MLA's (192, 128) S = Q K^T takes 12 k-steps of 16 (three 64-column
+// boxes of Q and K a row) and O keeps D = 128's register profile (128 f32
+// columns over the two warpgroups), so no column split: Q 48 KB and two
+// stages of K (24 KB) and V (16 KB), 129 KB with the 64-key stages.
 // - The producer loads the Q tile once and then keeps a ring of two K/V
 //   stages full with TMA (rank-4 maps over (D, H, S, B) with the tensors'
 //   own strides, 128-byte swizzle, 64-column boxes: D / 64 of Q and K,
@@ -90,12 +95,13 @@ constexpr int kRows = 64 * kWarpgroups;          // query rows per block
 constexpr int kThreads = 128 * kWarpgroups + 32; // + one producer warp
 constexpr int kStages = 2;                       // K/V ring depth
 
-// 64 keys a tile: S takes 32 f32 registers a thread and O DV / 2.
-template <int D>
+// 64 keys a tile: S takes 32 f32 registers a thread and O DV / 2.  D: q
+// and k's head dim; DO: v's and the output's.
+template <int D, int DO>
 struct Shape {
   static constexpr int BK = 64;
-  static constexpr int DV = D < 128 ? D : 128;     // output columns a block
-  static constexpr int kVSplit = D / DV;           // blocks a row tile
+  static constexpr int DV = DO < 128 ? DO : 128;   // output columns a block
+  static constexpr int kVSplit = DO / DV;          // blocks a row tile
   // two blocks an SM at D = 64 (96 registers a thread), one at D >= 128
   static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
   static constexpr int kBoxes = D / kBox;          // of Q and K
@@ -107,15 +113,15 @@ struct Shape {
                                + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, Shape<D>::kBlocksPerSM)
+template <int D, int DO>
+__global__ void __launch_bounds__(kThreads, Shape<D, DO>::kBlocksPerSM)
 flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
     float* __restrict__ stats, int Sq, int Sk, int Hq, int qpk, float scale,
     int causal, int window) {
-  using Sh = Shape<D>;
+  using Sh = Shape<D, DO>;
   constexpr int BK = Sh::BK, DV = Sh::DV;
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle and the wgmma descriptors want 1024-byte tiles
@@ -303,7 +309,7 @@ flash_wgmma_kernel(
     const int row = row_a + 8 * r;
     if (row >= Sq) continue;
     __nv_bfloat16* orow =
-        out + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * D
+        out + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * DO
         + vpart * DV + cq;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
@@ -314,27 +320,27 @@ flash_wgmma_kernel(
   }
 }
 
-template <int D>
+template <int D, int DO>
 int launch(const void* q, const long long* qs, const void* k,
            const long long* ks, const void* v, const long long* vs, void* out,
            float* stats, int B, int Sq, int Sk, int Hq, int Hkv, float scale,
            int causal, int window, cudaStream_t stream) {
-  using Sh = Shape<D>;
+  using Sh = Shape<D, DO>;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, qs, B, Sq, Hq, D, kRows) ||
       !make_map(&km, k, ks, B, Sk, Hkv, D, Sh::BK) ||
-      !make_map(&vm, v, vs, B, Sk, Hkv, D, Sh::BK))
+      !make_map(&vm, v, vs, B, Sk, Hkv, DO, Sh::BK))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr = false;
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Sh::kSmem);
+        flash_wgmma_kernel<D, DO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
   const dim3 grid((Sq + kRows - 1) / kRows, Hq * Sh::kVSplit, B);
-  flash_wgmma_kernel<D><<<grid, kThreads, Sh::kSmem, stream>>>(
+  flash_wgmma_kernel<D, DO><<<grid, kThreads, Sh::kSmem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), stats, Sq, Sk, Hq,
       Hq / Hkv, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -344,27 +350,30 @@ int launch(const void* q, const long long* qs, const void* k,
 
 // bf16 q/k/v with strides in elements over (B, S, H), each a multiple of 8
 // (16 bytes) and 16-byte-aligned base pointers; the head dim contiguous.
-// D in {64, 128, 256}; scale: D^-0.5 as an f32.  stats: null, or [2, B, Hq,
-// Sq] f32 that receives each row's m and 1 / max(l, 1e-30).  Returns a
-// cudaError_t.
+// (D, Dv) in {(64, 64), (128, 128), (256, 256), (192, 128)}; scale: D^-0.5
+// as an f32.  stats: null, or [2, B, Hq, Sq] f32 that receives each row's m
+// and 1 / max(l, 1e-30).  Returns a cudaError_t.
 extern "C" int halcone_flash_attention_wgmma(
     const void* q, long long qsb, long long qss, long long qsh,
     const void* k, long long ksb, long long kss, long long ksh,
     const void* v, long long vsb, long long vss, long long vsh, void* out,
-    void* stats, int B, int Sq, int Sk, int Hq, int Hkv, int D, float scale,
-    int causal, int window, void* stream) {
+    void* stats, int B, int Sq, int Sk, int Hq, int Hkv, int D, int Dv,
+    float scale, int causal, int window, void* stream) {
   const long long qs[3] = {qsb, qss, qsh}, ks[3] = {ksb, kss, ksh},
                   vs[3] = {vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
-  if (D == 64)
-    return launch<64>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
-                      scale, causal, window, s);
-  if (D == 128)
-    return launch<128>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
-                       scale, causal, window, s);
-  if (D == 256)
-    return launch<256>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
-                       scale, causal, window, s);
+  if (D == 64 && Dv == 64)
+    return launch<64, 64>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
+                          scale, causal, window, s);
+  if (D == 128 && Dv == 128)
+    return launch<128, 128>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq,
+                            Hkv, scale, causal, window, s);
+  if (D == 256 && Dv == 256)
+    return launch<256, 256>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq,
+                            Hkv, scale, causal, window, s);
+  if (D == 192 && Dv == 128)
+    return launch<192, 128>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq,
+                            Hkv, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

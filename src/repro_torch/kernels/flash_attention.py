@@ -1,10 +1,13 @@
 """Flash attention (forward, prefill) on the H100, and its gradient.
 
 Two CUDA kernels replace the Pallas kernel
-``repro/kernels/flash_attention.py::_flash_kernel``; ``route(dtype, D)``
-picks one, as a plain function of the dtype and the head dim:
+``repro/kernels/flash_attention.py::_flash_kernel``; ``route(dtype, D,
+Dv)`` picks one, as a plain function of the dtype, q and k's head dim D
+and v's Dv.  The pairs ``PAIRS`` lists are built: ``(D, D)`` for D in
+``HEAD_DIMS``, and MLA's ``(192, 128)`` (deepseek-v2: 128 "nope" and 64
+rope columns of q and k, 128 of v; the output has v's width):
 
-- ``"wgmma"``: bf16 with D in (64, 128, 256) goes to the tensor-core
+- ``"wgmma"``: bf16 at ``WGMMA_PAIRS`` goes to the tensor-core
   kernel (``csrc/flash_attention_wgmma.cu``: TMA loads, ``wgmma``
   products, P split into two bf16 halves for the P.V product; at D = 256
   two blocks share a row tile, each with half of O's columns).  TMA
@@ -14,14 +17,15 @@ picks one, as a plain function of the dtype and the head dim:
   1 / max(l, 1e-30).
 - ``"simt"``: f32 (held to 1e-5, which TF32 tensor cores would not meet),
   and bf16 at D in (16, 32, 80), go to the CUDA-core kernel
-  (``csrc/flash_attention.cu``; at D = 80 and 256 each query row is
-  split over four threads).  D = 80 (hubert-xlarge) stays off the
+  (``csrc/flash_attention.cu``; at D = 80 and 256, and at (192, 128),
+  each query row is split over four threads).  D = 80 (hubert-xlarge) stays off the
   tensor cores: its 160-byte rows do not fill whole 128-byte swizzled
   boxes.
 
 The gradient ``flash_attention_bwd`` takes the same route, at the head
-dims of ``BWD_HEAD_DIMS`` only (D = 80 and 256 have no backward kernel
-yet: ``kernels.ops`` raises under grad there): ``"wgmma"``
+dims of ``BWD_HEAD_DIMS`` only, v as wide (D = 80 and 256 and the pair
+(192, 128) have no backward kernel yet: ``kernels.ops`` raises under grad
+there): ``"wgmma"``
 runs ``csrc/flash_attention_bwd_wgmma.cu`` (two launches on the tensor
 cores, P recomputed from the forward's m and 1 / l, P and dS split into
 bf16 halves), ``"simt"`` ``csrc/flash_attention_bwd.cu`` (three launches
@@ -44,49 +48,63 @@ from repro_torch.kernels import cuda
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)
+# MLA (deepseek-v2): q and k of nope_head_dim + rope_head_dim, v narrower
+MLA_PAIR = (192, 128)
+# the (q/k head dim, v head dim) pairs the forward kernels are built for
+PAIRS = tuple((d, d) for d in HEAD_DIMS) + (MLA_PAIR,)
+WGMMA_PAIRS = tuple((d, d) for d in WGMMA_HEAD_DIMS) + (MLA_PAIR,)
 # the head dims flash_attention_bwd's kernels are built for
 BWD_HEAD_DIMS = (16, 32, 64, 128)
 ROUTES = ("wgmma", "simt")
-_ARGS = ([cuda.P, cuda.LD, cuda.LD, cuda.LD] * 3 + [cuda.P] + [cuda.I] * 6
+_ARGS = ([cuda.P, cuda.LD, cuda.LD, cuda.LD] * 3 + [cuda.P] + [cuda.I] * 7
          + [cuda.F, cuda.I, cuda.I, cuda.I, cuda.P])
 # no storage type code; a stats pointer after the output
 _ARGS_WGMMA = _ARGS[:13] + [cuda.P] + _ARGS[13:-2] + [cuda.P]
 
 
-def check_qkv(q, k, v, name: str, head_dims=HEAD_DIMS, unbuilt=""):
+def check_qkv(q, k, v, name: str, head_dims=HEAD_DIMS, unbuilt="",
+              pairs=()):
     """Shared argument checks of the attention wrappers: 4-D CUDA tensors
-    of one float dtype, k and v of one shape, GQA heads that divide, a
-    head dim in ``head_dims`` (the ones the caller's kernels are built
+    of one float dtype, k [B, Sk, Hkv, D] and v [B, Sk, Hkv, Dv], GQA
+    heads that divide, and a head dim in ``head_dims`` with Dv = D, or a
+    ``(D, Dv)`` in ``pairs`` (the ones the caller's kernels are built
     for; ``unbuilt`` is added to the error for any other).  Returns q's
     storage type code."""
     dev = q.device
     dt = cuda.check_float("q", q, None)
     for nm, t in (("k", k), ("v", v)):
         cuda.check_float(nm, t, dev, q.dtype)
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{name}: expected q [B,Sq,Hq,D] and k, v "
-                         f"[B,Sk,Hkv,D], got {tuple(q.shape)}, "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{name}: expected q [B,Sq,Hq,D], k [B,Sk,Hkv,D] "
+                         f"and v [B,Sk,Hkv,Dv], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, _, Hq, D = q.shape
+    Dv = v.shape[3]
     if k.shape[0] != B or k.shape[3] != D or k.shape[2] < 1 \
             or Hq % k.shape[2]:
         raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not fit "
                          f"q {tuple(q.shape)}")
-    if D not in head_dims:
-        raise ValueError(f"{name}: head dim {D} not in {head_dims}"
-                         f"{unbuilt}")
+    if (D, Dv) not in pairs and (D != Dv or D not in head_dims):
+        got = f"head dim {D}" + (f" with v's {Dv}" if Dv != D else "")
+        raise ValueError(f"{name}: {got} not in {head_dims}"
+                         + (f" or the (D, Dv) pairs {pairs}" if pairs
+                            else "") + unbuilt)
     return dt
 
 
-def route(dtype, head_dim: int) -> str:
-    """The kernel a CUDA call takes: ``"wgmma"`` for bf16 with a head dim
-    in ``WGMMA_HEAD_DIMS``, ``"simt"`` for f32 and for bf16 at the other
-    head dims of ``HEAD_DIMS``.  Raises ``ValueError`` on any other pair."""
-    if dtype not in (torch.float32, torch.bfloat16) \
-            or head_dim not in HEAD_DIMS:
+def route(dtype, head_dim: int, v_dim=None) -> str:
+    """The kernel a CUDA call takes at q and k's ``head_dim`` and v's
+    ``v_dim`` (None: the same): ``"wgmma"`` for bf16 at a pair of
+    ``WGMMA_PAIRS``, ``"simt"`` for f32 and for bf16 at the other pairs
+    of ``PAIRS``.  Raises ``ValueError`` on any other dtype or pair."""
+    pair = (head_dim, head_dim if v_dim is None else v_dim)
+    if dtype not in (torch.float32, torch.bfloat16) or pair not in PAIRS:
         raise ValueError(f"flash_attention: no kernel for {dtype} at head "
-                         f"dim {head_dim}")
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+                         f"dim {head_dim}"
+                         + (f" with v's {pair[1]}" if pair[1] != head_dim
+                            else ""))
+    if dtype == torch.bfloat16 and pair in WGMMA_PAIRS:
         return "wgmma"
     return "simt"
 
@@ -114,31 +132,38 @@ def check_stats(name: str, stats, q) -> None:
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, stats=None):
-    """q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's
-    dtype.  Causal masks key positions after the query's (both counted
-    from 0); ``window`` > 0 also masks keys at least ``window`` behind it.
-    Takes the kernel ``route(q.dtype, D)`` names; allocates its output,
-    launches on the current stream and does not synchronise.
+    """q: [B, Sq, Hq, D]; k: [B, Sk, Hkv, D]; v: [B, Sk, Hkv, Dv] ->
+    [B, Sq, Hq, Dv] in q's dtype, the scores scaled by D^-0.5, at a
+    ``(D, Dv)`` of ``PAIRS``.  Causal masks key positions after the
+    query's (both counted from 0); ``window`` > 0 also masks keys at least
+    ``window`` behind it.  Takes the kernel ``route(q.dtype, D, Dv)``
+    names; allocates its output, launches on the current stream and does
+    not synchronise.
 
-    ``stats``: None, or on the ``"wgmma"`` route a ``[2, B, Hq, Sq]`` f32
-    tensor that receives each row's m (the max of its unscaled masked
-    products) and 1 / max(l, 1e-30), the statistics
-    ``flash_attention_bwd`` recomputes P from.  The ``"simt"`` kernel
-    writes none, and raises if asked."""
-    dt = check_qkv(q, k, v, "flash_attention")
+    ``stats``: None, or on the ``"wgmma"`` route at a head dim of
+    ``BWD_HEAD_DIMS`` (v as wide: the pairs a backward kernel takes) a
+    ``[2, B, Hq, Sq]`` f32 tensor that receives each row's m (the max of
+    its unscaled masked products) and 1 / max(l, 1e-30), the statistics
+    ``flash_attention_bwd`` recomputes P from.  Raises if asked anywhere
+    else."""
+    dt = check_qkv(q, k, v, "flash_attention", pairs=PAIRS)
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if Sk < 1:
         raise ValueError("flash_attention: needs at least one key")
-    path = route(q.dtype, D)
+    path = route(q.dtype, D, Dv)
     if stats is not None:
         if path != "wgmma":
             raise ValueError("flash_attention: only the tensor-core route "
                              "writes row statistics")
+        if D != Dv or D not in BWD_HEAD_DIMS:
+            raise ValueError(f"flash_attention: no backward kernel at head "
+                             f"dim {D} with v's {Dv}, so no row "
+                             "statistics there")
         check_stats("flash_attention", stats, q)
     strides = ([tma_strides(n, t) for n, t in (("q", q), ("k", k), ("v", v))]
                if path == "wgmma" else [t.stride()[:3] for t in (q, k, v)])
-    out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=q.device)
     if B and Sq:
         args = []
         for t, st in zip((q, k, v), strides):
@@ -146,7 +171,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, stats=None):
         args.append(out.data_ptr())
         if path == "wgmma":
             args.append(0 if stats is None else stats.data_ptr())
-        args += [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal), int(window)]
+        args += [B, Sq, Sk, Hq, Hkv, D, Dv, D ** -0.5, int(causal),
+                 int(window)]
         if path == "wgmma":
             fn = cuda.function("flash_attention_wgmma",
                                "halcone_flash_attention_wgmma", _ARGS_WGMMA)
@@ -269,7 +295,7 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         q, k, v = (t.contiguous() for t in (q, k, v))
         stats = None
-        if route(q.dtype, q.shape[-1]) == "wgmma":
+        if route(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma":
             B, Sq, Hq, _ = q.shape
             stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32,
                                 device=q.device)

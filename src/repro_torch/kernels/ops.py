@@ -14,9 +14,10 @@ as the gradient) only when grad mode is on and an input requires grad;
 otherwise they launch the forward kernel directly, which keeps the
 serving path's host time as it was.  ``decode_attention`` has no
 backward kernel, nor has ``flash_attention`` at head dims 80 and 256
-(hubert-xlarge, gemma3-4b): on a CUDA tensor that requires grad they
-raise ``NotImplementedError`` naming the ROADMAP item, before any
-launch, and never differentiate a plain version on the card.
+(hubert-xlarge, gemma3-4b) or at MLA's q/k width 192 with v's 128
+(deepseek-v2): on a CUDA tensor that requires grad they raise
+``NotImplementedError`` naming the ROADMAP item, before any launch, and
+never differentiate a plain version on the card.
 """
 from __future__ import annotations
 
@@ -41,6 +42,9 @@ DECODE_BWD_ITEM = "20: a decode_attention backward, if a consumer needs one"
 FLASH_BWD_ITEM = ("22: flash_attention_bwd at head dims 80 and 256, and "
                   "training gemma3-4b, hubert-xlarge and llava-next-34b on "
                   "the card")
+# the ROADMAP item that gives it one at MLA's (192, 128)
+MLA_BWD_ITEM = ("24: flash_attention_bwd at (D, Dv) = (192, 128), and "
+                "training deepseek-v2 and llama4-maverick on the card")
 
 
 def _on_cpu(t) -> bool:
@@ -87,8 +91,12 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if _wants_grad(q, k, v):
-        if q.shape[-1] not in BWD_HEAD_DIMS:
-            raise _no_backward(f"flash_attention at head dim {q.shape[-1]}",
+        D, Dv = q.shape[-1], v.shape[-1]
+        if Dv != D:
+            raise _no_backward(f"flash_attention at (D, Dv) = ({D}, {Dv})",
+                               MLA_BWD_ITEM)
+        if D not in BWD_HEAD_DIMS:
+            raise _no_backward(f"flash_attention at head dim {D}",
                                FLASH_BWD_ITEM)
         return FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash(q, k, v, causal=causal, window=window)

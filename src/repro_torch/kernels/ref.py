@@ -151,11 +151,13 @@ def rmsnorm_ref(x, w, eps=1e-6):
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, kv_len=None):
-    """q: [B,Sq,Hq,D]; k,v: [B,Sk,Hkv,D] — plain softmax attention in f32.
-    Query head h reads kv head ``h // (Hq // Hkv)``; masked scores get
-    ``NEG_INF`` added, as in the kernels."""
+    """q: [B,Sq,Hq,D]; k: [B,Sk,Hkv,D]; v: [B,Sk,Hkv,Dv] — plain softmax
+    attention in f32, scaled by q's ``D ** -0.5`` (MLA's v is narrower
+    than q and k: Dv 128 against D 192).  Query head h reads kv head
+    ``h // (Hq // Hkv)``; masked scores get ``NEG_INF`` added, as in the
+    kernels.  Returns [B,Sq,Hq,Dv] in q's dtype."""
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     qpk = Hq // Hkv
     qr = q.reshape(B, Sq, Hkv, qpk, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float()) * D ** -0.5
@@ -170,7 +172,7 @@ def attention_ref(q, k, v, *, causal=True, window=0, kv_len=None):
         mask = torch.where(kpos >= kv_len, NEG_INF, mask)
     p = torch.softmax(s + mask, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+    return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
 
 
 def rmsnorm_bwd_ref(x, w, dy, eps=1e-6):

@@ -3,7 +3,8 @@
 The reference's parameter tree is nested dicts of arrays with stacked
 ``[L, ...]`` leaves under ``segments/seg<i>`` (and zamba2's shared block
 under ``shared_attn``); its cache tree has the same shape, with KV leaves
-at attention positions and ``conv``/``state`` leaves at SSM positions;
+(MLA: one ``ckv``) at attention positions and ``conv``/``state`` leaves
+at SSM positions;
 its ``TrainState`` holds a params tree, moments m and v of the same
 shape and an int32 step.  The port keeps these layouts, so converting is a walk of the
 port's spec that checks every leaf's path and shape and makes it a tensor
@@ -63,13 +64,14 @@ def _leaf_shapes(tree):
 
 def _cache_dims(tree) -> tuple:
     """(batch, max_len) of a cache tree: batch from its first leaf (an
-    attention ``k``/``v`` and an SSM ``conv`` are ``[..., B, rows, F]``,
-    an SSM ``state`` ``[..., B, H, N, P]``), ``max_len`` from its first
-    attention leaf, 0 when it has none (an SSM cache has no length)."""
+    attention ``k``/``v``, an MLA ``ckv`` and an SSM ``conv`` are
+    ``[..., B, rows, F]``, an SSM ``state`` ``[..., B, H, N, P]``),
+    ``max_len`` from its first attention leaf, 0 when it has none (an SSM
+    cache has no length)."""
     shapes = list(_leaf_shapes(tree))
     name, shape = shapes[0]
     batch = shape[-4] if name == "state" else shape[-3]
-    max_len = next((s[-2] for n, s in shapes if n in ("k", "v")), 0)
+    max_len = next((s[-2] for n, s in shapes if n in ("k", "v", "ckv")), 0)
     return batch, max_len
 
 

@@ -22,6 +22,13 @@ from repro_torch.kernels import ops
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)`` in f32, in x's dtype.  A
+    bf16 weight (deepseek-v2's and llama4-maverick's bf16 params: their
+    1-D norm weights stay in the param dtype) is widened to f32 here, the
+    one place, which is exact and is the reference's ``(1 +
+    w.astype(f32))``; the kernel takes an f32 weight."""
+    if w.dtype != torch.float32:
+        w = w.float()
     return ops.rmsnorm(x, w, eps=eps)
 
 
@@ -44,7 +51,9 @@ def apply_rope(x, positions, theta: float = 1e4):
 
 
 def attention(q, k, v, *, causal=True, window=0, kv_len=None):
-    """GQA attention.  q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D].
+    """GQA attention.  q: [B, Sq, Hq, D]; k: [B, Sk, Hkv, D]; v: [B, Sk,
+    Hkv, Dv] -> [B, Sq, Hq, Dv], the scores scaled by D^-0.5 (MLA's v is
+    narrower than q and k, and its scale is q's).
 
     ``kv_len is None`` (train/prefill): flash attention over all of k/v,
     causal and/or windowed.  ``kv_len`` set (decode): one query token over

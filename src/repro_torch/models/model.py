@@ -1,7 +1,9 @@
-"""Model assembly: the serving and training paths of the dense decoders
-(gemma3's 5:1 local:global sliding window among them), mamba2, zamba2's
-hybrid stack and the two modality-frontend stubs (hubert's audio frames,
-llava's vision patches) — the port of ``repro.models.model``.
+"""Model assembly for all 10 architectures: the serving and training
+paths of the dense decoders (gemma3's 5:1 local:global sliding window
+among them), the MoE decoders (llama4-maverick's dense/MoE interleave,
+deepseek-v2's dense first layer, MLA and MoE), mamba2, zamba2's hybrid
+stack and the two modality-frontend stubs (hubert's audio frames, llava's
+vision patches) — the port of ``repro.models.model``.
 
 A config is compiled into the reference's *plan*: an optional prefix of
 looped layers plus a run of stacked pattern-repeats (and a looped tail).
@@ -9,15 +11,19 @@ The parameter and cache trees keep the reference's names and layout
 (stacked ``[L, ...]`` leaves under ``segments/seg<i>``, zamba2's shared
 attention block at the top level under ``shared_attn``, an empty ``{}``
 block at each of its positions, hubert's frame projection at the top
-level under ``frontend``), so the tests compare like with like;
-the reference's ``lax.scan`` over the stack becomes a Python loop over
-the layer index, each stacked leaf unbound into its layers once (so
-autograd stacks the layers' gradients in one step).  Dense, SSM and
-shared-attention blocks, global or windowed, and both frontend stubs are
-ported: MoE blocks and MLA raise ``NotImplementedError`` naming the
-ROADMAP item that will port them.  A windowed layer's decode step attends
-to the whole filled cache, as the reference's does (``layers.attention``;
-ROADMAP Queue 3 R1).
+level under ``frontend``, an MLA cache's ``ckv`` leaf in place of ``k``
+and ``v``), so the tests compare like with like; the reference's
+``lax.scan`` over the stack becomes a Python loop over the layer index,
+each stacked leaf unbound into its layers once (so autograd stacks the
+layers' gradients in one step).  Every block kind of the reference is
+ported: dense, MoE (``models/moe.py``, the one-device dispatch), SSM and
+shared attention, with GQA or MLA, global or windowed.  A windowed
+layer's decode step attends to the whole filled cache, as the
+reference's does (``layers.attention``; ROADMAP Queue 3 R1).
+
+The MoE layers' load-balance losses are summed only for ``loss_fn``
+(``ce + 0.01 * aux``, as the reference's); ``forward``, ``prefill`` and
+``decode_step`` skip them.
 
 Training (``loss_fn``): the f32 master weights go in as they are, and
 every float weight of two or more dims is cast to the compute dtype where
@@ -38,34 +44,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.coherence.fabric.backend import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import chunked_xent, rmsnorm, swiglu
 from repro_torch.models.params import (P, map_with_path, materialize,
                                        stack_specs)
-
-_PORTED = ("dense", "ssm", "attn_shared")
-_TODO = {
-    "moe": "12c: MoE blocks (models/moe.py)",
-    "mla": "12d: MLA attention",
-}
-
-
-def _unsupported(what: str, cfg: ModelConfig):
-    return NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ROADMAP Queue 1 item "
-        f"{_TODO[what]})")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a config the port cannot run yet."""
-    for i in range(cfg.n_layers):
-        kind = cfg.layer_kind(i)
-        if kind not in _PORTED:
-            raise _unsupported(kind, cfg)
-    if cfg.is_mla:
-        raise _unsupported("mla", cfg)
-
 
 @dataclasses.dataclass(frozen=True)
 class LayerDesc:
@@ -108,11 +92,13 @@ def build_plan(cfg: ModelConfig) -> List[Segment]:
 
 # ------------------------------------------------------------------ specs
 def attn_block_spec(cfg: ModelConfig) -> dict:
-    """A dense attention block; zamba2's one shared block has the same
-    spec (``repro.models.model.shared_block_spec``)."""
+    """A dense attention block (GQA, or MLA under ``cfg.is_mla``);
+    zamba2's one shared block has the same spec
+    (``repro.models.model.shared_block_spec``)."""
     D = cfg.d_model
     ln = lambda: P((D,), (None,), "zeros")
-    return {"ln1": ln(), "attn": attn_mod.gqa_spec(cfg), "ln2": ln(),
+    attn = attn_mod.mla_spec(cfg) if cfg.is_mla else attn_mod.gqa_spec(cfg)
+    return {"ln1": ln(), "attn": attn, "ln2": ln(),
             "mlp": {"wg": P((D, cfg.d_ff), ("embed", "mlp")),
                     "wi": P((D, cfg.d_ff), ("embed", "mlp")),
                     "wo": P((cfg.d_ff, D), ("mlp", "embed"))}}
@@ -124,13 +110,14 @@ def block_spec(cfg: ModelConfig, desc: LayerDesc) -> dict:
                 "ssm": ssm_mod.ssm_spec(cfg)}
     if desc.kind == "attn_shared":
         return {}                      # the weights live at the top level
-    if desc.kind != "dense":
-        raise _unsupported(desc.kind, cfg)
-    return attn_block_spec(cfg)
+    s = attn_block_spec(cfg)
+    if desc.kind == "moe":             # the experts in place of the MLP
+        del s["mlp"]
+        s["moe"] = moe_mod.moe_spec(cfg)
+    return s
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    check_supported(cfg)
     D, V = cfg.d_model, cfg.vocab
     spec: dict = {"embed": P((V, D), ("vocab", "embed"))}
     if cfg.frontend == "audio":
@@ -154,14 +141,16 @@ def model_spec(cfg: ModelConfig) -> dict:
 def block_cache_spec(cfg: ModelConfig, desc: LayerDesc, batch: int,
                      max_len: int, seq_axis: str) -> dict:
     """An SSM position holds its conv tail and state; every attention
-    position, shared or not, holds a KV cache of its own."""
+    position, shared or not, holds a KV cache of its own (MLA: the
+    compressed ``ckv``)."""
     if desc.kind == "ssm":
         return ssm_mod.ssm_cache_spec(cfg, batch)
+    if cfg.is_mla:
+        return attn_mod.mla_cache_spec(cfg, batch, max_len, seq_axis)
     return attn_mod.gqa_cache_spec(cfg, batch, max_len, seq_axis)
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    check_supported(cfg)
     seq_axis = "kv_seq" if batch == 1 else "seq"
     out = {}
     for si, seg in enumerate(build_plan(cfg)):
@@ -218,21 +207,32 @@ def cast_params(cfg: ModelConfig, params: dict) -> dict:
 
 # ------------------------------------------------------------------ forward
 def _apply_block(cfg: ModelConfig, desc: LayerDesc, bp: dict, h, *,
-                 positions, cache, pos, shared_attn):
+                 positions, cache, pos, shared_attn, want_aux=False):
+    """One block: (h, new_cache, aux), aux the MoE layer's load-balance
+    loss when ``want_aux``, else None."""
     if desc.kind == "ssm":
         y, nc = ssm_mod.ssm_apply(cfg, bp["ssm"],
                                   rmsnorm(h, bp["ln"], cfg.rms_eps),
                                   cache=cache)
-        return h + y, nc
+        return h + y, nc, None
     p = shared_attn if desc.kind == "attn_shared" else bp
-    a, nc = attn_mod.gqa_apply(cfg, p["attn"], rmsnorm(h, p["ln1"],
-                                                       cfg.rms_eps),
-                               positions=positions, cache=cache, pos=pos,
-                               window=desc.window)
+    apply_fn = attn_mod.mla_apply if cfg.is_mla else attn_mod.gqa_apply
+    a, nc = apply_fn(cfg, p["attn"], rmsnorm(h, p["ln1"], cfg.rms_eps),
+                     positions=positions, cache=cache, pos=pos,
+                     window=desc.window)
     h = h + a
     hn = rmsnorm(h, p["ln2"], cfg.rms_eps)
-    m = swiglu(hn, p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"], h.dtype)
-    return h + m, nc
+    aux = None
+    if desc.kind == "moe":
+        m, aux = moe_mod.moe_apply(cfg, bp["moe"], hn, want_aux=want_aux)
+    else:
+        m = swiglu(hn, p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"],
+                   h.dtype)
+    return h + m, nc, aux
+
+
+def _add(a, b):
+    return b if a is None else a if b is None else a + b
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
@@ -245,7 +245,16 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
     [B, S, D], new_cache); the given cache is never written.  With
     ``cfg.policy.remat``, no cache and grad mode on (training), each layer
     of a stacked segment is checkpointed."""
-    check_supported(cfg)
+    h, new_cache, _ = _forward(cfg, params, tokens, patches=patches,
+                               frames=frames, cache=cache, pos=pos)
+    return h, new_cache
+
+
+def _forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
+             frames=None, cache=None, pos=None, want_aux=False):
+    """``forward``, and the sum of the MoE layers' load-balance losses
+    (an f32 scalar, 0 without MoE layers) when ``want_aux``, else None:
+    (h_final, new_cache, aux)."""
     cd = cfg.policy.compute_dtype
     if frames is not None:
         h = frames.to(cd) @ params["frontend"].to(cd)
@@ -260,6 +269,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
     if pos is not None:
         positions = positions + pos
     new_cache: Dict[str, dict] = {}
+    aux_total = None
     for si, seg in enumerate(build_plan(cfg)):
         sp = params["segments"][f"seg{si}"]
         sc = None if cache is None else cache[f"seg{si}"]
@@ -271,14 +281,15 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
                      else layer_trees(sc, seg.repeats))
 
         def run_layer(h, bp, bc, pattern=seg.pattern):
-            ncs = {}
+            ncs, aux = {}, None
             for j, desc in enumerate(pattern):
-                h, nc = _apply_block(cfg, desc, bp[str(j)], h,
-                                     positions=positions,
-                                     cache=None if bc is None else bc[str(j)],
-                                     pos=pos, shared_attn=shared_attn)
+                h, nc, a = _apply_block(
+                    cfg, desc, bp[str(j)], h, positions=positions,
+                    cache=None if bc is None else bc[str(j)], pos=pos,
+                    shared_attn=shared_attn, want_aux=want_aux)
                 ncs[str(j)] = {} if nc is None else nc
-            return h, ncs
+                aux = _add(aux, a)
+            return h, ncs, aux
 
         ckpt = (cfg.policy.remat and seg.mode == "scan" and cache is None
                 and torch.is_grad_enabled())
@@ -288,16 +299,21 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
                 # the segment's own run_layer, bound now: the backward's
                 # recomputation runs after the loop has rebound the name to
                 # a later segment's (zamba2's looped tail)
-                h = checkpoint(lambda hh, b, f=run_layer: f(hh, b, None)[0],
-                               h, bp, use_reentrant=False)
+                h, a = checkpoint(
+                    lambda hh, b, f=run_layer: f(hh, b, None)[::2], h, bp,
+                    use_reentrant=False)
+                aux_total = _add(aux_total, a)
                 continue
-            h, ncs = run_layer(h, bp, bc)
+            h, ncs, a = run_layer(h, bp, bc)
+            aux_total = _add(aux_total, a)
             outs.append(ncs)
         if cache is not None:
             new_cache[f"seg{si}"] = outs[0] if seg.mode == "loop" \
                 else _stack(outs)
     h = rmsnorm(h, params["ln_f"], cfg.rms_eps)
-    return h, (new_cache if cache is not None else None)
+    if want_aux and aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, (new_cache if cache is not None else None), aux_total
 
 
 def unembed_matrix(cfg: ModelConfig, params: dict):
@@ -311,11 +327,12 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     optional ``mask``; an encoder always takes them), and ``patches`` or
     ``frames`` for a frontend, tensors on the params' device.  Next-token
     CE: labels are the tokens rolled by one, the last position masked; the
-    loss is ``ce + 0.01 * aux`` with aux 0 for the ported block kinds.
-    Returns (loss, {"ce", "aux"}), f32 scalars."""
+    loss is ``ce + 0.01 * aux``, aux the MoE layers' summed load-balance
+    losses (0 without MoE layers).  Returns (loss, {"ce", "aux"}), f32
+    scalars."""
     tokens = batch.get("tokens")
-    h, _ = forward(cfg, params, tokens, patches=batch.get("patches"),
-                   frames=batch.get("frames"))
+    h, _, aux = _forward(cfg, params, tokens, patches=batch.get("patches"),
+                         frames=batch.get("frames"), want_aux=True)
     W = unembed_matrix(cfg, params)
     if cfg.causal and "labels" not in batch:
         ll = torch.roll(tokens, -1, dims=1)       # h[t] predicts tokens[t+1]
@@ -325,7 +342,6 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
         ll = batch["labels"]
         mask = batch.get("mask")
     ce = chunked_xent(h, W, ll, mask)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 

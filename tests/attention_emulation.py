@@ -8,8 +8,9 @@ inputs, scores exact in f32 (a bf16 x bf16 product is exact there), an
 online softmax in base 2 (weights 2^((s - m) c), c = D^-0.5 log2(e)) over
 64-row warpgroups and 64-key tiles with the kernel's masks and skips, and P
 split into bf16 halves ``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)``
-whose two products add into one f32 accumulator.  Imports neither jax nor
-``repro``.
+whose two products add into one f32 accumulator.  v may be narrower than
+q and k (MLA's (192, 128)): the scores take q's D, the output v's Dv.
+Imports neither jax nor ``repro``.
 """
 import torch
 
@@ -20,11 +21,12 @@ LOG2E = 1.4426950408889634
 
 
 def emulate_kernel(q, k, v, *, causal, window, split=True):
-    """The kernel's arithmetic in f32: q [B, Sq, Hq, D], k and v [B, Sk,
-    Hkv, D] bf16 -> [B, Sq, Hq, D] f32, before the output's bf16
-    rounding.  ``split=False`` rounds P to bf16 once instead."""
+    """The kernel's arithmetic in f32: q [B, Sq, Hq, D], k [B, Sk, Hkv, D]
+    and v [B, Sk, Hkv, Dv] bf16 -> [B, Sq, Hq, Dv] f32, before the
+    output's bf16 rounding.  ``split=False`` rounds P to bf16 once
+    instead."""
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     qpk = Hq // Hkv
     nt = -(-Sk // BK)
     # TMA zero-fills keys past Sk up to whole tiles
@@ -34,13 +36,13 @@ def emulate_kernel(q, k, v, *, causal, window, split=True):
     kf = kf.repeat_interleave(qpk, 2).transpose(1, 2)   # [B, Hq, S, D]
     vf = vf.repeat_interleave(qpk, 2).transpose(1, 2)
     qf = q.float().transpose(1, 2)
-    out = torch.zeros(B, Hq, Sq, D)
+    out = torch.zeros(B, Hq, Sq, Dv)
     c = (torch.tensor(D ** -0.5, dtype=torch.float32)
          * torch.tensor(LOG2E, dtype=torch.float32))
     for r0 in range(0, Sq, ROWS):
         rows = torch.arange(r0, min(r0 + ROWS, Sq))
         last = int(rows[-1])
-        o = torch.zeros(B, Hq, len(rows), D)
+        o = torch.zeros(B, Hq, len(rows), Dv)
         m = torch.full((B, Hq, len(rows)), NEG_INF)
         l = torch.zeros(B, Hq, len(rows))
         kv_end = min(Sk, (r0 // 128 + 1) * 128, Sq) if causal else Sk
@@ -74,7 +76,8 @@ def emulate_kernel(q, k, v, *, causal, window, split=True):
 
 
 def exact_attention(q, k, v, *, causal, window):
-    """Softmax attention in f64 with the reference's masks."""
+    """Softmax attention in f64 with the reference's masks (v of any
+    width, the scale q's D^-0.5)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     qd = q.double().transpose(1, 2)

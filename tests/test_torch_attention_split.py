@@ -17,6 +17,11 @@ interpret mode.  Tolerances, with their reasons:
   weight where one rounding keeps 8, so its error must be at least 16x
   smaller (about 2^8 expected).
 
+At MLA's (D, Dv) = (192, 128) the Pallas kernel has no counterpart (its
+BlockSpecs take one D), so the emulation is held there against the
+reference's jnp ``layers.attention``, which takes a narrower v and rounds
+P to bf16 before the PV product (2e-2 covers both roundings).
+
 The route function and the TMA stride rules of the wrapper are plain
 Python and are checked here too; the kernels themselves are held to the
 plain version on the card in ``tests/test_torch_cuda.py``.
@@ -28,7 +33,8 @@ import torch
 
 from attention_emulation import emulate_kernel, exact_attention
 from repro.kernels.flash_attention import flash_attention as pallas_flash
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, route,
+from repro.models import layers as rlayers
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, PAIRS, route,
                                                  tma_strides)
 
 
@@ -76,6 +82,69 @@ def test_split_emulation_matches_pallas_and_beats_one_rounding(
     err_split = float((got.double() - exact).abs().max())
     err_one = float((one.double() - exact).abs().max())
     assert err_split * 16 < err_one, (err_split, err_one)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window", [
+    (1, 256, 256, 4, 4, True, 0),             # deepseek-v2's prefill
+    (2, 128, 128, 4, 2, False, 0),            # GQA, no mask
+    (1, 200, 200, 2, 1, True, 64),            # windowed, a ragged tile
+    (1, 100, 150, 2, 2, False, 0),            # rectangular
+])
+def test_split_emulation_with_narrow_v_matches_jnp_and_beats_one_rounding(
+        B, Sq, Sk, Hq, Hkv, causal, window):
+    """The tensor-core kernel's arithmetic at (D, Dv) = (192, 128): 12
+    k-steps of S, O and P.V at Dv, against the reference's jnp attention,
+    and the split P at least 16x closer to an f64 softmax than one bf16
+    rounding."""
+    D, Dv = 192, 128
+    rng = np.random.default_rng(Sq + Hq + Dv)
+    arrs = [rng.standard_normal(shp).astype(np.float32)
+            for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv))]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    got = emulate_kernel(q, k, v, causal=causal, window=window)
+    assert got.shape == (B, Sq, Hq, Dv) and torch.isfinite(got).all()
+    want = rlayers.attention(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                               for t in (q, k, v)),
+                             causal=causal, window=window, chunk=Sq)
+    np.testing.assert_allclose(
+        got.to(torch.bfloat16).float().numpy(),
+        np.asarray(want, np.float32), rtol=2e-2, atol=2e-2)
+    exact = exact_attention(q, k, v, causal=causal, window=window)
+    one = emulate_kernel(q, k, v, causal=causal, window=window, split=False)
+    err_split = float((got.double() - exact).abs().max())
+    err_one = float((one.double() - exact).abs().max())
+    assert err_split * 16 < err_one, (err_split, err_one)
+
+
+@pytest.mark.parametrize("D,Dv,want", [
+    (192, 128, "wgmma"), (128, 192, None), (192, 192, None),
+    (64, 128, None), (128, 64, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_route_by_pair(D, Dv, want, dtype):
+    """q/k and v widths: the pairs ``PAIRS`` lists are built, MLA's
+    (192, 128) on the tensor cores in bf16 and the CUDA cores in f32;
+    any other unequal pair raises."""
+    if want is None:
+        assert (D, Dv) not in PAIRS
+        with pytest.raises(ValueError, match="no kernel"):
+            route(dtype, D, Dv)
+        return
+    assert route(dtype, D, Dv) == (want if dtype == torch.bfloat16
+                                   else "simt")
+    assert route(dtype, 128) == route(dtype, 128, 128)
+
+
+def test_mla_k_meets_the_tma_rules():
+    """MLA's k as the model builds it (k_nope and the rope columns
+    broadcast over the heads, concatenated): contiguous, a 384-byte head
+    stride; v a 256-byte one."""
+    B, T, H = 2, 8, 4
+    k_nope = torch.zeros(B, T, H, 128, dtype=torch.bfloat16)
+    kr = torch.zeros(B, T, 64, dtype=torch.bfloat16)
+    k = torch.cat([k_nope, kr[..., None, :].expand(B, T, H, 64)], dim=-1)
+    assert tma_strides("k", k) == [T * H * 192, H * 192, 192]
+    v = torch.zeros(B, T * H * 128, dtype=torch.bfloat16).view(B, T, H, 128)
+    assert tma_strides("v", v) == [T * H * 128, H * 128, 128]
 
 
 @pytest.mark.parametrize("D", [8, 16, 32, 64, 80, 128, 256])

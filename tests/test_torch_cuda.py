@@ -725,16 +725,20 @@ def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
-    (2, 256, 256, 4, 2, 64, True, 0),
-    (1, 200, 200, 4, 2, 64, False, 32),
-    (1, 50, 130, 4, 2, 64, False, 0),
-    (1, 128, 128, 2, 1, 128, True, 0),
-    (1, 256, 256, 4, 2, 256, True, 64),       # D = 256: 32-key tiles
-    (1, 100, 150, 2, 1, 256, False, 0),
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,causal,window", [
+    (2, 256, 256, 4, 2, 64, 64, True, 0),
+    (1, 200, 200, 4, 2, 64, 64, False, 32),
+    (1, 50, 130, 4, 2, 64, 64, False, 0),
+    (1, 128, 128, 2, 1, 128, 128, True, 0),
+    (1, 256, 256, 4, 2, 256, 256, True, 64),  # D = 256: 32-key tiles
+    (1, 100, 150, 2, 1, 256, 256, False, 0),
+    # MLA's (192, 128): 12 k-steps of S, O at D = 128's width
+    (1, 256, 256, 4, 4, 192, 128, True, 0),
+    (1, 200, 200, 4, 2, 192, 128, True, 64),
+    (1, 100, 150, 2, 1, 192, 128, False, 0),
 ])
 def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
-                                        causal, window):
+                                        Dv, causal, window):
     """The tensor-core kernel against the CPU emulation of its arithmetic
     (``attention_emulation.py``) on the same bf16 inputs.  With P split
     into bf16 hi and lo halves the kernel's bf16 output is the split
@@ -750,7 +754,7 @@ def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
     rng = np.random.default_rng(Sq + Sk + D)
     q, k, v = (torch.from_numpy(
         rng.standard_normal(shp).astype(np.float32)).to(torch.bfloat16)
-        for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+        for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv)))
     before = flash_attention.route_launches["wgmma"]
     got = flash_attention(*(t.to(cuda_device) for t in (q, k, v)),
                           causal=causal, window=window).cpu()
@@ -911,6 +915,236 @@ def test_cuda_flash_raises_under_grad_without_a_backward_kernel(cuda_device,
     with torch.no_grad():
         ops.flash_attention(q, q, q)
     assert flash_attention.launches == before + 1
+
+
+def _mla_kv(dev, dtype, B, Sk, Hkv, seed):
+    """k and v as MLA builds them: k [B, Sk, H, 192] the 128 "nope"
+    columns beside the 64 rope columns broadcast over the heads,
+    concatenated; v [B, Sk, H, 128] a view of one product's rows."""
+    k_nope = _randn(dev, (B, Sk, Hkv, 128), dtype, seed)
+    kr = _randn(dev, (B, Sk, 64), dtype, seed + 1)
+    k = torch.cat([k_nope, kr[..., None, :].expand(B, Sk, Hkv, 64)], -1)
+    v = _randn(dev, (B, Sk, Hkv * 128), dtype, seed + 2).view(B, Sk, Hkv,
+                                                              128)
+    return k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window", [
+    (2, 512, 512, 128, 128, True, 0),         # deepseek-v2's prefill
+    (1, 200, 200, 8, 8, False, 0),
+    (1, 333, 333, 8, 2, True, 64),            # GQA, windowed
+    (1, 77, 130, 4, 1, False, 0),             # rectangular
+    (1, 130, 50, 4, 2, True, 0),              # more queries than keys
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_mla_pair_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
+                                          causal, window, dtype):
+    """flash at (D, Dv) = (192, 128), k and v as MLA builds them: bf16 on
+    the tensor-core kernel, f32 on the CUDA-core one, each against the
+    plain version within ``FLOAT_TOL``; the output is v's width."""
+    from repro_torch.kernels.flash_attention import flash_attention, route
+    dev = exact_f32
+    q = _randn(dev, (B, Sq, Hq, 192), dtype, 1)
+    k, v = _mla_kv(dev, dtype, B, Sk, Hkv, 2)
+    path = route(dtype, 192, 128)
+    assert path == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    before = flash_attention.launches, flash_attention.route_launches[path]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert got.shape == (B, Sq, Hq, 128)
+    _close(got, ref.attention_ref(q, k, v, causal=causal, window=window))
+    assert (flash_attention.launches, flash_attention.route_launches[path]) \
+        == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_mla_pair_refusals(cuda_device):
+    """Pairs not built raise; the (192, 128) pair writes no row
+    statistics (it has no backward kernel), and ``ops.flash_attention``
+    under grad there raises naming the ROADMAP item before any launch;
+    without grad it launches on the tensor-core route."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = cuda_device
+    q = _randn(dev, (1, 64, 2, 192), torch.bfloat16, 1)
+    k, v = _mla_kv(dev, torch.bfloat16, 1, 64, 2, 2)
+    with pytest.raises(ValueError, match="head dim 192 not in"):
+        flash_attention(q, k, k)                 # (192, 192)
+    with pytest.raises(ValueError, match="head dim 128 with v's 64"):
+        flash_attention(v, v, v[..., :64])
+    stats = torch.empty((2, 1, 2, 64), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        flash_attention(q, k, v, stats=stats)
+    before = flash_attention.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 24"):
+        ops.flash_attention(q.clone().requires_grad_(), k, v)
+    assert flash_attention.launches == before
+    wgmma = flash_attention.route_launches["wgmma"]
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+    assert out.shape == (1, 64, 2, 128)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.route_launches["wgmma"] == wgmma + 1
+
+
+def _mla_cfg(dt, family="moe"):
+    """The smoke deepseek-v2 with MLA's real head dims (nope 128, rope 64,
+    v 128) over 2 heads: its prefill takes flash at (192, 128) (the smoke
+    widths, 24 and 16, have no kernel).  ``family="dense"``: every layer
+    a dense MLP, no MoE."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.config import Policy
+    pol = Policy(compute_dtype=torch.float32, cache_dtype=torch.float32) \
+        if dt == torch.float32 else Policy()
+    return dataclasses.replace(
+        configs.SMOKE["deepseek-v2-236b"], family=family, n_heads=2,
+        n_kv_heads=2, nope_head_dim=128, rope_head_dim=64, v_head_dim=128,
+        policy=pol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mla_model_equals_cpu(exact_f32, dtype):
+    """A small MLA model at the real head dims (every layer dense, so no
+    routing can split on a bf16 near-tie) on the card and the CPU: a
+    prefill into a ``ckv`` cache and four absorbed decode steps, both
+    sides decoding the card's tokens; hidden states within 1e-4 under the
+    f32 policy (tokens equal), within a relative L2 of 2e-2 in bf16; the
+    prefill's flash on the route of its dtype at (192, 128)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import forward, init_cache, init_model
+    from repro_torch.models.model import tree_map
+    cfg = _mla_cfg(dtype, family="dense")
+    params = init_model(cfg, torch.Generator(exact_f32).manual_seed(0))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, (2, 40)).astype(np.int32))
+    path = "wgmma" if dtype == torch.bfloat16 else "simt"
+    before = flash_attention.route_launches[path]
+
+    def close(a, b):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+        else:
+            a = a.float().cpu()
+            assert float((a - b.float()).norm() / b.float().norm()) <= 2e-2
+
+    with torch.no_grad():
+        h_c, c_c = forward(cfg, params, tok.to(exact_f32),
+                           cache=init_cache(cfg, 2, 48, exact_f32))
+        h_h, c_h = forward(cfg, cpu, tok, cache=init_cache(cfg, 2, 48,
+                                                           "cpu"))
+        assert flash_attention.route_launches[path] == \
+            before + cfg.n_layers
+        close(h_c, h_h)
+        for (a, b) in zip(_tree_tensors(c_c), _tree_tensors(c_h)):
+            close(a, b)
+        for t in range(4):
+            ids = torch.argmax((h_c[:, -1] @ params["unembed"].to(
+                h_c.dtype)).float(), -1).to(torch.int32)[:, None]
+            if dtype == torch.float32:
+                assert torch.equal(ids.cpu(), torch.argmax(
+                    (h_h[:, -1] @ cpu["unembed"].to(h_h.dtype)).float(),
+                    -1).to(torch.int32)[:, None])
+            h_c, c_c = forward(cfg, params, ids, cache=c_c, pos=40 + t)
+            h_h, c_h = forward(cfg, cpu, ids.cpu(), cache=c_h, pos=40 + t)
+            close(h_c, h_h)
+
+
+def _tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tree_tensors(tree[k])]
+    return [tree]
+
+
+@pytest.mark.cuda
+def test_cuda_mla_unabsorbed_decode_raises(cuda_device):
+    """MLA decode without weight absorption needs decode_attention at
+    (192, 128), which is not built: it raises naming the ROADMAP item."""
+    import dataclasses
+
+    from repro_torch.models import forward, init_cache, init_model
+    cfg = dataclasses.replace(_mla_cfg(torch.bfloat16), mla_absorb=False)
+    params = init_model(cfg, torch.Generator(cuda_device).manual_seed(0))
+    tok = torch.ones((1, 8), dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        _, cache = forward(cfg, params, tok,
+                           cache=init_cache(cfg, 1, 16, cuda_device))
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 26"):
+            forward(cfg, params, tok[:, :1], cache=cache, pos=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_block_equals_cpu(exact_f32, arch, dtype):
+    """The MoE block (router, top-k, capacity dispatch with drops, expert
+    products, shared expert) on the card and the CPU on the same inputs,
+    a prefill and a decode-sized T: the same experts for every token and
+    the output within ``FLOAT_TOL``.  The inputs are positive and the
+    router's column 3 raised, so every token's first choice is expert 3
+    and the prefill overflows its capacity."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.params import materialize
+    from repro_torch.models.model import tree_map
+    cfg = configs.SMOKE[arch]
+    p = materialize(moe.moe_spec(cfg), torch.Generator().manual_seed(1))
+    p["router"][:, 3] += 0.05
+    pc = tree_map(lambda t: t.to(exact_f32), p)
+    for B, S in ((2, 24), (3, 1)):
+        x = _randn("cpu", (B, S, cfg.d_model), dtype, B + S).abs()
+        T = B * S
+        _, _, i_c = moe.route(cfg, pc, x.to(exact_f32).reshape(T, -1))
+        _, _, i_h = moe.route(cfg, p, x.reshape(T, -1))
+        assert torch.equal(i_c.cpu(), i_h) and bool((i_h[:, 0] == 3).all())
+        _, keep = moe.dispatch(cfg, i_h, moe.capacity_for(cfg, T))
+        assert bool((~keep).any()) == (T > moe.capacity_for(cfg, T))
+        out_c, aux_c = moe.moe_apply(cfg, pc, x.to(exact_f32))
+        out_h, aux_h = moe.moe_apply(cfg, p, x)
+        _close(out_c.cpu(), out_h)
+        torch.testing.assert_close(aux_c.cpu(), aux_h, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_models_serve_equal_cpu(exact_f32):
+    """The MoE decoders under the f32 policy behind the lease fabric on
+    the card and the CPU: deepseek-v2 at MLA's real head dims (flash at
+    (192, 128), the absorbed decode) and the smoke llama4-maverick (MoE
+    every other layer, GQA): equal tokens, lease-cache and fabric
+    counters and grant log."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import init_model
+    from repro_torch.models.config import Policy
+    from repro_torch.runtime.server import Request, Server
+    llama = dataclasses.replace(
+        configs.SMOKE["llama4-maverick-400b-a17b"], policy=Policy(
+            compute_dtype=torch.float32, cache_dtype=torch.float32))
+    rng = np.random.default_rng(1)
+    for cfg in (_mla_cfg(torch.float32), llama):
+        params = init_model(cfg, torch.Generator(exact_f32).manual_seed(0))
+        prompts = [rng.integers(2, cfg.vocab, 16).astype(np.int32)
+                   for _ in range(3)]
+        waves = [[Request(rid=w * 3 + i, prompt=prompts[i], max_new=4)
+                  for i in range(3)] for w in range(3)]
+        outs, srvs = [], []
+        for dev in (exact_f32, "cpu"):
+            srv = Server(cfg, params, batch_size=2, max_len=32, device=dev)
+            outs.append({k: v for w in waves
+                         for k, v in srv.serve(w).items()})
+            srvs.append(srv)
+        assert outs[0].keys() == outs[1].keys()
+        for rid in outs[0]:
+            np.testing.assert_array_equal(outs[0][rid], outs[1][rid])
+        assert srvs[0].cache_stats == srvs[1].cache_stats
+        assert srvs[0].fabric_stats == srvs[1].fabric_stats
+        assert srvs[0].cache_stats["hits"] >= 1
 
 
 @pytest.mark.cuda

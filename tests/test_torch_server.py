@@ -5,7 +5,8 @@ Both servers get the same weights (carried across with
 ``repro_torch.models.convert``) and the same request waves.  Under the
 f32 policy the greedy tokens must be equal; the fabric sees only prefix
 keys, so the lease-cache and fabric counters must be equal under any
-policy.  The model runs at the smoke size of smollm-360m.
+policy.  The model runs at the smoke size of smollm-360m, and of
+deepseek-v2 (MLA and MoE) and llama4-maverick (MoE) where named.
 """
 import dataclasses
 
@@ -29,8 +30,8 @@ from repro_torch.runtime.server import Request, Server
 ARCH = "smollm-360m"
 
 
-def _cfgs(f32: bool):
-    rc, tc = rcfgs.SMOKE[ARCH], tcfgs.SMOKE[ARCH]
+def _cfgs(f32: bool, arch=ARCH):
+    rc, tc = rcfgs.SMOKE[arch], tcfgs.SMOKE[arch]
     if f32:
         rc = dataclasses.replace(rc, policy=RPolicy(
             compute_dtype=jnp.float32, cache_dtype=jnp.float32))
@@ -178,3 +179,64 @@ def test_server_runs_on_the_card_by_default(weights):
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             Server(tc, params)
+
+
+MOE_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_server_matches_reference_f32(arch):
+    """The smoke deepseek-v2 (MLA, its cache one ``ckv`` a layer; MoE) and
+    llama4-maverick (MoE every other layer) behind the lease fabric under
+    the f32 policy: equal tokens, lease-cache and fabric counters to the
+    reference's, later waves from leases, and the leased cache payload
+    bit-identical after decoding from it, nothing written past the
+    prompt."""
+    rc, tc = _cfgs(True, arch)
+    rp = r_init_model(rcfgs.SMOKE[arch], jax.random.PRNGKey(2))
+    srv_r = RServer(rc, rp, batch_size=2, max_len=64)
+    srv_t = Server(tc, convert.params_from_numpy(
+        tc, jax.tree.map(np.asarray, rp), "cpu"), batch_size=2, max_len=64,
+        device="cpu")
+    posted = []
+    put = srv_t.kv.put_batch
+    srv_t.kv.put_batch = lambda items: (posted.extend(items), put(items))
+    sched = [[0, 1, 2], [3, 4, 5], [6, 7, 8]]
+    out_r = _serve_all(srv_r, _waves(3, 3, sched, cls=RRequest))
+    waves = _waves(3, 3, sched)
+    out_t = srv_t.serve(waves[0])
+    snap = [t.clone() for t in _tensors(posted[0][1][0])]
+    for wave in waves[1:]:
+        out_t.update(srv_t.serve(wave))
+    _assert_same_out(out_t, out_r)
+    assert srv_t.cache_stats == srv_r.cache_stats
+    assert srv_t.fabric_stats == srv_r.fabric_stats
+    assert srv_t.cache_stats["hits"] >= 1
+    cache = posted[0][1][0]
+    names = [k for k in _leaf_names(cache)]
+    assert set(names) == ({"ckv"} if tc.is_mla else {"k", "v"})
+    for before, now in zip(snap, _tensors(cache)):
+        assert torch.equal(before, now)
+        assert not now[..., 16:, :].any()       # nothing past the prompt
+
+
+def _leaf_names(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaf_names(tree[k])
+        else:
+            yield k
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_launcher_runs_moe_archs_on_cpu(arch, capsys):
+    """``launch.serve --arch deepseek-v2-236b`` (and llama4-maverick)
+    serves its smoke config on the CPU: two waves, the second from
+    leases."""
+    srv, out = tserve.main(["--arch", arch, "--device", "cpu",
+                            "--requests", "8", "--batch", "4",
+                            "--max-new", "4"])
+    assert set(out) == set(range(8))
+    assert all(v.shape == (4,) for v in out.values())
+    assert srv.cache_stats["hits"] >= 1
+    assert "lease-cache stats" in capsys.readouterr().out
