@@ -1,16 +1,17 @@
 // Flash attention (forward, prefill) on Hopper's CUDA cores (sm_90a): the
 // f32 route (MLA's q and k of 192 columns with v of 128 among it), and the
-// bf16 route at head dims 16, 32 and 80.
+// bf16 route at head dims 16 and 32.
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::_flash_kernel
 // (pallas_call at flash_attention.py:79) where
 // kernels/flash_attention.py::route picks "simt": f32 at D in {16, 32, 64,
 // 80, 128, 256}, which the card tests hold to 1e-5 (TF32 tensor cores would
-// not meet that), and bf16 at D in {16, 32, 80} (80 is hubert-xlarge's
-// head: its 160-byte rows do not fill the tensor-core kernel's 128-byte
-// swizzled boxes).  bf16 at D = 64, 128 and 256, the serving path's
-// prefill, takes flash_attention_wgmma.cu; this library builds no bf16
-// code for those head dims and returns cudaErrorInvalidValue if asked.
+// not meet that), and bf16 at D in {16, 32}.  bf16 at D = 64, 80, 128 and
+// 256, the models' prefill, takes flash_attention_wgmma.cu; this library
+// keeps bf16 code at D = 80 only for the wrapper's _route="simt" (its
+// route before the tensor-core kernel took hubert-xlarge's head dim, timed
+// beside it on the card), builds none at 64, 128 and 256 and returns
+// cudaErrorInvalidValue if asked.
 // At (D, Dv) = (192, 128) (deepseek-v2's MLA prefill; f32 only here, bf16
 // takes the tensor-core kernel) v and the output are Dv wide.
 // Causal / sliding-window GQA softmax attention with an online softmax

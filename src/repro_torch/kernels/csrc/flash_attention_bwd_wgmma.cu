@@ -1,5 +1,5 @@
 // Flash attention backward on Hopper's tensor cores (sm_90a): the bf16
-// route for head dims 64 and 128.
+// route for head dims 64, 80, 128 and 256.
 //
 // The gradient of flash_attention_wgmma.cu, which replaces the Pallas
 // kernel repro/kernels/flash_attention.py::_flash_kernel (pallas_call at
@@ -53,6 +53,18 @@
 //     K Q^T and dP^T = V dO^T by wgmma, P^T and dS^T in registers, dV +=
 //     P^T dO and dK += dS^T Q with A from registers and dO, Q as MN-major
 //     B operands.
+// Head dims 80 and 256.  At D = 80 (hubert-xlarge) the tiles are two
+// 64-column boxes, TMA's zeros past column 80; S and dP take the 5 live
+// k-steps, and dQ, dK and dV run at wgmma's N = 80 (N = 128 over the zeros
+// measured 211.0 against 193.1 us at hubert's training shape, NVIDIA H100
+// 80GB HBM3, 700 W).  At D = 256 (gemma3-4b) a 64 x 256 f32
+// accumulator of dK and one of dV would not fit one warpgroup's registers
+// beside S, dP and the split P and dS, as a whole O did not in the
+// forward; so two blocks share each tile, each computing all of S and dP
+// over the 256 dims and its 128-column half of dQ (pass 1) or of dK and
+// dV (pass 2), at D = 128's register profile (254 registers in pass 2, no
+// spills).  Shared memory there: the resident pair 64 KB, two stages of
+// 64 KB, the stats, 195 KB of the 227, one block an SM.
 // Precision: the plain version computes P and dS in f32.  Each is split
 // in registers into hi = bf16(x) and lo = bf16(x - hi), and both halves'
 // products add into the one f32 accumulator (~16 bits where one bf16
@@ -75,12 +87,23 @@ constexpr int kStages = 2;         // ring depth
 
 template <int D>
 struct Shape {
+  // tiles take whole 64-column boxes: at D = 80 TMA zero-fills columns
+  // 80-127, which S and dP never read (D / 16 k-steps)
+  static constexpr int DT = (D + kBox - 1) / kBox * kBox;
+  // at D = 256 an output tile's 64 x 256 f32 accumulator does not fit one
+  // warpgroup's registers beside S, dP and the split P and dS: two blocks
+  // share each tile, each with half of the output columns (and all of S
+  // and dP), at D = 128's register profile
+  static constexpr int kSplit = DT > 128 ? 2 : 1;
+  static constexpr int kCols = DT / kSplit;       // tile columns a block
+  static constexpr int kStore = D / kSplit;       // output columns a block
+  static constexpr int N = D == 80 ? 80 : kCols;  // product width
   // dQ at D = 64 overlaps a tile's arithmetic with its products; at D =
   // 128 the registers that needs are not there, and dK/dV, whose P^T and
   // dS^T would have to stay live beside both accumulators, is faster
   // waiting for each group at once (scripts/flash_bwd_breakdown.py)
   static constexpr bool kOverlapDq = D == 64;
-  static constexpr int kTileBytes = kTile * D * 2;
+  static constexpr int kTileBytes = kTile * DT * 2;
   static constexpr int kStageBytes = 2 * kTileBytes;  // Q+dO, or K+V
   static constexpr int kStatFloats = 3 * kTile;       // m, 1 / l, Di
   // resident pair, ring, stats of each stage (dK/dV only), barriers
@@ -91,17 +114,18 @@ struct Shape {
   static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
 };
 
-// one 64-row tile of head h at rows r0, as D / 64 boxes
+// one 64-row tile of head h at rows r0, as DT / 64 boxes
 template <int D>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t* bar, int h, int r0,
                                           int b) {
 #pragma unroll
-  for (int x = 0; x < D / kBox; ++x)
+  for (int x = 0; x < Shape<D>::DT / kBox; ++x)
     tma_load(dst + x * kTile * 128, map, bar, x * kBox, h, r0, b);
 }
 
-// acc (+)= A B^T over D, A and B 64-row tiles with D contiguous (K-major)
+// acc (+)= A B^T over D, A and B 64-row tiles with D contiguous (K-major);
+// only the D live columns are read
 template <int D>
 __device__ __forceinline__ void product_ss(float* acc, const uint8_t* a,
                                            const uint8_t* b) {
@@ -114,19 +138,21 @@ __device__ __forceinline__ void product_ss(float* acc, const uint8_t* a,
 }
 
 // acc += (hi + lo) T, hi and lo A fragments over the tile's 64 rows of
-// T (a 64 x D tile with D contiguous: the MN-major B operand)
-template <int D>
+// T's N columns from its box ``box`` (T a 64 x DT tile with DT contiguous:
+// the MN-major B operand)
+template <int N>
 __device__ __forceinline__ void product_rs(float* acc,
                                            const uint32_t (&hi)[4][4],
                                            const uint32_t (&lo)[4][4],
-                                           const uint8_t* t) {
+                                           const uint8_t* t, int box) {
+  t += box * kTile * 128;
 #pragma unroll
   for (int kt = 0; kt < kTile / 16; ++kt)
-    wgmma_rs<D>(acc, hi[kt], desc_sw128(t + kt * 16 * 128, kTile * 128,
+    wgmma_rs<N>(acc, hi[kt], desc_sw128(t + kt * 16 * 128, kTile * 128,
                                         kSwizzleAtom));
 #pragma unroll
   for (int kt = 0; kt < kTile / 16; ++kt)
-    wgmma_rs<D>(acc, lo[kt], desc_sw128(t + kt * 16 * 128, kTile * 128,
+    wgmma_rs<N>(acc, lo[kt], desc_sw128(t + kt * 16 * 128, kTile * 128,
                                         kSwizzleAtom));
 }
 
@@ -158,10 +184,11 @@ __device__ __forceinline__ float masked(float sc, int qi, int kj, int Sk,
   return kj < Sk ? sc : -CUDART_INF_F;         // zero-filled: weighs 0
 }
 
-// rows r and r + 8 of a 64 x D accumulator (this thread's pair of every
-// 8 columns), times `mul`, rounded to bf16 at `dst` (row r) and `dst +
-// step` (row r + 8); a row is stored only where its `live` flag is set
-template <int D>
+// the first C columns of rows r and r + 8 of a 64-row accumulator (this
+// thread's pair of every 8 columns), times `mul`, rounded to bf16 at `dst`
+// (row r) and `dst + step` (row r + 8); a row is stored only where its
+// `live` flag is set
+template <int C>
 __device__ __forceinline__ void store_rows(const float* acc, float mul,
                                            bf16* dst, int64_t step,
                                            const bool (&live)[2]) {
@@ -169,7 +196,7 @@ __device__ __forceinline__ void store_rows(const float* acc, float mul,
   for (int r = 0; r < 2; ++r) {
     if (!live[r]) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < C / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + r * step + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul,
                                 acc[4 * j + 2 * r + 1] * mul);
@@ -227,7 +254,9 @@ flash_bwd_wgmma_dq(
   const uint8_t* qs = sm.pair;
   const uint8_t* dos = sm.pair + Sh::kTileBytes;
 
-  const int h = blockIdx.x, b = blockIdx.y, hk = h / qpk;
+  // blockIdx.x: the query head, then which column half (vpart)
+  const int h = blockIdx.x / Sh::kSplit, vpart = blockIdx.x % Sh::kSplit;
+  const int b = blockIdx.y, hk = h / qpk;
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
   const int q0 = qt * kTile;
   const int kv_end = causal ? min(Sk, min(q0 + kTile, Sq)) : Sk;
@@ -266,16 +295,20 @@ flash_bwd_wgmma_dq(
     const int64_t idx = (static_cast<int64_t>(b) * Hq + h) * Sq + row;
     m[r] = live[r] ? stats[idx] : 0.f;
     il[r] = live[r] ? stats[nstat + idx] : 0.f;   // a dead row weighs 0
-    // Di = dO . O: the quad's four lanes a quarter of the row each
+    // Di = dO . O over the row's 16-byte chunks: the quad's four lanes a
+    // quarter of the row each, or at D = 80 (ten chunks) every fourth
     float acc = 0.f;
     if (live[r]) {
-      const int64_t at = ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * D
-                         + (lane % 4) * (D / 4);
+      const int64_t at = ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * D;
+      constexpr int kChunks = D / 8;
 #pragma unroll
-      for (int j = 0; j < D / 4; j += 8) {
+      for (int j = 0; j < (kChunks + 3) / 4; ++j) {
+        const int c = kChunks % 4 == 0 ? (lane % 4) * (kChunks / 4) + j
+                                       : 4 * j + lane % 4;
+        if (c >= kChunks) break;
         float of[8], gf[8];
-        halcone::load_vec(o + at + j, of);
-        halcone::load_vec(dout + at + j, gf);
+        halcone::load_vec(o + at + 8 * c, of);
+        halcone::load_vec(dout + at + 8 * c, gf);
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc += of[e] * gf[e];
       }
@@ -283,12 +316,14 @@ flash_bwd_wgmma_dq(
     acc += __shfl_xor_sync(halcone::kAllLanes, acc, 1);
     acc += __shfl_xor_sync(halcone::kAllLanes, acc, 2);
     dd[r] = acc;
-    if (live[r] && lane % 4 == 0) di[idx] = acc;
+    if (live[r] && lane % 4 == 0 && vpart == 0) di[idx] = acc;
   }
 
-  float dqa[D / 2], sacc[kTile / 2], pacc[kTile / 2];
+  constexpr int N = Sh::N;
+  const int box = vpart * (Sh::kCols / kBox);    // the half's first box
+  float dqa[N / 2], sacc[kTile / 2], pacc[kTile / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) dqa[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kTile / 2; ++i) sacc[i] = pacc[i] = 0.f;
   uint32_t hi[4][4], lo[4][4];
@@ -334,16 +369,17 @@ flash_bwd_wgmma_dq(
             i, hi, lo);                          // dS
     }
     wgmma_fence();
-    product_rs<D>(dqa, hi, lo, ks);              // dQ += dS K
+    product_rs<N>(dqa, hi, lo, ks, box);         // dQ += dS K
     commit<Sh::kOverlapDq>();
   }
   wgmma_wait<0>();
   fence_operands(dqa);
 
-  store_rows<D>(dqa, scale,
-                dq + ((static_cast<int64_t>(b) * Sq + row_a) * Hq + h) * D
-                    + cq,
-                static_cast<int64_t>(8) * Hq * D, live);
+  store_rows<Sh::kStore>(
+      dqa, scale,
+      dq + ((static_cast<int64_t>(b) * Sq + row_a) * Hq + h) * D
+          + vpart * Sh::kCols + cq,
+      static_cast<int64_t>(8) * Hq * D, live);
 }
 
 // ---------------------------------------------------------------- pass 2
@@ -365,7 +401,9 @@ flash_bwd_wgmma_dkdv(
   const uint8_t* ks = sm.pair;
   const uint8_t* vs = sm.pair + Sh::kTileBytes;
 
-  const int hk = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  // blockIdx.x: the kv head, then which column half (vpart)
+  const int hk = blockIdx.x / Sh::kSplit, vpart = blockIdx.x % Sh::kSplit;
+  const int b = blockIdx.y, kt = blockIdx.z;
   const int k0 = kt * kTile;
   const int nq = (Sq + kTile - 1) / kTile;
   // query tiles before the key tile's see none of its keys under the
@@ -411,9 +449,11 @@ flash_bwd_wgmma_dkdv(
   // group of 8 accumulator columns (queries, then head dims) the pair at cq
   const int row_k = k0 + 16 * warp + lane / 4;
   const int cq = 2 * (lane % 4);
-  float dka[D / 2], dva[D / 2], sacc[kTile / 2], pacc[kTile / 2];
+  constexpr int N = Sh::N;
+  const int box = vpart * (Sh::kCols / kBox);    // the half's first box
+  float dka[N / 2], dva[N / 2], sacc[kTile / 2], pacc[kTile / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) dka[i] = dva[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kTile / 2; ++i) sacc[i] = pacc[i] = 0.f;
   const float sl = scale * kLog2e;
@@ -458,21 +498,21 @@ flash_bwd_wgmma_dkdv(
             dlo);                                // dS^T
     }
     wgmma_fence();
-    product_rs<D>(dva, phi, plo, dos);           // dV += P^T dO
-    product_rs<D>(dka, dhi, dlo, qs);            // dK += dS^T Q
+    product_rs<N>(dva, phi, plo, dos, box);      // dV += P^T dO
+    product_rs<N>(dka, dhi, dlo, qs, box);       // dK += dS^T Q
     commit<false>();
     fence_operands(dka);
     fence_operands(dva);
     mbar_arrive(&sm.empty[s]);
   }
 
-  const int Hkv = gridDim.x;
+  const int Hkv = gridDim.x / Sh::kSplit;
   const bool live[2] = {row_k < Sk, row_k + 8 < Sk};
   const int64_t at = ((static_cast<int64_t>(b) * Sk + row_k) * Hkv + hk) * D
-                     + cq;
+                     + vpart * Sh::kCols + cq;
   const int64_t step = static_cast<int64_t>(8) * Hkv * D;
-  store_rows<D>(dka, scale, dk + at, step, live);
-  store_rows<D>(dva, 1.f, dv + at, step, live);
+  store_rows<Sh::kStore>(dka, scale, dk + at, step, live);
+  store_rows<Sh::kStore>(dva, 1.f, dv + at, step, live);
 }
 
 // A contiguous [B, S, H, D] bf16 tensor's rank-4 map, 64-row boxes.
@@ -507,13 +547,15 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   }
   const int nq = (Sq + kTile - 1) / kTile, nk = (Sk + kTile - 1) / kTile;
   const int qpk = Hq / Hkv;
-  flash_bwd_wgmma_dq<D><<<dim3(Hq, B, nq), kThreads, Sh::kSmem, stream>>>(
+  flash_bwd_wgmma_dq<D><<<dim3(Hq * Sh::kSplit, B, nq), kThreads, Sh::kSmem,
+                          stream>>>(
       qm, km, vm, dom, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), stats, di, static_cast<bf16*>(dq), Sq,
       Sk, Hq, qpk, scale, causal, window);
   const int e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  flash_bwd_wgmma_dkdv<D><<<dim3(Hkv, B, nk), kThreads, Sh::kSmem, stream>>>(
+  flash_bwd_wgmma_dkdv<D><<<dim3(Hkv * Sh::kSplit, B, nk), kThreads,
+                            Sh::kSmem, stream>>>(
       qm, km, vm, dom, stats, di, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), Sq, Sk, Hq, qpk, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -522,10 +564,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // q, o, do, dq: [B, Sq, Hq, D] and k, v, dk, dv: [B, Sk, Hkv, D], all
-// contiguous bf16 starting on 16 bytes; D in {64, 128}, Hq a multiple of
-// Hkv, Sk >= 1.  stats: [2, B, Hq, Sq] f32, the forward's m and
-// 1 / max(l, 1e-30); di: [B, Hq, Sq] f32 scratch (dO . O, written by pass
-// 1, read by pass 2).  scale: D^-0.5 as an f32.  Returns a cudaError_t.
+// contiguous bf16 starting on 16 bytes; D in {64, 80, 128, 256}, Hq a
+// multiple of Hkv, Sk >= 1.  stats: [2, B, Hq, Sq] f32, the forward's m
+// and 1 / max(l, 1e-30); di: [B, Hq, Sq] f32 scratch (dO . O, written by
+// pass 1, read by pass 2).  scale: D^-0.5 as an f32.  Returns a cudaError_t.
 extern "C" int halcone_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* stats, void* dq, void* dk, void* dv,
@@ -540,8 +582,14 @@ extern "C" int halcone_flash_attention_bwd_wgmma(
   if (D == 64)
     return launch<64>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
                       Hkv, scale, causal, window, s);
+  if (D == 80)
+    return launch<80>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
+                      Hkv, scale, causal, window, s);
   if (D == 128)
     return launch<128>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
+                       Hkv, scale, causal, window, s);
+  if (D == 256)
+    return launch<256>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
                        Hkv, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,11 @@
 // Flash attention (forward, prefill) on Hopper's tensor cores (sm_90a):
-// the bf16 route for head dims 64, 128 and 256, and for MLA's q and k of
-// 192 columns with v of 128 (deepseek-v2).
+// the bf16 route for head dims 64, 80, 128 and 256, and for MLA's q and k
+// of 192 columns with v of 128 (deepseek-v2).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::_flash_kernel
 // (pallas_call at flash_attention.py:79) for bf16 q, k, v with (D, Dv) in
-// {(64, 64), (128, 128), (256, 256), (192, 128)}; f32, and bf16 at D in
-// {16, 32, 80}, stay on flash_attention.cu.  Same contract: q [B, Sq, Hq,
+// {(64, 64), (80, 80), (128, 128), (256, 256), (192, 128)}; f32, and bf16
+// at D in {16, 32}, stay on flash_attention.cu.  Same contract: q [B, Sq, Hq,
 // D], k [B, Sk, Hkv, D] and v [B, Sk, Hkv, Dv] with any strides over B, S
 // and H (each a multiple of 16 bytes, for TMA) and the head dim
 // contiguous; out [B, Sq, Hq, Dv] contiguous bf16.  Query head h reads kv
@@ -38,6 +38,16 @@
 // costs S and the softmax twice, 4/3 of the tensor work of one block.
 // Shared memory at D = 256: Q 64 KB and two stages of K (32 KB) and V's
 // half (16 KB), 161 KB, one block an SM.
+// At D = 80 (hubert-xlarge) the 160-byte rows are whole 16 bytes, so TMA
+// takes them with the tensors' own strides: each row loads as two
+// 64-column boxes, and TMA fills columns 80-127 of the second with zeros
+// (as it fills rows past S).  S = Q K^T takes the 5 k-steps of the live
+// columns; O = P V runs at wgmma's N = 80 (ten 8-column groups, the last
+// two in V's second box) and stores 80 columns.  N = 128 over the zeros
+// (D = 128's register profile) measured 66.3 against 62.2 us at hubert's
+// prefill (NVIDIA H100 80GB HBM3, 700 W); both 165 registers or fewer,
+// no spills.  Shared memory as at D = 128,
+// 97 KB, one block an SM.
 // At MLA's (192, 128) S = Q K^T takes 12 k-steps of 16 (three 64-column
 // boxes of Q and K a row) and O keeps D = 128's register profile (128 f32
 // columns over the two warpgroups), so no column split: Q 48 KB and two
@@ -95,19 +105,24 @@ constexpr int kRows = 64 * kWarpgroups;          // query rows per block
 constexpr int kThreads = 128 * kWarpgroups + 32; // + one producer warp
 constexpr int kStages = 2;                       // K/V ring depth
 
-// 64 keys a tile: S takes 32 f32 registers a thread and O DV / 2.  D: q
-// and k's head dim; DO: v's and the output's.
+// 64 keys a tile: S takes 32 f32 registers a thread and O N / 2.  D: q
+// and k's head dim; DO: v's and the output's.  A head dim that is not a
+// multiple of 64 (80) takes whole 64-column boxes, zero-filled past it.
 template <int D, int DO>
 struct Shape {
   static constexpr int BK = 64;
-  static constexpr int DV = DO < 128 ? DO : 128;   // output columns a block
-  static constexpr int kVSplit = DO / DV;          // blocks a row tile
-  // two blocks an SM at D = 64 (96 registers a thread), one at D >= 128
+  static constexpr int DT = (D + kBox - 1) / kBox * kBox;    // Q, K tiles
+  static constexpr int DOT = (DO + kBox - 1) / kBox * kBox;  // V tiles
+  static constexpr int DV = DOT < 128 ? DOT : 128;  // V columns a block
+  static constexpr int kVSplit = DOT / DV;         // blocks a row tile
+  static constexpr int kStore = DO / kVSplit;      // O columns a block
+  static constexpr int N = DO == 80 ? 80 : DV;   // P V's width
+  // two blocks an SM at D = 64 (96 registers a thread), one at D >= 80
   static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
-  static constexpr int kBoxes = D / kBox;          // of Q and K
+  static constexpr int kBoxes = DT / kBox;         // of Q and K
   static constexpr int kVBoxes = DV / kBox;
-  static constexpr int kQBytes = kRows * D * 2;
-  static constexpr int kKBytes = BK * D * 2;       // K per stage
+  static constexpr int kQBytes = kRows * DT * 2;
+  static constexpr int kKBytes = BK * DT * 2;      // K per stage
   static constexpr int kStageBytes = kKBytes + BK * DV * 2;
   static constexpr int kSmem = kSwizzleAtom + kQBytes + kStages * kStageBytes
                                + 8 * (1 + 2 * kStages);
@@ -122,7 +137,7 @@ flash_wgmma_kernel(
     float* __restrict__ stats, int Sq, int Sk, int Hq, int qpk, float scale,
     int causal, int window) {
   using Sh = Shape<D, DO>;
-  constexpr int BK = Sh::BK, DV = Sh::DV;
+  constexpr int BK = Sh::BK, DV = Sh::DV, N = Sh::N;
   extern __shared__ uint8_t smem_raw[];
   // TMA's 128-byte swizzle and the wgmma descriptors want 1024-byte tiles
   const uint32_t raw = smem_u32(smem_raw);
@@ -184,9 +199,9 @@ flash_wgmma_kernel(
   const int last_row = min(r0 + 63, Sq - 1);
   const uint8_t* qw = qs + 64 * wg * 128;
 
-  float o[DV / 2], sacc[BK / 2];
+  float o[N / 2], sacc[BK / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
   float m[2] = {halcone::kNegInf, halcone::kNegInf}, l[2] = {0.f, 0.f};
@@ -205,7 +220,7 @@ flash_wgmma_kernel(
       const uint8_t* vs = ks + Sh::kKBytes;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {      // 16 head dims a step
+      for (int kk = 0; kk < D / 16; ++kk) {      // 16 live head dims a step
         const int off = (kk % 4) * 32;           // inside a 128-byte row
         wgmma_ss_n64(sacc,
                      desc_sw128(qw + (kk / 4) * kRows * 128 + off, 16,
@@ -263,18 +278,18 @@ flash_wgmma_kernel(
       // O needs rescaling only where a row's max moved (alpha < 1)
       if (__any_sync(halcone::kAllLanes, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-        for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+        for (int i = 0; i < N / 2; ++i) o[i] *= alpha[(i / 2) & 1];
       }
 
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < BK / 16; ++kt)       // 16 keys a step
-        wgmma_rs<DV>(o, phi[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
-                                            kSwizzleAtom));
+        wgmma_rs<N>(o, phi[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
+                                           kSwizzleAtom));
 #pragma unroll
       for (int kt = 0; kt < BK / 16; ++kt)
-        wgmma_rs<DV>(o, plo[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
-                                            kSwizzleAtom));
+        wgmma_rs<N>(o, plo[kt], desc_sw128(vs + kt * 16 * 128, BK * 128,
+                                           kSwizzleAtom));
       wgmma_commit();
       wgmma_wait_all();
     }
@@ -312,7 +327,7 @@ flash_wgmma_kernel(
         out + ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * DO
         + vpart * DV + cq;
 #pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
+    for (int j = 0; j < Sh::kStore / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r],
                                 o[4 * j + 2 * r + 1] * inv[r]);
@@ -363,6 +378,9 @@ extern "C" int halcone_flash_attention_wgmma(
                   vs[3] = {vsb, vss, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* st = static_cast<float*>(stats);
+  if (D == 80 && Dv == 80)
+    return launch<80, 80>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
+                          scale, causal, window, s);
   if (D == 64 && Dv == 64)
     return launch<64, 64>(q, qs, k, ks, v, vs, out, st, B, Sq, Sk, Hq, Hkv,
                           scale, causal, window, s);

@@ -5,8 +5,10 @@
 //
 // Tiles are bf16 with 64 columns (128 bytes) a row, written by TMA with
 // the 128-byte swizzle: within each 1024-byte atom of 8 rows, the 16-byte
-// chunk c of row r sits at chunk c ^ (r % 8).  A tile that a kernel
-// writes itself must follow the same rule for a descriptor to read it.
+// chunk c of row r sits at chunk c ^ (r % 8).  A head dim that is not a
+// multiple of 64 (hubert-xlarge's 80) takes whole boxes: TMA fills the
+// columns past it with zeros.  A tile that a kernel writes itself must
+// follow the same rule for a descriptor to read it.
 #pragma once
 
 #include <cstdint>
@@ -278,10 +280,39 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64 x 80] += A[64 x 16] * B[16 x 80], A in registers, B MN-major in
+// shared memory: ten 8-column groups, the last two in the second 64-column
+// box (hubert-xlarge's head dim)
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t b) {
   if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, b);
   else wgmma_rs_n64(d, a, b);
 }
 
@@ -326,8 +357,9 @@ inline EncodeTiled encode_tiled() {
 // the contiguous dim, dim 1 a head dim, dim 2 the rows; ``st[k]`` is the
 // stride of dim k + 1 in elements.  Boxes of 64 columns x ``rows`` rows
 // (one index of every other dim), 128-byte swizzle; reads outside the
-// tensor return zeros.  A dim of size 1 takes any stride that is a whole
-// 16 bytes: only its index 0 is read.
+// tensor return zeros, columns past dims[0] too (a box at column 64 of
+// an 80-wide row holds 16 live columns and 48 zeros).  A dim of size 1
+// takes any stride that is a whole 16 bytes: only its index 0 is read.
 inline bool make_map(CUtensorMap* map, const void* ptr, int rank,
                      const long long* dims, const long long* st, int rows) {
   EncodeTiled enc = encode_tiled();

@@ -10,30 +10,33 @@ rope columns of q and k, 128 of v; the output has v's width):
 - ``"wgmma"``: bf16 at ``WGMMA_PAIRS`` goes to the tensor-core
   kernel (``csrc/flash_attention_wgmma.cu``: TMA loads, ``wgmma``
   products, P split into two bf16 halves for the P.V product; at D = 256
-  two blocks share a row tile, each with half of O's columns).  TMA
-  wants each stride over B, S and H, and each base pointer, to be a
-  multiple of 16 bytes; the wrapper raises otherwise.  Asked with
-  ``stats=``, it also writes each row's softmax max m and
-  1 / max(l, 1e-30).
+  two blocks share a row tile, each with half of O's columns; at D = 80,
+  hubert-xlarge's, the 160-byte rows load as two 64-column boxes whose
+  columns past 80 TMA fills with zeros).  TMA wants each stride over B,
+  S and H, and each base pointer, to be a multiple of 16 bytes; the
+  wrapper raises otherwise.  Asked with ``stats=``, it also writes each
+  row's softmax max m and 1 / max(l, 1e-30).
 - ``"simt"``: f32 (held to 1e-5, which TF32 tensor cores would not meet),
-  and bf16 at D in (16, 32, 80), go to the CUDA-core kernel
+  and bf16 at D in (16, 32), go to the CUDA-core kernel
   (``csrc/flash_attention.cu``; at D = 80 and 256, and at (192, 128),
-  each query row is split over four threads).  D = 80 (hubert-xlarge) stays off the
-  tensor cores: its 160-byte rows do not fill whole 128-byte swizzled
-  boxes.
+  each query row is split over four threads).  ``_route="simt"`` sends
+  bf16 at D = 80 there too (its route before the tensor-core kernel
+  took that head dim), to time the two against each other on the card;
+  nothing on the model's path passes it.
 
 The gradient ``flash_attention_bwd`` takes the same route, at the head
-dims of ``BWD_HEAD_DIMS`` only, v as wide (D = 80 and 256 and the pair
-(192, 128) have no backward kernel yet: ``kernels.ops`` raises under grad
-there): ``"wgmma"``
-runs ``csrc/flash_attention_bwd_wgmma.cu`` (two launches on the tensor
-cores, P recomputed from the forward's m and 1 / l, P and dS split into
-bf16 halves), ``"simt"`` ``csrc/flash_attention_bwd.cu`` (three launches
-on the CUDA cores, its own row pass).  Its plain version is autograd of
-the plain forward (``kernels.ref.attention_bwd_ref``), and
-``FlashAttentionFn`` joins forward and backward for autograd, passing the
-forward's statistics on.  Nothing falls back at run time: a call that its
-route's kernel cannot build, take or launch raises.  Both read
+dims of ``BWD_HEAD_DIMS`` only, v as wide (the pair (192, 128) has no
+backward kernel yet: ``kernels.ops`` raises under grad there):
+``"wgmma"`` runs ``csrc/flash_attention_bwd_wgmma.cu`` (two launches on
+the tensor cores, P recomputed from the forward's m and 1 / l, P and dS
+split into bf16 halves; at D = 256 two blocks share each tile, each with
+half of the output columns), ``"simt"`` ``csrc/flash_attention_bwd.cu``
+(three launches on the CUDA cores, its own row pass).  Its plain
+version is autograd of the plain forward
+(``kernels.ref.attention_bwd_ref``), and ``FlashAttentionFn`` joins
+forward and backward for autograd, passing the forward's statistics on.
+Nothing falls back at run time: a call that its route's kernel cannot
+build, take or launch raises.  Both read
 ``[B, S, H, D]`` tensors with their strides (no transposes) and take any
 Sq and Sk.  The plain version is ``kernels.ref.attention_ref``.  These
 wrappers launch on CUDA tensors only and raise on anything else;
@@ -47,14 +50,16 @@ import torch
 from repro_torch.kernels import cuda
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 # MLA (deepseek-v2): q and k of nope_head_dim + rope_head_dim, v narrower
 MLA_PAIR = (192, 128)
 # the (q/k head dim, v head dim) pairs the forward kernels are built for
 PAIRS = tuple((d, d) for d in HEAD_DIMS) + (MLA_PAIR,)
 WGMMA_PAIRS = tuple((d, d) for d in WGMMA_HEAD_DIMS) + (MLA_PAIR,)
+# the pairs csrc/flash_attention.cu builds bf16 code for
+SIMT_BF16_PAIRS = ((16, 16), (32, 32), (80, 80))
 # the head dims flash_attention_bwd's kernels are built for
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = HEAD_DIMS
 ROUTES = ("wgmma", "simt")
 _ARGS = ([cuda.P, cuda.LD, cuda.LD, cuda.LD] * 3 + [cuda.P] + [cuda.I] * 7
          + [cuda.F, cuda.I, cuda.I, cuda.I, cuda.P])
@@ -131,7 +136,8 @@ def check_stats(name: str, stats, q) -> None:
                          f"tensor of shape {(2, B, Hq, Sq)} on {q.device}")
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, stats=None):
+def flash_attention(q, k, v, *, causal=True, window=0, stats=None,
+                    _route=None):
     """q: [B, Sq, Hq, D]; k: [B, Sk, Hkv, D]; v: [B, Sk, Hkv, Dv] ->
     [B, Sq, Hq, Dv] in q's dtype, the scores scaled by D^-0.5, at a
     ``(D, Dv)`` of ``PAIRS``.  Causal masks key positions after the
@@ -145,13 +151,25 @@ def flash_attention(q, k, v, *, causal=True, window=0, stats=None):
     ``[2, B, Hq, Sq]`` f32 tensor that receives each row's m (the max of
     its unscaled masked products) and 1 / max(l, 1e-30), the statistics
     ``flash_attention_bwd`` recomputes P from.  Raises if asked anywhere
-    else."""
+    else.
+
+    ``_route="simt"`` forces the CUDA-core kernel at any pair it takes
+    (bf16 at D = 80 and f32 everywhere), to time the routes against each
+    other on the card."""
     dt = check_qkv(q, k, v, "flash_attention", pairs=PAIRS)
     B, Sq, Hq, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if Sk < 1:
         raise ValueError("flash_attention: needs at least one key")
+    if _route not in (None, "simt"):
+        raise ValueError(f"flash_attention: _route must be None or 'simt', "
+                         f"got {_route!r}")
     path = route(q.dtype, D, Dv)
+    if _route == "simt":
+        if q.dtype == torch.bfloat16 and (D, Dv) not in SIMT_BF16_PAIRS:
+            raise ValueError(f"flash_attention: the CUDA-core kernel has no "
+                             f"bf16 code at head dim {D}")
+        path = "simt"
     if stats is not None:
         if path != "wgmma":
             raise ValueError("flash_attention: only the tensor-core route "

@@ -13,9 +13,8 @@ their ``autograd.Function`` (the forward kernel, and a backward kernel
 as the gradient) only when grad mode is on and an input requires grad;
 otherwise they launch the forward kernel directly, which keeps the
 serving path's host time as it was.  ``decode_attention`` has no
-backward kernel, nor has ``flash_attention`` at head dims 80 and 256
-(hubert-xlarge, gemma3-4b) or at MLA's q/k width 192 with v's 128
-(deepseek-v2): on a CUDA tensor that requires grad they raise
+backward kernel, nor has ``flash_attention`` at MLA's q/k width 192 with
+v's 128 (deepseek-v2): on a CUDA tensor that requires grad they raise
 ``NotImplementedError`` naming the ROADMAP item, before any launch, and
 never differentiate a plain version on the card.
 """
@@ -25,8 +24,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention as _decode
-from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS,
-                                                 FlashAttentionFn)
+from repro_torch.kernels.flash_attention import FlashAttentionFn
 from repro_torch.kernels.flash_attention import flash_attention as _flash
 from repro_torch.kernels.lease_probe import lease_probe as _lease_probe
 from repro_torch.kernels.rmsnorm import RMSNormFn
@@ -38,10 +36,6 @@ from repro_torch.kernels.tier_pass import write_grant as _write_grant
 
 # the ROADMAP item that would give decode_attention a backward
 DECODE_BWD_ITEM = "20: a decode_attention backward, if a consumer needs one"
-# the ROADMAP item that gives flash_attention a backward at D = 80 and 256
-FLASH_BWD_ITEM = ("22: flash_attention_bwd at head dims 80 and 256, and "
-                  "training gemma3-4b, hubert-xlarge and llava-next-34b on "
-                  "the card")
 # the ROADMAP item that gives it one at MLA's (192, 128)
 MLA_BWD_ITEM = ("24: flash_attention_bwd at (D, Dv) = (192, 128), and "
                 "training deepseek-v2 and llama4-maverick on the card")
@@ -95,9 +89,6 @@ def flash_attention(q, k, v, *, causal=True, window=0):
         if Dv != D:
             raise _no_backward(f"flash_attention at (D, Dv) = ({D}, {Dv})",
                                MLA_BWD_ITEM)
-        if D not in BWD_HEAD_DIMS:
-            raise _no_backward(f"flash_attention at head dim {D}",
-                               FLASH_BWD_ITEM)
         return FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash(q, k, v, causal=causal, window=window)
 

@@ -69,8 +69,10 @@ def gqa_apply(cfg: ModelConfig, p: dict, h, *, positions, cache=None,
     if pos is not None:                                   # decode: attend to cache
         kk = new_cache["k"].to(cd).reshape(B, -1, Hkv, Dh)
         vv = new_cache["v"].to(cd).reshape(B, -1, Hkv, Dh)
+        # past the cache's end the reference's mask (k_pos >= pos + S)
+        # masks nothing: every row, as kv_len = the cache's length
         out = attention(q, kk, vv, causal=False, window=window,
-                        kv_len=pos + S)
+                        kv_len=min(pos + S, kk.shape[1]))
     else:
         out = attention(q, k.reshape(B, S, Hkv, Dh), v.reshape(B, S, Hkv, Dh),
                         causal=cfg.causal, window=window)
@@ -170,7 +172,7 @@ def mla_apply(cfg: ModelConfig, p: dict, h, *, positions, cache=None,
     # the scale (nope + rope)^-0.5 is q's D^-0.5, which attention applies
     if pos is not None:
         out = attention(q, k, v, causal=False, window=window,
-                        kv_len=pos + S)
+                        kv_len=min(pos + S, T))
     else:
         out = attention(q, k, v, causal=cfg.causal, window=window)
     return out.reshape(B, S, H * vd) @ p["wo"].to(cd), new_cache

@@ -124,7 +124,11 @@ def update_cache(cache_kv, new_kv, pos: int):
 
     Out of place, like the reference's ``dynamic_update_slice``: the
     server keeps prefilled caches as fabric payloads that other decode
-    batches read, so a decode step must never write into them."""
+    batches read, so a decode step must never write into them.  The
+    start is clamped to ``[0, S_max - s]`` as ``dynamic_update_slice``
+    clamps it, so a step past the cache's end overwrites its last rows."""
+    s = new_kv.shape[1]
+    start = max(0, min(pos, cache_kv.shape[1] - s))
     out = cache_kv.clone()
-    out[:, pos:pos + new_kv.shape[1]] = new_kv.to(cache_kv.dtype)
+    out[:, start:start + s] = new_kv.to(cache_kv.dtype)
     return out

@@ -175,3 +175,17 @@ class Trainer:
                                 "dt": dt, "ema": self._ema})
         a = self.tcfg.straggler_ema
         self._ema = a * self._ema + (1 - a) * dt
+
+
+def steady_events(events: List[dict], factor: float) -> List[dict]:
+    """The events that another run of the same steps logs again: all but
+    the watchdog's straggler events, which read the run's own wall clock
+    (two runs on different devices, packages or loads need not log the
+    same ones).  Raises if a straggler event breaks the watchdog's rule: a
+    step after the third slower than ``factor`` x the moving average."""
+    bad = [e for e in events if e["kind"] == "straggler"
+           and not (e["step"] > 3 and e["dt"] > factor * e["ema"])]
+    if bad:
+        raise ValueError(f"straggler events outside the watchdog's rule "
+                         f"(step > 3, dt > {factor} x ema): {bad}")
+    return [e for e in events if e["kind"] != "straggler"]

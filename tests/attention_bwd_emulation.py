@@ -13,13 +13,23 @@ and skips (dQ walks key tiles to the causal limit, dK/dV walks the group's
 query heads and query tiles from the causal start), and P and dS split
 into bf16 halves ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` whose two
 products add into one f32 accumulator.  dK and dQ are scaled by D^-0.5 in
-the epilogue.  Imports neither jax nor ``repro``.
+the epilogue.  The kernel's layout (``layout=True``): a head dim that is
+not a multiple of 64 (80) loads as whole 64-column boxes, zero-filled
+past it, and at D = 256 two blocks share each tile, each computing all of
+S and dP and its half of the output columns.  Imports neither jax nor
+``repro``.
 """
 import torch
 
-from attention_emulation import LOG2E, NEG_INF
+from attention_emulation import LOG2E, NEG_INF, zero_filled
 
 TILE = 64                     # query rows and keys of every tile
+
+
+def column_parts(D):
+    """The blocks that share a tile at head dim D, each with its part of
+    the output columns: two past 128 columns (D = 256), else one."""
+    return 2 if -(-D // 64) * 64 > 128 else 1
 
 
 def _heads(t, qpk):
@@ -46,14 +56,16 @@ def _scale(D):
     return scale, scale * torch.tensor(LOG2E, dtype=torch.float32)
 
 
-def row_stats(q, k, *, causal, window):
+def row_stats(q, k, *, causal, window, D=None):
     """The forward kernel's row statistics for bf16 q [B, Sq, Hq, D] and
     k [B, Sk, Hkv, D]: m, the max of each row's unscaled masked f32
     products, and 1 / max(l, 1e-30) with l = sum 2^((s - m) c); each
     [B, Hq, Sq].  Tiles the forward skips hold only masked pairs of rows
     that see a key, so the max and the sum over all keys are the
-    kernel's, up to the order of the sum."""
-    B, Sq, Hq, D = q.shape
+    kernel's, up to the order of the sum.  ``D``: the head dim that
+    scales the scores when q and k come zero-filled (default q's)."""
+    B, Sq, Hq, _ = q.shape
+    D = D or q.shape[3]
     Sk = k.shape[1]
     _, c = _scale(D)
     s = q.float().transpose(1, 2) @ _heads(k, Hq // k.shape[2]).transpose(
@@ -70,21 +82,33 @@ def _split(x, split):
 
 
 def emulate_bwd(q, k, v, out, dout, stats=None, *, causal, window,
-                split=True):
+                split=True, layout=False):
     """The kernel's arithmetic in f32: q, out, dout [B, Sq, Hq, D] and k, v
     [B, Sk, Hkv, D] bf16 -> (dq, dk, dv) f32, before the outputs' bf16
     rounding.  ``stats``: (m, 1 / l), each [B, Hq, Sq], as the forward
     kernel wrote them; None computes them with ``row_stats``.
-    ``split=False`` rounds P and dS to bf16 once instead."""
+    ``split=False`` rounds P and dS to bf16 once instead; ``layout``
+    takes the kernel's zero-filled boxes and column parts (Di = dO . O
+    from the rows themselves, as the kernel reads them from memory)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     qpk = Hq // Hkv
     scale, c = _scale(D)
-    m, il = row_stats(q, k, causal=causal, window=window) \
+    di = (dout.float() * out.float()).sum(-1).transpose(1, 2)   # [B, Hq, Sq]
+    parts = column_parts(D) if layout else 1
+    if layout:
+        q, k, v, dout = (zero_filled(t) for t in (q, k, v, dout))
+    m, il = row_stats(q, k, causal=causal, window=window, D=D) \
         if stats is None else (t.float() for t in stats)
     qf, dof = q.float().transpose(1, 2), dout.float().transpose(1, 2)
     kf, vf = _heads(k, qpk), _heads(v, qpk)
-    di = (dout.float() * out.float()).sum(-1).transpose(1, 2)   # [B, Hq, Sq]
+    DT = q.shape[3]
+
+    def product(a, t):
+        """a @ t, t's columns in the blocks' parts."""
+        w = DT // parts
+        return torch.cat([a @ t[..., i * w:(i + 1) * w]
+                          for i in range(parts)], -1)
 
     def tile(rows, cols, h):
         """P and dS of a (query tile, key tile) pair, heads ``h``."""
@@ -97,36 +121,38 @@ def emulate_bwd(q, k, v, out, dout, stats=None, *, causal, window,
         return p, p * (dp - di[:, h][..., rows, None])
 
     nq, nk = -(-Sq // TILE), -(-Sk // TILE)
-    dq = torch.zeros(B, Hq, Sq, D)
+    dq = torch.zeros(B, Hq, Sq, DT)
     allh = torch.arange(Hq)
     for qt in range(nq):
         rows = torch.arange(qt * TILE, min(qt * TILE + TILE, Sq))
         kv_end = min(Sk, qt * TILE + TILE, Sq) if causal else Sk
-        acc = torch.zeros(B, Hq, len(rows), D)
+        acc = torch.zeros(B, Hq, len(rows), DT)
         for t in range(-(-kv_end // TILE)):
             cols = torch.arange(t * TILE, min(t * TILE + TILE, Sk))
             _, ds = tile(rows, cols, allh)
             for part in _split(ds, split):
-                acc = acc + part @ kf[:, :, cols]
+                acc = acc + product(part, kf[:, :, cols])
         dq[:, :, rows] = acc * scale
-    dk = torch.zeros(B, Hkv, Sk, D)
-    dv = torch.zeros(B, Hkv, Sk, D)
+    dk = torch.zeros(B, Hkv, Sk, DT)
+    dv = torch.zeros(B, Hkv, Sk, DT)
     for kt in range(nk):
         cols = torch.arange(kt * TILE, min(kt * TILE + TILE, Sk))
-        ak = torch.zeros(B, Hkv, len(cols), D)
-        av = torch.zeros(B, Hkv, len(cols), D)
+        ak = torch.zeros(B, Hkv, len(cols), DT)
+        av = torch.zeros(B, Hkv, len(cols), DT)
         for g in range(qpk):                     # the group's query heads
             h = torch.arange(Hkv) * qpk + g
             for qt in range(kt if causal else 0, nq):
                 rows = torch.arange(qt * TILE, min(qt * TILE + TILE, Sq))
                 p, ds = tile(rows, cols, h)
                 for part in _split(p, split):
-                    av = av + part.transpose(-1, -2) @ dof[:, h][:, :, rows]
+                    av = av + product(part.transpose(-1, -2),
+                                      dof[:, h][:, :, rows])
                 for part in _split(ds, split):
-                    ak = ak + part.transpose(-1, -2) @ qf[:, h][:, :, rows]
+                    ak = ak + product(part.transpose(-1, -2),
+                                      qf[:, h][:, :, rows])
         dk[:, :, cols] = ak * scale
         dv[:, :, cols] = av
-    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+    return tuple(t.transpose(1, 2)[..., :D] for t in (dq, dk, dv))
 
 
 def exact_attention_bwd(q, k, v, dout, *, causal, window):

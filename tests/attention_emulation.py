@@ -9,24 +9,38 @@ online softmax in base 2 (weights 2^((s - m) c), c = D^-0.5 log2(e)) over
 64-row warpgroups and 64-key tiles with the kernel's masks and skips, and P
 split into bf16 halves ``P_hi = bf16(P)`` and ``P_lo = bf16(P - P_hi)``
 whose two products add into one f32 accumulator.  v may be narrower than
-q and k (MLA's (192, 128)): the scores take q's D, the output v's Dv.
-Imports neither jax nor ``repro``.
+q and k (MLA's (192, 128)): the scores take q's D, the output v's Dv.  A
+head dim that is not a multiple of 64 (hubert-xlarge's 80) loads as whole
+64-column boxes whose columns past it TMA fills with zeros
+(``zero_fill``).  Imports neither jax nor ``repro``.
 """
 import torch
 
 NEG_INF = -1e30
 ROWS = 64                     # query rows per consumer warpgroup
 BK = 64                       # keys per tile (csrc Shape<D>::BK)
+BOX = 64                      # columns of a TMA box
 LOG2E = 1.4426950408889634
 
 
-def emulate_kernel(q, k, v, *, causal, window, split=True):
+def zero_filled(t):
+    """``t`` [..., D] with zero columns up to whole 64-column boxes, as
+    TMA loads it."""
+    return torch.nn.functional.pad(t, (0, -t.shape[-1] % BOX))
+
+
+def emulate_kernel(q, k, v, *, causal, window, split=True, zero_fill=False):
     """The kernel's arithmetic in f32: q [B, Sq, Hq, D], k [B, Sk, Hkv, D]
     and v [B, Sk, Hkv, Dv] bf16 -> [B, Sq, Hq, Dv] f32, before the
     output's bf16 rounding.  ``split=False`` rounds P to bf16 once
-    instead."""
+    instead; ``zero_fill`` computes over the zero-filled boxes and keeps
+    the output's first Dv columns."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    c = (torch.tensor(D ** -0.5, dtype=torch.float32)
+         * torch.tensor(LOG2E, dtype=torch.float32))
+    if zero_fill:
+        q, k, v = (zero_filled(t) for t in (q, k, v))
     qpk = Hq // Hkv
     nt = -(-Sk // BK)
     # TMA zero-fills keys past Sk up to whole tiles
@@ -36,13 +50,11 @@ def emulate_kernel(q, k, v, *, causal, window, split=True):
     kf = kf.repeat_interleave(qpk, 2).transpose(1, 2)   # [B, Hq, S, D]
     vf = vf.repeat_interleave(qpk, 2).transpose(1, 2)
     qf = q.float().transpose(1, 2)
-    out = torch.zeros(B, Hq, Sq, Dv)
-    c = (torch.tensor(D ** -0.5, dtype=torch.float32)
-         * torch.tensor(LOG2E, dtype=torch.float32))
+    out = torch.zeros(B, Hq, Sq, v.shape[3])
     for r0 in range(0, Sq, ROWS):
         rows = torch.arange(r0, min(r0 + ROWS, Sq))
         last = int(rows[-1])
-        o = torch.zeros(B, Hq, len(rows), Dv)
+        o = torch.zeros(B, Hq, len(rows), v.shape[3])
         m = torch.full((B, Hq, len(rows)), NEG_INF)
         l = torch.zeros(B, Hq, len(rows))
         kv_end = min(Sk, (r0 // 128 + 1) * 128, Sq) if causal else Sk
@@ -72,7 +84,7 @@ def emulate_kernel(q, k, v, *, causal, window, split=True):
             o = o * alpha[..., None] + pv
             m = m_new
         out[:, :, rows] = o * (1 / torch.clamp(l, min=1e-30))[..., None]
-    return out.transpose(1, 2)
+    return out.transpose(1, 2)[..., :Dv]
 
 
 def exact_attention(q, k, v, *, causal, window):

@@ -20,6 +20,12 @@ seed.  Tolerances, with their reasons:
   2.0-7.1x.  With Di from an f32 output all three fall 650-710x.  So dV
   must beat one rounding by 100x and dQ, dK by 1.5x.
 
+At D = 80 the kernel's tiles are whole 64-column boxes, zero-filled past
+80, and at D = 256 two blocks share each tile, each with half of the
+output columns (and all of S and dP); the emulation takes that layout
+(``layout=True``) for those cases, and it must change no bit of the
+outputs.
+
 The kernel itself is held to this emulation on the card in
 ``tests/test_torch_cuda.py`` (``test_cuda_flash_bwd_wgmma_keeps_split``).
 """
@@ -29,8 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from attention_bwd_emulation import (emulate_bwd, exact_attention_bwd,
-                                     row_stats)
+from attention_bwd_emulation import (column_parts, emulate_bwd,
+                                     exact_attention_bwd, row_stats)
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
 
@@ -42,6 +48,10 @@ CASES = [
     (1, 130, 50, 4, 2, 64, True, 0),          # more queries than keys
     (1, 130, 50, 4, 2, 64, True, 16),         # rows with no visible key
     (1, 200, 200, 4, 2, 64, False, 32),
+    (1, 128, 128, 4, 4, 80, False, 0),        # hubert-xlarge: zero fill
+    (1, 130, 130, 4, 2, 80, True, 32),
+    (1, 160, 160, 4, 2, 256, True, 64),       # gemma3-4b: column halves
+    (1, 100, 70, 2, 1, 256, False, 0),
 ]
 
 
@@ -57,7 +67,8 @@ def test_bwd_split_emulation_matches_jax_and_beats_one_rounding(
         B, Sq, Sk, Hq, Hkv, D, causal, window):
     q, k, v, dout = _inputs(B, Sq, Sk, Hq, Hkv, D)
     out = ref.attention_ref(q, k, v, causal=causal, window=window)
-    got = emulate_bwd(q, k, v, out, dout, causal=causal, window=window)
+    got = emulate_bwd(q, k, v, out, dout, causal=causal, window=window,
+                      layout=D in (80, 256))
     jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
                        for t in (q, k, v, dout))
     _, vjp = jax.vjp(lambda a, b, c: jref.attention_ref(
@@ -76,6 +87,28 @@ def test_bwd_split_emulation_matches_jax_and_beats_one_rounding(
         err_split = float((s.double() - e).abs().mean())
         err_one = float((o.double() - e).abs().mean())
         assert err_split * margin < err_one, (name, err_split, err_one)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [
+    (1, 128, 128, 4, 4, 80, False, 0),
+    (1, 130, 70, 4, 2, 80, True, 16),
+    (1, 160, 160, 4, 2, 256, True, 64),
+    (1, 100, 70, 2, 1, 256, False, 0),
+])
+def test_bwd_layout_changes_no_bit(B, Sq, Sk, Hq, Hkv, D, causal, window):
+    """The kernel's layout at D = 80 (columns 80-127 of each tile zeros,
+    so S and dP gain exact zero products and the outputs' extra columns
+    are dropped) and at D = 256 (two column halves, each from the same S
+    and dP): dq, dk and dv equal the plain tiling's bit for bit, split or
+    rounded once."""
+    assert column_parts(D) == (2 if D == 256 else 1)
+    q, k, v, dout = _inputs(B, Sq, Sk, Hq, Hkv, D)
+    out = ref.attention_ref(q, k, v, causal=causal, window=window)
+    for split in (True, False):
+        kw = dict(causal=causal, window=window, split=split)
+        laid = emulate_bwd(q, k, v, out, dout, layout=True, **kw)
+        for a, b in zip(laid, emulate_bwd(q, k, v, out, dout, **kw)):
+            assert a.shape == b.shape and torch.equal(a, b)
 
 
 def test_row_stats_weigh_a_fully_masked_row_evenly():

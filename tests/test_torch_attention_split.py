@@ -22,6 +22,11 @@ BlockSpecs take one D), so the emulation is held there against the
 reference's jnp ``layers.attention``, which takes a narrower v and rounds
 P to bf16 before the PV product (2e-2 covers both roundings).
 
+At D = 80 (hubert-xlarge) the kernel loads each 160-byte row as two
+64-column boxes whose columns past 80 TMA fills with zeros; the emulation
+computes over those boxes (``zero_fill``), which must change no bit of
+its output.
+
 The route function and the TMA stride rules of the wrapper are plain
 Python and are checked here too; the kernels themselves are held to the
 plain version on the card in ``tests/test_torch_cuda.py``.
@@ -31,7 +36,7 @@ import numpy as np
 import pytest
 import torch
 
-from attention_emulation import emulate_kernel, exact_attention
+from attention_emulation import emulate_kernel, exact_attention, zero_filled
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models import layers as rlayers
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, PAIRS, route,
@@ -60,6 +65,11 @@ def _block(n):
     (1, 256, 256, 4, 2, 256, True, 64),
     (1, 200, 200, 4, 2, 256, True, 0),
     (1, 100, 150, 2, 1, 256, False, 0),
+    # D = 80 (hubert-xlarge: non-causal, as many kv heads as query heads),
+    # over the zero-filled boxes; then causal, windowed and ragged
+    (2, 128, 128, 4, 4, 80, False, 0),
+    (1, 130, 130, 4, 2, 80, True, 32),
+    (1, 77, 100, 2, 1, 80, False, 0),
 ])
 def test_split_emulation_matches_pallas_and_beats_one_rounding(
         B, Sq, Sk, Hq, Hkv, D, causal, window):
@@ -67,7 +77,8 @@ def test_split_emulation_matches_pallas_and_beats_one_rounding(
     arrs = [rng.standard_normal(shp).astype(np.float32)
             for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
-    got = emulate_kernel(q, k, v, causal=causal, window=window)
+    got = emulate_kernel(q, k, v, causal=causal, window=window,
+                         zero_fill=D % 64 != 0)
     assert torch.isfinite(got).all()
     want = pallas_flash(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
                           for t in (q, k, v)),
@@ -82,6 +93,30 @@ def test_split_emulation_matches_pallas_and_beats_one_rounding(
     err_split = float((got.double() - exact).abs().max())
     err_one = float((one.double() - exact).abs().max())
     assert err_split * 16 < err_one, (err_split, err_one)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window", [
+    (2, 128, 128, 4, 4, False, 0),            # hubert-xlarge's encoder
+    (1, 130, 130, 4, 2, True, 32),
+    (1, 77, 100, 2, 1, False, 16),
+])
+def test_zero_fill_changes_no_bit_at_d80(B, Sq, Sk, Hq, Hkv, causal, window):
+    """D = 80 over two 64-column boxes, columns 80-127 zeros (TMA's fill
+    past the tensor's inner size): the scores gain exact zero products
+    and O's extra columns are dropped, so the output equals the
+    unpadded arithmetic bit for bit, split or rounded once."""
+    rng = np.random.default_rng(Sq + Sk + 80)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shp).astype(
+        np.float32)).to(torch.bfloat16) for shp in (
+        (B, Sq, Hq, 80), (B, Sk, Hkv, 80), (B, Sk, Hkv, 80)))
+    assert zero_filled(q).shape[-1] == 128
+    assert torch.equal(zero_filled(q)[..., 80:], torch.zeros(B, Sq, Hq, 48,
+                                                             dtype=q.dtype))
+    for split in (True, False):
+        kw = dict(causal=causal, window=window, split=split)
+        filled = emulate_kernel(q, k, v, zero_fill=True, **kw)
+        assert filled.shape == (B, Sq, Hq, 80)
+        assert torch.equal(filled, emulate_kernel(q, k, v, **kw))
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window", [
@@ -155,7 +190,7 @@ def test_flash_route_by_dtype_and_head_dim(dtype, D):
         with pytest.raises(ValueError, match="no kernel"):
             route(dtype, D)
         return
-    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128, 256) \
+    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 80, 128, 256) \
         else "simt"
     assert route(dtype, D) == want
 
@@ -171,3 +206,19 @@ def test_tma_strides_rules():
     wide = torch.zeros(1, 4, 2, 68, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16 bytes"):
         tma_strides("q", wide[..., :64])
+
+
+def test_tma_strides_take_160_byte_rows():
+    """hubert-xlarge's D = 80: a 160-byte head stride (a whole 16 bytes)
+    passes, contiguous and as k, v views of one fused [B, S, 2, H, 80]
+    projection; an 80-column view of wider rows whose stride is not a
+    whole 16 bytes raises."""
+    B, S, H = 2, 7, 16
+    q = torch.zeros(B, S, H, 80, dtype=torch.bfloat16)
+    assert tma_strides("q", q) == [S * H * 80, H * 80, 80]
+    kv = torch.zeros(B, S, 2, H, 80, dtype=torch.bfloat16)
+    assert tma_strides("k", kv[:, :, 0]) == [S * 2 * H * 80, 2 * H * 80, 80]
+    assert tma_strides("v", kv[:, :, 1]) == [S * 2 * H * 80, 2 * H * 80, 80]
+    odd = torch.zeros(B, S, H, 84, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tma_strides("q", odd[..., :80])

@@ -105,6 +105,8 @@ ATTENTION_CASES = [
     # their keys evenly
     (1, 130, 50, 4, 2, 64, True, 16),
     (1, 200, 200, 4, 2, 64, False, 32),
+    (1, 77, 77, 4, 4, 80, False, 0),          # hubert-xlarge's head dim
+    (1, 100, 100, 4, 2, 256, True, 32),       # gemma3-4b's, windowed
 ]
 
 
@@ -129,10 +131,12 @@ def test_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, Hq, Hkv, D, causal,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_takes_the_forward_route(dtype, D):
     """The backward takes the forward's ``route``: the tensor-core
-    kernel for bf16 at D = 64 and 128, the CUDA-core kernel otherwise;
+    kernel for bf16 at D = 64, 80, 128 and 256, the CUDA-core kernel
+    otherwise;
     the row statistics it needs on the tensor-core route are
     ``[2, B, Hq, Sq]`` f32, contiguous, on q's device."""
-    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 80, 128, 256) \
+        else "simt"
     assert route(dtype, D) == want
     q = torch.zeros(2, 5, 3, D, dtype=dtype)
     check_stats("t", torch.zeros(2, 2, 3, 5), q)

@@ -697,11 +697,14 @@ def test_cuda_rmsnorm_weight_off_16_bytes(exact_f32, R, D, dtype):
     (1, 200, 200, 4, 2, 256, False, 32),
     (1, 77, 130, 4, 2, 256, False, 0),
     (1, 130, 50, 4, 2, 256, True, 0),
-    # D = 80 (hubert-xlarge, non-causal; the CUDA-core kernel in both
-    # dtypes): its encoder shape, then windowed and odd ones
+    # D = 80 (hubert-xlarge, non-causal; bf16 on the tensor cores over
+    # zero-filled 64-column boxes, f32 split over four threads a row): its
+    # encoder shape, then windowed, odd and rectangular ones
     (8, 512, 512, 16, 16, 80, False, 0),
     (1, 130, 130, 4, 2, 80, True, 32),
     (1, 50, 77, 4, 1, 80, False, 16),
+    (1, 333, 333, 4, 4, 80, False, 0),
+    (1, 130, 50, 4, 2, 80, True, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
@@ -721,7 +724,7 @@ def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
     assert flash_attention.launches == before + 1
     assert flash_attention.route_launches[path] == before_route + 1
     assert path == ("wgmma" if dtype == torch.bfloat16
-                    and D in (64, 128, 256) else "simt")
+                    and D in (64, 80, 128, 256) else "simt")
 
 
 @pytest.mark.cuda
@@ -736,6 +739,9 @@ def test_cuda_flash_attention_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv, D,
     (1, 256, 256, 4, 4, 192, 128, True, 0),
     (1, 200, 200, 4, 2, 192, 128, True, 64),
     (1, 100, 150, 2, 1, 192, 128, False, 0),
+    # D = 80: two 64-column boxes, columns 80-127 TMA's zeros
+    (2, 256, 256, 4, 4, 80, 80, False, 0),
+    (1, 200, 200, 4, 2, 80, 80, True, 64),
 ])
 def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
                                         Dv, causal, window):
@@ -759,8 +765,9 @@ def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
     got = flash_attention(*(t.to(cuda_device) for t in (q, k, v)),
                           causal=causal, window=window).cpu()
     assert flash_attention.route_launches["wgmma"] == before + 1
-    split = emulate_kernel(q, k, v, causal=causal, window=window)
-    one = emulate_kernel(q, k, v, causal=causal, window=window, split=False)
+    kw = dict(causal=causal, window=window, zero_fill=D % 64 != 0)
+    split = emulate_kernel(q, k, v, **kw)
+    one = emulate_kernel(q, k, v, split=False, **kw)
     miss_split = float((got != split.to(torch.bfloat16)).float().mean())
     miss_one = float((got != one.to(torch.bfloat16)).float().mean())
     assert miss_split <= 0.01, (miss_split, miss_one)
@@ -780,6 +787,11 @@ def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
     (1, 50, 130, 4, 2, 64, False, 0),
     (1, 128, 128, 2, 1, 128, True, 0),
     (1, 130, 50, 4, 2, 64, True, 16),         # rows with no visible key
+    # D = 80 over zero-filled boxes, D = 256 in two column halves
+    (2, 128, 128, 4, 4, 80, False, 0),
+    (1, 130, 130, 4, 2, 80, True, 32),
+    (1, 160, 160, 4, 2, 256, True, 64),
+    (1, 100, 70, 2, 1, 256, False, 0),
 ])
 def test_cuda_flash_bwd_wgmma_keeps_split(cuda_device, B, Sq, Sk, Hq, Hkv,
                                           D, causal, window):
@@ -812,7 +824,8 @@ def test_cuda_flash_bwd_wgmma_keeps_split(cuda_device, B, Sq, Sk, Hq, Hkv,
     got = [g.cpu() for g in flash_attention_bwd(
         *dev[:3], out, dev[3], causal=causal, window=window, stats=stats)]
     assert flash_attention_bwd.route_launches["wgmma"] == before + 1
-    kw = dict(stats=stats.cpu(), causal=causal, window=window)
+    kw = dict(stats=stats.cpu(), causal=causal, window=window,
+              layout=D in (80, 256))
     split = emulate_bwd(q, k, v, out.cpu(), dout, **kw)
     one = emulate_bwd(q, k, v, out.cpu(), dout, split=False, **kw)
     exact = exact_attention_bwd(q, k, v, dout, causal=causal, window=window)
@@ -899,22 +912,46 @@ def test_cuda_float_wrappers_check_their_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [80, 256])
-def test_cuda_flash_raises_under_grad_without_a_backward_kernel(cuda_device,
-                                                               D):
-    """At head dims with no backward kernel, ``ops.flash_attention`` on
-    CUDA tensors that require grad raises, naming the ROADMAP item, and
-    launches nothing; without grad it launches the forward kernel."""
+@pytest.mark.parametrize("D,causal,window", [(80, False, 0), (256, True, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_trains_at_head_dims_80_and_256(exact_f32, D, causal,
+                                                   window, dtype):
+    """hubert-xlarge's D = 80 and gemma3-4b's 256 under grad:
+    ``ops.flash_attention`` takes ``FlashAttentionFn``, one forward (bf16:
+    the tensor-core route, writing row statistics) and one backward on
+    the same route, and the gradients agree with autograd of the plain
+    version; without grad the forward launches alone."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention
-    q = torch.randn(1, 64, 4, D, device=cuda_device, dtype=torch.bfloat16)
-    before = flash_attention.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 22"):
-        ops.flash_attention(q.requires_grad_(), q, q)
-    assert flash_attention.launches == before
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     route)
+    dev = exact_f32
+    q, k, v = (_randn(dev, (2, 130, h, D), dtype, s).requires_grad_()
+               for s, h in ((1, 4), (2, 2), (3, 2)))
+    do = _randn(dev, (2, 130, 4, D), dtype, 4)
+    path = route(dtype, D)
+    assert path == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    before = (dict(flash_attention.route_launches),
+              dict(flash_attention_bwd.route_launches),
+              flash_attention.stats_writes)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert flash_attention.route_launches[path] == before[0][path] + 1
+    assert flash_attention_bwd.route_launches[path] == before[1][path] + 1
+    assert flash_attention.stats_writes == before[2] + (path == "wgmma")
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.attention_ref(
+        qs, ks, vs, causal=causal, window=window), (qs, ks, vs), do)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _grad_close(g, w)
+    fwd, writes = (flash_attention.route_launches[path],
+                   flash_attention.stats_writes)
     with torch.no_grad():
-        ops.flash_attention(q, q, q)
-    assert flash_attention.launches == before + 1
+        ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.route_launches[path] == fwd + 1
+    assert flash_attention.stats_writes == writes
+    assert flash_attention_bwd.route_launches[path] == before[1][path] + 1
 
 
 def _mla_kv(dev, dtype, B, Sk, Hkv, seed):
@@ -1520,6 +1557,18 @@ def test_cuda_rmsnorm_bwd_equals_plain(exact_f32, R, D, dtype):
     # and the plain version weigh their keys evenly
     (1, 130, 50, 4, 2, 64, True, 16),
     (1, 200, 200, 4, 2, 64, False, 32),
+    # D = 80: hubert-xlarge's training shape (non-causal), odd ones
+    (8, 512, 512, 16, 16, 80, False, 0),
+    (1, 77, 130, 4, 2, 80, False, 0),
+    (1, 100, 100, 4, 2, 80, True, 0),
+    (1, 130, 50, 4, 2, 80, True, 16),
+    # D = 256: gemma3-4b's training shape past its window, then global,
+    # odd and rectangular (32-row tiles on the CUDA cores, two column
+    # halves on the tensor cores)
+    (4, 1536, 1536, 8, 4, 256, True, 1024),
+    (1, 333, 333, 4, 2, 256, False, 0),
+    (1, 130, 130, 4, 1, 256, True, 32),
+    (1, 70, 100, 4, 2, 256, False, 16),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_bwd_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
@@ -1716,7 +1765,8 @@ def test_cuda_ssd_chunk_bwd_checks_its_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,window", [(64, 0), (128, 32)])
+@pytest.mark.parametrize("D,window", [(64, 0), (128, 32), (80, 0),
+                                      (256, 64)])
 def test_cuda_flash_forward_writes_stats_under_grad_only(cuda_device, D,
                                                          window):
     """Asked with ``stats=``, the tensor-core forward writes each row's m
@@ -1909,14 +1959,16 @@ def test_cuda_train_step_equals_cpu(exact_f32):
 def test_cuda_trainer_equals_cpu_trainer(cuda_device, tmp_path):
     """The smoke smollm's ``Trainer`` on the card and on the CPU from the
     same initial state, with a failure at step 5 and a resume: the same
-    events, fabric counters and grant log (the fabric sees only keys),
+    events (each wall-clock straggler event held to the watchdog's rule
+    instead), fabric counters and grant log (the fabric sees only keys),
     finite losses within 2e-2 of each other, and on the card the resumed
     steps equal the first run's bit for bit."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import init_model
     from repro_torch.optim import adamw
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                            steady_events)
 
     cfg = configs.SMOKE["smollm-360m"]
     params0 = init_model(cfg, torch.Generator().manual_seed(0))
@@ -1934,7 +1986,9 @@ def test_cuda_trainer_equals_cpu_trainer(cuda_device, tmp_path):
         res = tr.resume()
         runs.append((tr, first, res))
     (tc, fc, rc), (th, fh, rh) = runs
-    assert tc.events == th.events
+    factor = tc.tcfg.straggler_factor
+    assert steady_events(tc.events, factor) == steady_events(th.events,
+                                                             factor)
     assert rc["fabric_stats"] == rh["fabric_stats"]
     assert list(tc.fabric.grant_log) == list(th.fabric.grant_log)
     # the restart resumes at step 3: steps 3 and 4 ran twice on the card
@@ -1949,8 +2003,9 @@ def test_cuda_trainer_equals_cpu_trainer(cuda_device, tmp_path):
 def test_cuda_ssm_trainer_equals_cpu_trainer(cuda_device, tmp_path, arch):
     """The smoke SSM and hybrid ``Trainer`` on the card and on the CPU
     from the same initial state, a failure at step 5 and a resume from
-    the step-3 checkpoint: ``ssd_chunk_bwd`` launches, the events, fabric
-    counters and grant log are the CPU's, the losses within 2e-2 of the
+    the step-3 checkpoint: ``ssd_chunk_bwd`` launches, the events (but
+    the wall-clock straggler events, each held to the watchdog's rule),
+    fabric counters and grant log are the CPU's, the losses within 2e-2 of the
     CPU's, and on the card the resumed steps repeat the first run's
     losses bit for bit."""
     from repro_torch import configs
@@ -1958,7 +2013,8 @@ def test_cuda_ssm_trainer_equals_cpu_trainer(cuda_device, tmp_path, arch):
     from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
     from repro_torch.models import init_model
     from repro_torch.optim import adamw
-    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                            steady_events)
 
     cfg = configs.SMOKE[arch]
     params0 = init_model(cfg, torch.Generator().manual_seed(0))
@@ -1979,10 +2035,200 @@ def test_cuda_ssm_trainer_equals_cpu_trainer(cuda_device, tmp_path, arch):
             assert ssd_chunk_bwd.launches > before
         runs.append((tr, first, res))
     (tc, fc, rc), (th, fh, rh) = runs
-    assert tc.events == th.events
+    factor = tc.tcfg.straggler_factor
+    assert steady_events(tc.events, factor) == steady_events(th.events,
+                                                             factor)
     assert rc["fabric_stats"] == rh["fabric_stats"]
     assert list(tc.fabric.grant_log) == list(th.fabric.grant_log)
     assert rc["losses"][:2] == fc[3:5]
     assert all(np.isfinite(rc["losses"]))
     np.testing.assert_allclose(fc + rc["losses"], fh + rh["losses"],
                                rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_past_the_cache_end_equals_cpu(exact_f32):
+    """ROADMAP Queue 3 F8 on the card: the smoke smollm under the f32
+    policy, 16-token prompts into a cache of 18 rows and five decode
+    steps (pos 16-20): the card no longer raises (its decode kernel gets
+    kv_len = min(pos + 1, 18)), its ids equal the CPU's and its caches
+    agree within rtol = atol = 1e-4 after every step (the CPU is held to
+    the reference past the end in ``test_torch_cache_end.py``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import decode_step, init_cache, init_model
+    from repro_torch.models import prefill
+    from repro_torch.models.config import Policy
+    from repro_torch.models.model import tree_map
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = dataclasses.replace(configs.SMOKE["smollm-360m"], policy=Policy(
+        compute_dtype=torch.float32, cache_dtype=torch.float32))
+    params = init_model(cfg, torch.Generator(exact_f32).manual_seed(0))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, (2, 16)).astype(np.int32))
+    sides = []
+    for dev, p in ((exact_f32, params), (torch.device("cpu"), cpu)):
+        nxt, cache = prefill(cfg, p, tok.to(dev), init_cache(cfg, 2, 18, dev))
+        sides.append([nxt, cache])
+    before = decode_attention.launches
+    for pos in range(16, 21):
+        for side, p in zip(sides, (params, cpu)):
+            side[0], side[1] = decode_step(cfg, p, side[1], side[0][:, None],
+                                           pos)
+        np.testing.assert_array_equal(sides[0][0].cpu().numpy(),
+                                      sides[1][0].numpy())
+        for a, b in zip(tree_leaves(sides[0][1]), tree_leaves(sides[1][1])):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert decode_attention.launches == before + 5 * cfg.n_layers
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _set_leaves(tree, names, fill):
+    """Replace every leaf of ``tree`` (nested dicts) whose key is in
+    ``names`` by ``fill(leaf)``."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _set_leaves(val, names, fill)
+        elif key in names:
+            tree[key] = fill(val)
+
+
+@pytest.mark.cuda
+def test_cuda_qkv_bias_model_equals_cpu(cuda_device):
+    """The smoke qwen2.5-14b (``qkv_bias``, the path no other card test
+    runs), its q, k and v biases drawn nonzero, in its bf16 policy:
+    ``forward``, ``prefill`` and three decode steps (both sides decoding
+    the card's ids) on the card against the CPU within a relative L2 of
+    2e-2 (both sides round to bf16 at every layer)."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_model, prefill)
+    from repro_torch.models.model import tree_map
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = configs.SMOKE["qwen2.5-14b"]
+    assert cfg.qkv_bias
+    params = init_model(cfg, torch.Generator(cuda_device).manual_seed(3))
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    _set_leaves(params, ("bq", "bk", "bv"), lambda t: 0.5 * torch.randn(
+        t.shape, generator=gen, device=t.device, dtype=t.dtype))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        2, cfg.vocab, (2, 24)).astype(np.int32))
+    h_card, _ = forward(cfg, params, tok.to(cuda_device))
+    h_cpu, _ = forward(cfg, cpu, tok)
+    assert _rel(h_card.cpu(), h_cpu) <= 2e-2
+    n_card, c_card = prefill(cfg, params, tok.to(cuda_device),
+                             init_cache(cfg, 2, 32, cuda_device))
+    n_cpu, c_cpu = prefill(cfg, cpu, tok, init_cache(cfg, 2, 32, "cpu"))
+    before = decode_attention.launches
+    for step in range(3):
+        ids = n_card[:, None]
+        n_card, c_card = decode_step(cfg, params, c_card, ids, 24 + step)
+        n_cpu, c_cpu = decode_step(cfg, cpu, c_cpu, ids.cpu(), 24 + step)
+        for a, b in zip(tree_leaves(c_card), tree_leaves(c_cpu)):
+            assert _rel(a.cpu(), b) <= 2e-2
+    assert decode_attention.launches > before
+
+
+def _grad_case(arch):
+    """(config, batch maker): the model's attention at its full head dim
+    on small widths.  hubert-xlarge: 2 non-causal heads of 80 (frames,
+    labels and a mask); gemma3-4b: 6 layers (the first global one last)
+    of 2 over 1 heads of 256, window 16 on 64 tokens; llava-next-34b: the
+    patches frontend with 2 over 1 heads of 128."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.SMOKE[arch]
+    if arch == "hubert-xlarge":
+        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=2, d_head=80)
+    elif arch == "gemma3-4b":
+        cfg = dataclasses.replace(cfg, n_layers=6, n_heads=2, n_kv_heads=1,
+                                  d_head=256)
+    else:
+        cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=1, d_head=128)
+
+    def batch(rng, B=2, S=64):
+        if arch == "hubert-xlarge":
+            return {"frames": rng.standard_normal(
+                        (B, S, cfg.d_frontend)).astype(np.float32),
+                    "labels": rng.integers(0, cfg.vocab, (B, S)).astype(
+                        np.int32),
+                    "mask": (rng.random((B, S)) < 0.7).astype(np.float32)}
+        out = {"tokens": rng.integers(2, cfg.vocab, (B, S)).astype(np.int32)}
+        if arch == "llava-next-34b":
+            out["patches"] = (0.1 * rng.standard_normal(
+                (B, cfg.n_patch_tokens, cfg.d_model))).astype(np.float32)
+        return out
+    return cfg, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,D", [("hubert-xlarge", 80), ("gemma3-4b", 256),
+                                    ("llava-next-34b", 128)])
+@pytest.mark.parametrize("policy", ["f32", "bf16"])
+def test_cuda_loss_fn_grads_at_the_models_head_dims_equal_cpu(exact_f32,
+                                                              arch, D,
+                                                              policy):
+    """``loss_and_grads`` on the card against the CPU at the model's head
+    dim (``_grad_case``): every attention layer's backward on the card is
+    one ``flash_attention_bwd`` launch on its route (bf16: the tensor
+    cores, from the forward's row statistics; f32: the CUDA cores).
+    Under the f32 policy the loss and every leaf within rtol = atol =
+    1e-4; under bf16 the loss, the whole gradient and every leaf of at
+    least 64 values within a relative L2 of 2e-2."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.models import init_model
+    from repro_torch.models.model import tree_map
+    from repro_torch.models.training import loss_and_grads
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg, batch = _grad_case(arch)
+    assert cfg.d_head == D
+    if policy == "f32":
+        cfg = dataclasses.replace(cfg, policy=dataclasses.replace(
+            cfg.policy, compute_dtype=torch.float32))
+    path = "simt" if policy == "f32" else "wgmma"
+    params = init_model(cfg, torch.Generator(exact_f32).manual_seed(6))
+    data = batch(np.random.default_rng(7))
+    out = []
+    for dev in (exact_f32, torch.device("cpu")):
+        before = (dict(flash_attention_bwd.route_launches),
+                  flash_attention.stats_writes)
+        loss, _, grads = loss_and_grads(
+            cfg, tree_map(lambda t: t.to(dev), params),
+            {k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        if dev.type == "cuda":
+            got = {k: flash_attention_bwd.route_launches[k] - before[0][k]
+                   for k in before[0]}
+            assert got[path] == cfg.n_layers and sum(got.values()) == \
+                cfg.n_layers, got
+            if path == "wgmma":
+                assert flash_attention.stats_writes - before[1] >= \
+                    cfg.n_layers
+        out.append((loss.cpu(), [g.cpu() for g in tree_leaves(grads)]))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    assert all(torch.isfinite(g).all() for g in g_card)
+    if policy == "f32":
+        torch.testing.assert_close(l_card, l_cpu, rtol=1e-4, atol=1e-4)
+        for a, b in zip(g_card, g_cpu):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        return
+    assert _rel(l_card, l_cpu) <= 2e-2
+    whole = lambda gs: torch.cat([g.reshape(-1) for g in gs])
+    assert _rel(whole(g_card), whole(g_cpu)) <= 2e-2
+    for a, b in zip(g_card, g_cpu):
+        if b.numel() >= 64 and b.abs().max() > 0:
+            assert _rel(a, b) <= 2e-2

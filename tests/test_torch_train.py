@@ -61,7 +61,8 @@ from repro_torch.launch import train as train_launcher
 from repro_torch.models import convert, layers, training
 from repro_torch.models import model as tmodel
 from repro_torch.optim import adamw, compress
-from repro_torch.runtime.trainer import Trainer, TrainerConfig, param_keys
+from repro_torch.runtime.trainer import (Trainer, TrainerConfig, param_keys,
+                                        steady_events)
 
 OPT_RTOL = 1e-6
 BF16_REL_L2 = 2e-2
@@ -187,13 +188,14 @@ def test_chunked_xent_matches_reference(S, chunk):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "gemma3-4b"])
 @pytest.mark.parametrize("policy", ["f32", "bf16"])
 def test_loss_fn_value_and_grads_match_reference(arch, policy):
     """``loss_fn`` and its gradient on every parameter against
     ``jax.value_and_grad(repro.models.model.loss_fn)`` on the same weights
     and tokens (f32 master weights cast on use, gradients back on the f32
-    leaves); the metrics are ce and aux = 0.  Under the f32 policy every
+    leaves; gemma3's smoke window of 16 is live on 32 tokens); the
+    metrics are ce and aux = 0.  Under the f32 policy every
     leaf within ``F32``.  Under bf16 the loss and the whole gradient
     within a relative L2 of 2e-2, and so every leaf of at least
     ``PER_LEAF_MIN`` values (worst 0.0156 over seeds 1-3, zamba2's
@@ -519,11 +521,12 @@ def test_vmapped_workers_w1_is_sync_dp_and_w4_cuts_bytes():
 
 # ----------------------------------------------------------------- trainer
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "gemma3-4b"])
 def test_param_keys_are_the_reference_trainers(arch):
     """The checkpoint publish's fabric keys: ``"ckpt" + keystr(path)`` in
-    the reference's order; a stacked segment's layers share a key, so a
-    dense or SSM model has the same keys at every depth (smollm: 11)."""
+    the reference's order, at the full and the smoke config; a stacked
+    segment's layers share a key, so a dense or SSM model has the same
+    keys at every depth (smollm: 11)."""
     def ref_keys(rc):
         return ["ckpt" + jax.tree_util.keystr(kp) for kp, _ in
                 jax.tree_util.tree_flatten_with_path(
@@ -531,7 +534,9 @@ def test_param_keys_are_the_reference_trainers(arch):
     want = ref_keys(rcfgs.ARCHS[arch])
     assert param_keys(tcfgs.ARCHS[arch]) == want
     assert param_keys(tcfgs.SMOKE[arch]) == ref_keys(rcfgs.SMOKE[arch])
-    if arch != "zamba2-1.2b":        # zamba2's looped tail has keys a layer
+    # zamba2's looped tail has keys a layer; the smoke gemma3 is one
+    # looped segment of 7 layers, the full one a stacked 6 x 5 and a tail
+    if arch not in ("zamba2-1.2b", "gemma3-4b"):
         assert param_keys(tcfgs.SMOKE[arch]) == want
     if arch == "smollm-360m":
         assert len(want) == 11 and want[0] == "ckpt['embed']" \
@@ -539,12 +544,29 @@ def test_param_keys_are_the_reference_trainers(arch):
             and want[-1] == "ckpt['segments']['seg0']['0']['mlp']['wo']"
 
 
+@pytest.mark.parametrize("step,dt,ok", [(5, 3.5, True), (4, 3.1, True),
+                                         (3, 9.0, False), (6, 2.9, False)])
+def test_steady_events_hold_stragglers_to_the_watchdog(step, dt, ok):
+    """A straggler event (ema 1.0, factor 3) is left out when it keeps the
+    watchdog's rule and raises when it breaks it; every other event stays,
+    in order."""
+    events = [{"kind": "param_lease", "step": 2},
+              {"kind": "straggler", "step": step, "dt": dt, "ema": 1.0},
+              {"kind": "restore", "step": 4}]
+    if ok:
+        assert steady_events(events, 3.0) == [events[0], events[2]]
+    else:
+        with pytest.raises(ValueError, match="watchdog's rule"):
+            steady_events(events, 3.0)
+
+
 @pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-130m"])
 def test_trainer_fail_and_resume_match_reference(arch, tmp_path):
     """The smoke config's ``Trainer`` with a failure at step 6 and a
     resume from the step-4 checkpoint, beside the reference ``Trainer`` on
     the same config, data and initial state: the same events (the
-    restore at 4, the publishes' leases), fabric counters and grant log
+    restore at 4, the publishes' leases; each wall-clock straggler event
+    held to the watchdog's rule instead), fabric counters and grant log
     equal, finite losses within 2e-2 of the reference's (bf16 policy),
     and the resumed steps 4 and 5 repeat the first run's losses bit for
     bit."""
@@ -568,7 +590,9 @@ def test_trainer_fail_and_resume_match_reference(arch, tmp_path):
     first = [loss for _, loss in tr.history]
     res = tr.resume()
     assert res["final_step"] == rres["final_step"] == 8
-    assert tr.events == rtr.events
+    factor = tr.tcfg.straggler_factor
+    assert steady_events(tr.events, factor) == steady_events(rtr.events,
+                                                             factor)
     assert {"kind": "restore", "step": 4} in tr.events
     assert res["fabric_stats"] == rres["fabric_stats"]
     assert list(tr.fabric.grant_log) == list(rtr.fabric.grant_log)
