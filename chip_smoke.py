@@ -139,13 +139,14 @@ Phases (any failure raises and the script exits non-zero):
      share, the backward kernels' share, the model-flops share and a
      checkpoint save's time.  Then mamba2-130m at full width (24 layers,
      d_model 768; 8 steps, a checkpoint every 3, a failure at 7) and
-     zamba2-1.2b (38 layers,
+     zamba2-1.2b (19 of its 38 layers,
      d_model 2048) on a shorter one (6 steps, a checkpoint every 4, a
-     failure at 5; its checkpoint is 12.2 GB), B = 8 x S = 512: the same checks with ``ssd_chunk``
+     failure at 5; its checkpoint is 6.1 GB), B = 8 x S = 512: the same
+     checks with ``ssd_chunk``
      and ``ssd_chunk_bwd`` launched (zamba2: flash too), every
      ``ssd_chunk_bwd`` on the tensor-core route; the fabric
-     against a CPU trainer of 2 layers (zamba2: all 38 layers at the smoke
-     widths, its looped tail has a fabric key a layer); card vs CPU
+     against a CPU trainer of 2 layers at the smoke widths (zamba2: all 19
+     layers, its looped tail has a fabric key a layer); card vs CPU
      gradients at 2 layers (zamba2: 6, the first depth with the shared
      attention block) under the f32 policy within 2e-2, and in bf16
      (mamba2 within 2e-2; each bf16 gradient's distance from the CPU's
@@ -164,7 +165,7 @@ Phases (any failure raises and the script exits non-zero):
      ``Server`` with gemma3-4b (34 layers, d_model 2560, 8 over 4 heads
      of 256, vocab 262144, window 1024 on five layers of six; seeded
      weights on the card), batch 4, 1536-token prompts (past the window),
-     32 new tokens, two waves (a miss, then a lease hit), with phase 4's
+     16 new tokens, two waves (a miss, then a lease hit), with phase 4's
      checks (every flash on the tensor-core route at D = 256, decode at
      D = 256 one kernel a call, payload unchanged, ``serve_stream`` ==
      ``serve``, counters and grant log == a 1-layer CPU server) and the
@@ -199,21 +200,33 @@ Phases (any failure raises and the script exits non-zero):
      dense and the first MoE layer, one prompt and 4 decode steps) and 1
      (llama4's dense layer 0) within a relative L2 of 2e-2, tokens whose
      experts split at a near-tie left out; times and peak memory;
- 11. training at the head dims 80 and 256: hubert-xlarge (48 layers,
-     16 heads of 80, non-causal) on 8 x 512 frames with labels and
-     gemma3-4b at 12 of 34 layers (3.88 B parameters with the optimizer's
-     old and new state do not fit one card) on B = 4 x S = 1536, past its
-     1024-token window, full width, f32 masters, bf16 compute and remat,
-     each through its ``Trainer``'s step for 6 steps: losses finite and
-     falling, every flash backward on the tensor-core route from a
-     forward's row statistics (launch counts set to 0 just before the run
-     and read just after); card vs CPU loss and gradients at 2 and 6
-     layers (a CPU worker beside the card), bf16 and f32 policy (the f32
-     one on the CUDA-core route) within a relative L2 of 2e-2; a step's
+ 11. training at the head dims 80 and 256 and at MLA's (192, 128):
+     hubert-xlarge (24 of 48 layers, 16 heads of 80, non-causal) on 8 x 512
+     frames with labels, gemma3-4b at 12 of 34 layers on B = 4 x S =
+     1536, past its 1024-token window (f32 masters, bf16 compute), and
+     deepseek-v2-236b at 2 of 60 layers (the dense layer and one MoE
+     layer of 160 experts, 5.36 B parameters) on B = 2 x S = 512 in its
+     own bf16-param, bf16-moment policy; full width and remat, each
+     through its ``Trainer``'s step (which updates its state in place,
+     the memory plan deepseek's state needs) for 6 steps on fresh
+     batches: losses finite, below the untrained model's on their batch
+     and falling (deepseek's, whose batches differ by more than a step
+     moves it: the last below the first, and the fall against the
+     untrained model larger in the last 3 steps than the first 3), the
+     first 2 steps equal bit for bit to a run of them from the same
+     state, a MoE model's aux > 0, every flash backward on the
+     tensor-core route from a forward's row statistics (launch counts set
+     to 0 just before the run and read just after; deepseek's at (192,
+     128)); card vs CPU loss
+     and gradients at 2, 6 and 2 layers (a CPU worker beside the card;
+     deepseek's after the others', as it holds ~64 GB of the host's
+     memory), bf16 and f32 policy (the f32 one on the CUDA-core route)
+     within a relative L2 of 2e-2 (deepseek's experts whose routing split
+     at a near-tie logged and left out of the per-leaf check); a step's
      wall, host and device ms, idle share, the backward kernels' share
-     and peak memory.  Phase 2 holds the backward at both training shapes
-     on both routes against autograd of the plain version, beside SDPA's
-     backward;
+     and peak memory.  Phase 2 holds the backward at the three training
+     shapes on both routes against autograd of the plain version, beside
+     SDPA's backward;
  12. the kernel summary line (with rows for the head dims phase 9 adds,
      the shapes phase 10 adds and phase 11's backward), then
      ``{"ok": true, "device": ...}`` last.  Each phase's start time is
@@ -324,8 +337,9 @@ HYBRID_MAX_LEN = PROMPT_LEN + HYBRID_MAX_NEW + 8
 # phase 8: training smollm-360m at full width on the card: batch, sequence,
 # steps, checkpoint period and the step of the simulated failure (8 steps
 # since the SSM models joined the phase, to hold the script's time); the CPU
-# trainer that checks the fabric runs 2 layers on short rows (the fabric
-# sees only the parameter keys, the same at every depth and width), the
+# trainer that checks the fabric runs 2 layers on short rows at the smoke
+# widths (the fabric sees only the parameter keys, the same at every depth
+# and width), the
 # card-vs-CPU gradient check 2 layers on one 512-token row, the lease
 # workers 4 layers
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL = 8, 512, 8, 3, 7
@@ -337,6 +351,11 @@ TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
 # checkpoint is 12.2 GB), checked at 6 layers, the first depth that
 # reaches the shared attention block
 SSM_TRAIN = (("mamba2-130m", 8, 3, 7, 2), ("zamba2-1.2b", 6, 4, 5, 6))
+# phase 8's depth cuts, full width kept: zamba2 at 19 of its 38 layers
+# (three shared-attention uses of six, a 6.1 GB checkpoint) since
+# deepseek-v2 joined phase 11, to hold the script's time (38 layers: 115-130
+# s of the phase, two 12.2 GB checkpoints and a restore)
+PHASE8_LAYERS = {"zamba2-1.2b": 19}
 # card vs CPU gradients: the loss, the whole gradient and each leaf of at
 # least this many values within MODEL_REL_L2; the per-head vectors of the
 # SSM blocks (A_log, D_skip, dt_bias) are sums of cancelling terms whose
@@ -367,10 +386,12 @@ SSD_BWD_SCALED_TOL = 1e-4
 # gemma3-4b (34 layers, all of them): batch 4, prompts of 1536 tokens,
 # past the 1024-token window, so the local layers' prefill mask is live
 # and decode's kv_len passes 1024; two waves (a miss, then a lease hit) of
-# 32 new tokens; card vs CPU at 6 layers (the first depth with a global
-# layer, index 5) on one prompt, and 8 decode steps' hidden states
+# 16 new tokens (32 before deepseek-v2 joined phase 11: the 1-layer CPU
+# server beside, at the 262144-wide vocabulary, took 56.6 s); card vs CPU
+# at 6 layers (the first depth with a global layer, index 5) on one
+# prompt, and 8 decode steps' hidden states
 WINDOW_ARCH = "gemma3-4b"
-WINDOW_B, WINDOW_PROMPT, WINDOW_NEW, WINDOW_WAVES = 4, 1536, 32, 2
+WINDOW_B, WINDOW_PROMPT, WINDOW_NEW, WINDOW_WAVES = 4, 1536, 16, 2
 WINDOW_MAX_LEN = WINDOW_PROMPT + WINDOW_NEW + 8
 WINDOW_MODEL_LAYERS, WINDOW_DECODE_CHECK = 6, 8
 # hubert-xlarge (48 layers, all of them): the encoder on 8 x 512 frames;
@@ -389,7 +410,8 @@ PHASE9_FLASH = ((WINDOW_B, WINDOW_PROMPT, 8, 4, 256, True, 1024),
                 (WINDOW_B, WINDOW_PROMPT, 8, 4, 256, True, 0),
                 (AUDIO_B, AUDIO_FRAMES, 16, 16, 80, False, 0),
                 (VISION_B, 576 + VISION_TEXT, 56, 8, 128, True, 0))
-PHASE9_DECODE = ((WINDOW_B, WINDOW_MAX_LEN, 8, 4, 256, WINDOW_PROMPT + 32),
+PHASE9_DECODE = ((WINDOW_B, WINDOW_MAX_LEN, 8, 4, 256,
+                  WINDOW_PROMPT + WINDOW_NEW),
                  (VISION_B, 576 + VISION_TEXT + VISION_NEW + 8, 56, 8, 128,
                   576 + VISION_TEXT + 1))
 # phase 10: MoE and MLA at full width, each model built on the card from
@@ -421,37 +443,57 @@ PHASE10_DECODE = tuple((PHASE10_B, PHASE10_PROMPT + 16 + 8, 40, 8, 128,
 # at 2-4 (2^-6 each; deepseek's splits sat 0, 1 and 2 steps apart); such
 # tokens are left out of the card-vs-CPU comparison, at most one in eight
 NEAR_TIE = 2 ** -4
-# phase 11: training at the head dims 80 and 256 on the card, each model
-# at full width with f32 masters, bf16 compute and remat, through
+# phase 11: training at the head dims 80 and 256 and MLA's (192, 128) on
+# the card, each model at full width in its own policy with remat, through
 # Trainer.step_fn (the step Trainer.run takes; its checkpoint publish is
 # phase 8's, and a gemma3 checkpoint would be 12 bytes a parameter on
-# disk).  hubert-xlarge: all 48 layers, 8 x 512 frames with labels.
-# gemma3-4b: B = 4 x S = 1536, past the 1024-token window; 34 layers are
-# 3.88 B parameters, and the out-of-place AdamW holds the old and the new
-# weights and moments beside the gradient (28 bytes a parameter) plus the
-# activations, so depth is cut to the largest multiple of 6 (whole
-# local:global groups) under ~72 GB (12 layers: 53.25 GB; 18 ran out of
-# the card's memory in AdamW's update, 71.86 GB allocated).  Card vs CPU
-# at 2 layers (hubert, a row of 512 frames) and 6 (gemma3, the first
-# global layer; a row of 128 tokens: the worker took 36 s in bf16 at 256,
-# where the 262144-wide tied embedding dominates), under the bf16 and the f32
-# policy; the CPU side runs in a worker process beside the card's.  The
-# window's backward mask is held at the run's 1536 tokens by phase 2's
-# row at gemma3's training shape.  (arch, layers, B, S, CPU-check layers,
-# CPU-check tokens)
-WIDE_TRAIN = (("hubert-xlarge", 48, 8, 512, 2, 512),
-              ("gemma3-4b", 12, 4, 1536, 6, 128))
+# disk).  hubert-xlarge: 24 of 48 layers (all 48 before deepseek-v2
+# joined; its host-bound step, 0.66-0.83 s, set the row's time), 8 x 512
+# frames with labels.
+# gemma3-4b: B = 4 x S = 1536, past the 1024-token window; depth cut to 12
+# of 34 layers, whole local:global groups (cut when the update was out of
+# place: 18 ran out of memory in AdamW's update, 71.86 GB allocated; the
+# step now updates its state in place).  deepseek-v2-236b:
+# bf16 params and moments, B = 2 x S = 512, 2 of 60 layers (the dense
+# layer 0 and one MoE layer of 160 experts: 5.36 B parameters, 8 bytes a
+# parameter with its gradient, 42.9 GB; 3 layers would be 9.33 B, 74.6
+# GB before any activation or temporary).  Card vs CPU at 2 layers
+# (hubert, a row of 512 frames; deepseek, all of its 2, a row of 128
+# tokens) and 6 (gemma3, the first global layer; a row of 128 tokens: the
+# worker took 36 s in bf16 at 256, where the 262144-wide tied embedding
+# dominates), under the bf16 and the f32 policy; the CPU side runs in a
+# worker process beside the card's.  The window's backward mask is held
+# at the run's 1536 tokens by phase 2's row at gemma3's training shape.
+# (arch, layers, B, S, CPU-check layers, CPU-check tokens)
+WIDE_TRAIN = (("hubert-xlarge", 24, 8, 512, 2, 512),
+              ("gemma3-4b", 12, 4, 1536, 6, 128),
+              ("deepseek-v2-236b", 2, 2, 512, 2, 128))
+# the CPU worker's threads, beside the card's host-bound steps (hubert's)
+PHASE11_CPU_THREADS = 4
 WIDE_TRAIN_STEPS = 6
+# steps run twice from the same seeded state, to match bit for bit
+REPEAT_STEPS = 2
+# rows whose fall is read against the untrained model on the same batch:
+# at deepseek-v2's B = 2 x S = 512 the untrained model's losses on six
+# fresh batches spread 12.47-12.74, more than a step at WIDE_TRAIN_LR moves
+# it (step 1's loss was above step 0's, on another batch), so its row
+# needs, beside each loss below the untrained model's on its batch, the
+# last loss below the first and the gap to the untrained model (the
+# fall on each batch) larger over the last half of the steps than over
+# the first half; the other rows fall at every step
+WIDE_TRAIN_FALL_BY_GAP = ("deepseek-v2-236b",)
 # phase 11's peak learning rate (warmup TRAIN_WARMUP): Adam's first steps
 # move every weight by about the rate, and at full width phase 8's 1e-3
 # overshoots (the loss rises above the untrained model's at some steps,
 # as at 3e-4 and 1e-4; scripts/wide_train_lr_sweep.py); at 1e-5 both
 # models' losses fall at every step
 WIDE_TRAIN_LR = 1e-5
-# phase 2's backward rows at phase 11's shapes (B, S, Hq, Hkv, D, causal,
-# window)
-PHASE11_FLASH_BWD = ((8, 512, 16, 16, 80, False, 0),
-                     (4, 1536, 8, 4, 256, True, 1024))
+# phase 2's backward rows at phase 11's shapes (B, S, Hq, Hkv, D, Dv,
+# causal, window): hubert-xlarge, gemma3-4b past its window, deepseek-v2's
+# MLA pair
+PHASE11_FLASH_BWD = ((8, 512, 16, 16, 80, 80, False, 0),
+                     (4, 1536, 8, 4, 256, 256, True, 1024),
+                     (2, 512, 128, 128, 192, 128, True, 0))
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -1035,22 +1077,24 @@ def check_float_kernels(torch, np, dev, report):
                     [B, Sk, Hq, Hkv, D, kv_len])
 
 
-def sdpa_backend(torch, fn) -> str:
+def sdpa_backend(torch, fn, sdpa=None) -> str:
     """The device kernel that takes most of two calls of ``fn`` (a partial
-    of SDPA) under ``torch.profiler``: which of its backends SDPA picked.
-    A window that records no device event (CUPTI missed the calls in two
-    runs of this script, each time at a different shape) is profiled
-    again, up to three windows; then the backend SDPA's
-    dispatcher names for the same arguments (``torch._fused_sdp_choice``)
-    stands in, marked as such.  The name is reported, not checked; the
-    library's time comes from CUDA events either way."""
+    of SDPA, or a call of its backward) under ``torch.profiler``: which of
+    its backends SDPA picked.  A window that records no device event
+    (CUPTI missed the calls in two runs of this script, each time at a
+    different shape) is profiled again, up to three windows; then the
+    backend SDPA's dispatcher names for the same arguments
+    (``torch._fused_sdp_choice`` on ``sdpa``, the forward's partial;
+    default ``fn``) stands in, marked as such.  The name is reported, not
+    checked; the library's time comes from CUDA events either way."""
     for _ in range(3):
         try:
             return profile_calls(torch, fn, 2)["device_by_name"][0]["name"]
         except AssertionError as e:
             log(f"    SDPA's profile: {e}; profiling again")
     from torch.nn.attention import SDPBackend
-    choice = torch._fused_sdp_choice(*fn.args, **fn.keywords)
+    sdpa = sdpa or fn
+    choice = torch._fused_sdp_choice(*sdpa.args, **sdpa.keywords)
     names = {int(getattr(SDPBackend, n)): n for n in dir(SDPBackend)
              if n.isupper()}
     return f"{names.get(choice, choice)} (the dispatcher's choice)"
@@ -1184,11 +1228,13 @@ def check_backward_kernels(torch, np, dev, report):
     names (the tensor-core route with the forward's row statistics);
     each row with the kernel's time, the plain backward's and the
     library's (autograd of ``F.rms_norm`` and of SDPA, each on a graph
-    built once), and the bound.  At the bf16 training shapes (smollm's,
-    and phase 11's: hubert-xlarge's D = 80, gemma3-4b's 256 past its
-    window) flash also times the CUDA-core kernel (``_route="simt"``,
+    built once; none where SDPA takes no such call), and the bound.  At
+    the bf16 training shapes (smollm's, and phase 11's: hubert-xlarge's
+    D = 80, gemma3-4b's 256 past its window, deepseek-v2's MLA pair (192,
+    128)) flash also times the CUDA-core kernel (``_route="simt"``,
     smollm's the kernel of the first round) in the same run, checked
-    against the plain version too."""
+    against the plain version too; at deepseek's the SDPA backward's
+    kernel is named."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1238,7 +1284,8 @@ def check_backward_kernels(torch, np, dev, report):
                "route": path, "max_abs_err": err, "tol": tol,
                "ms": device_ms(torch, kern),
                "plain_ms": device_ms(torch, plain, n=5, trials=3),
-               "library_ms": device_ms(torch, library),
+               "library_ms": None if library is None
+               else device_ms(torch, library),
                "bound_ms": max(bt, ot),
                "bound_by": "bytes" if bt >= ot else "operations",
                "bytes": nbytes, "flops": flops}
@@ -1251,8 +1298,9 @@ def check_backward_kernels(torch, np, dev, report):
             + (f"CUDA-core kernel {row['old_ms'] * 1e3:.2f} us, " if old
                else "")
             + f"plain {row['plain_ms'] * 1e3:.2f} us, library "
-            f"{row['library_ms'] * 1e3:.2f} us, bound "
-            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
+            + ("none" if library is None
+               else f"{row['library_ms'] * 1e3:.2f} us")
+            + f", bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
             f"{row['bound_ms'] / row['ms']:.3f} of it)")
 
     log(f"  backward tolerances (rtol = atol): {GRAD_TOL}")
@@ -1276,21 +1324,24 @@ def check_backward_kernels(torch, np, dev, report):
             log("  rmsnorm_bwd's first-round kernel (rewritten in place): "
                 "21.41 us at [4096, 960] bf16, 26.44 us in f32, 9.64 us at "
                 "[8, 960] bf16 (run AM, PERF.md)")
-        wide = tuple((B, S, S, Hq, Hkv, D, causal, window)
-                     for B, S, Hq, Hkv, D, causal, window in PHASE11_FLASH_BWD)
-        for B, Sq, Sk, Hq, Hkv, D, causal, window in (
-                (TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0),
-                (TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 64, True, 0),  # zamba2
-                (1, 130, 50, 4, 2, 64, True, 16),
-                (1, 130, 130, 4, 1, 128, True, 32),
-                (2, 77, 77, 4, 2, 16, False, 0),
-                (1, 100, 77, 4, 2, 80, True, 16),
-                (1, 333, 333, 4, 2, 256, False, 0)) + wide:
+        wide = tuple((B, S, S, Hq, Hkv, D, Dv, causal, window)
+                     for B, S, Hq, Hkv, D, Dv, causal, window
+                     in PHASE11_FLASH_BWD)
+        for B, Sq, Sk, Hq, Hkv, D, Dv, causal, window in tuple(
+                (B, Sq, Sk, Hq, Hkv, D, D, causal, window)
+                for B, Sq, Sk, Hq, Hkv, D, causal, window in (
+                    (TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0),
+                    (TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 64, True, 0),
+                    (1, 130, 50, 4, 2, 64, True, 16),
+                    (1, 130, 130, 4, 1, 128, True, 32),
+                    (2, 77, 77, 4, 2, 16, False, 0),
+                    (1, 100, 77, 4, 2, 80, True, 16),
+                    (1, 333, 333, 4, 2, 256, False, 0))) + wide:
             q = randn((B, Sq, Hq, D), dtype, 1)
             k = randn((B, Sk, Hkv, D), dtype, 2)
-            v = randn((B, Sk, Hkv, D), dtype, 3)
-            do = randn((B, Sq, Hq, D), dtype, 4)
-            path = route(dtype, D)
+            v = randn((B, Sk, Hkv, Dv), dtype, 3)
+            do = randn((B, Sq, Hq, Dv), dtype, 4)
+            path = route(dtype, D, Dv)
             stats = (torch.empty((2, B, Hq, Sq), dtype=torch.float32,
                                  device=dev) if path == "wgmma" else None)
             o = flash_attention(q, k, v, causal=causal, window=window,
@@ -1309,29 +1360,43 @@ def check_backward_kernels(torch, np, dev, report):
                     mask = mask.masked_fill(kpos > qpos, -1e30)
                 if window:
                     mask = mask.masked_fill(qpos - kpos >= window, -1e30)
-            lib = F.scaled_dot_product_attention(
-                ql, kl, vl, attn_mask=mask,
+            sdpa = functools.partial(
+                F.scaled_dot_product_attention, ql, kl, vl, attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=True)
+            try:
+                library = backward_of(sdpa(), (ql, kl, vl),
+                                      do.transpose(1, 2))
+                library()
+            except RuntimeError as e:        # no SDPA backend takes it
+                log(f"    SDPA's backward at {D}/{Dv}: {str(e)[:120]}")
+                library = None
             pairs = _visible_pairs(Sq, Sk, causal, window)
             old = None
             if path == "wgmma" and ((B == TRAIN_B and Hq == 15)
-                                    or (B, Sq, Sk, Hq, Hkv, D, causal,
+                                    or (B, Sq, Sk, Hq, Hkv, D, Dv, causal,
                                         window) in wide):
                 def old():
                     return flash_attention_bwd(q, k, v, o, do, causal=causal,
                                                window=window, _route="simt")
             # the tensor-core route also reads the forward's m and 1 / l
             stat_bytes = 8 * B * Hq * Sq if path == "wgmma" else 0
+            # q, k, o, dO, v read and dq, dk, dv written; S, dQ and dK
+            # over D, dP and dV over Dv
             compare("flash_attention_bwd",
                     lambda: flash_attention_bwd(q, k, v, o, do,
                                                 causal=causal, window=window,
                                                 stats=stats),
-                    backward_of(plain_out, (qp, kp, vp), do),
-                    backward_of(lib, (ql, kl, vl), do.transpose(1, 2)),
-                    (4 * B * Sq * Hq * D + 4 * B * Sk * Hkv * D) * el
-                    + stat_bytes,
-                    10 * D * B * Hq * pairs, dtype,
-                    [B, Sq, Sk, Hq, Hkv, D, int(causal), window], path, old)
+                    backward_of(plain_out, (qp, kp, vp), do), library,
+                    (2 * B * Sq * Hq * (D + Dv) + 2 * B * Sk * Hkv * (D + Dv))
+                    * el + stat_bytes,
+                    (6 * D + 4 * Dv) * B * Hq * pairs, dtype,
+                    [B, Sq, Sk, Hq, Hkv, D, Dv, int(causal), window], path,
+                    old)
+            if Dv != D:
+                row = report["flash_attention_bwd"][-1]
+                row["library_kernel"] = "none" if library is None \
+                    else sdpa_backend(torch, library, sdpa)
+                log(f"    SDPA's backward ran {row['library_kernel'][:90]}")
 
 
 def ssd_bwd_bound(B, nc, Q, H, P, N, el, stride0):
@@ -1954,18 +2019,20 @@ def named_leaves(tree, path=""):
     return [(path, tree)]
 
 
-def compare_grads(a, b) -> dict:
+def compare_grads(a, b, device="cpu") -> dict:
     """Two (loss, named gradient leaves) results, the leaves in the same
     order: the loss's relative error, the whole gradient's relative L2
     (from per-leaf sums), the worst leaf's of at least PER_LEAF_MIN
     values, each smaller leaf's, and every leaf's (relative L2, size)
     under "leaves".  A leaf zero on both sides (hubert's unused token
-    embedding) is left out; one zero only in ``b`` raises."""
+    embedding) is left out; one zero only in ``b`` raises.  The sums run
+    on ``device`` (phase 11 passes the card, idle then: deepseek's 5.36 B
+    values take minutes on the host)."""
     (la, ga), (lb, gb) = a, b
     num = den = 0.0
     per_leaf = {}
     for (path, x), (_, y) in zip(ga, gb):
-        x, y = x.float().cpu(), y.float().cpu()
+        x, y = x.to(device).float(), y.to(device).float()
         d2, n2 = float((x - y).square().sum()), float(y.square().sum())
         num, den = num + d2, den + n2
         if n2 == 0.0:
@@ -1981,15 +2048,19 @@ def compare_grads(a, b) -> dict:
             "leaves": per_leaf}
 
 
-def held_by_f32(card, cpu, cpu32, keys):
+def held_by_f32(card, cpu, cpu32, keys, device="cpu"):
     """The rule for bf16 gradients that differ card vs CPU more than
     MODEL_REL_L2 (the two devices round to bf16 in different places, and
     sums of cancelling terms keep that rounding): for each key, "gradient"
     for the whole or a leaf's path, the card's and the CPU's bf16 distance
     from the CPU's f32 gradient ``cpu32``; the card's may be at most
     BF16_FROM_F32 x the CPU's.  Returns ({key: (card, cpu)}, the keys
-    beyond it)."""
-    c, h = compare_grads(card, cpu32), compare_grads(cpu, cpu32)
+    beyond it).  Without "gradient" only the named leaves are compared."""
+    if "gradient" not in keys:
+        card, cpu, cpu32 = ((loss, [(p, t) for p, t in named if p in keys])
+                            for loss, named in (card, cpu, cpu32))
+    c = compare_grads(card, cpu32, device)
+    h = compare_grads(cpu, cpu32, device)
 
     def pick(e, k):
         return e["gradient"] if k == "gradient" else e["leaves"][k][0]
@@ -2529,6 +2600,25 @@ def cpu_server_side(cfg, waves, batch, max_len, threads):
 
 
 # ------------------------------------------------------------- phase 10
+def route_split(np, g_c, g_h, k):
+    """One MoE layer's gates [T, E] on the card (``g_c``) and the CPU
+    (``g_h``): (the tokens whose top-k experts differ, the experts in
+    those differences).  Each such token must sit at a near-tie of the
+    CPU's gates (its k-th and (k+1)-th within NEAR_TIE), else raise."""
+    top_c = np.sort(np.argsort(-g_c, -1, kind="stable")[:, :k], -1)
+    top_h = np.sort(np.argsort(-g_h, -1, kind="stable")[:, :k], -1)
+    differs = (top_c != top_h).any(-1)
+    srt = -np.sort(-g_h, -1)
+    gap = (srt[:, k - 1] - srt[:, k]) / srt[:, k - 1]
+    if (gap[differs] > NEAR_TIE).any():
+        raise AssertionError(f"MoE routing split card vs CPU away from a "
+                             f"near-tie: gaps {gap[differs]}")
+    experts = set()
+    for a, b in zip(top_c[differs], top_h[differs]):
+        experts |= set(a.tolist()) ^ set(b.tolist())
+    return differs, experts
+
+
 class RouteLog:
     """While active, every MoE layer's f32 gates ``[T, E]`` as
     ``models.moe.route`` computes them, in call order (a card forward, then
@@ -2550,7 +2640,7 @@ class RouteLog:
 
         def rec(cfg, p, x):
             out = self.route(cfg, p, x)
-            self.calls.append(out[0].cpu().numpy())
+            self.calls.append(out[0].detach().cpu().numpy())
             return out
         self.moe.route = rec
         return self
@@ -2564,15 +2654,7 @@ class RouteLog:
         half = len(calls) // 2
         keep = np.ones(n_tokens, bool)
         for g_c, g_h in zip(calls[:half], calls[half:]):
-            top_c = np.sort(np.argsort(-g_c, -1, kind="stable")[:, :k], -1)
-            top_h = np.sort(np.argsort(-g_h, -1, kind="stable")[:, :k], -1)
-            differs = (top_c != top_h).any(-1)
-            srt = -np.sort(-g_h, -1)
-            gap = (srt[:, k - 1] - srt[:, k]) / srt[:, k - 1]
-            if (gap[differs] > NEAR_TIE).any():
-                raise AssertionError(f"MoE routing split card vs CPU away "
-                                     f"from a near-tie: gaps "
-                                     f"{gap[differs]}")
+            differs, _ = route_split(np, g_c, g_h, k)
             keep &= ~differs
         self.split += int((~keep).sum())
         self.tokens += n_tokens
@@ -2896,16 +2978,19 @@ def check_phase9(torch, np, dev):
 # BASE_ROUNDS * 4 // 16) rounds with BASE_ROUNDS = 1024) and
 # fig9_xtreme.py's SIZES at 4 x 32 CUs.  Since phase 11 joined the
 # script, to hold its time, Fig. 7's traces are cut from the driver's 2048
-# rounds to 1024 (the CPU side of the 2048-round sweep alone took 105 s)
-# and the Xtreme traces repeat each pass half as often as the driver's
-# (reps 10, 4, 2 there: 6146 rounds, 60-71 s a side)
-FIG7_ROUNDS = 1024
+# rounds to 1024 (the CPU side of the 2048-round sweep alone took 105 s),
+# and to 512 since deepseek-v2 joined phase 11 (1024 rounds: 57.7 s on
+# the CPU side, 26.7 on the card), and the Xtreme traces repeat each pass
+# a fifth, a quarter and half as often as fig9_xtreme.py's (reps 10, 4, 2
+# there: 6146 rounds, 60-71 s a side; half of each, 4610 rounds and 42-43 s
+# a side, before deepseek-v2 joined phase 11)
+FIG7_ROUNDS = 512
 FIG7_GEOM = dict(pcie_lat=1000.0)
 # the CPU side's intra-op threads: the card side is one host thread, and
 # with 4 of the 8 the CPU side set the phase's length (147 s against 125)
 PHASE6_CPU_THREADS = 6
 FIG8_GPUS, FIG8_ROUNDS = 16, max(128, 1024 * 4 // 16)
-XTREME_SIZES = ((24, 5, "192KB"), (96, 2, "768KB"), (384, 1, "3MB"))
+XTREME_SIZES = ((24, 2, "192KB"), (96, 1, "768KB"), (384, 1, "3MB"))
 # the paper's simulated geomean speedups over RDMA-WB-NC (Fig. 7, 4 GPUs)
 FIG7_PAPER = {"RDMA-WB-C-HMG": 1.5, "SM-WB-NC": 3.9, "SM-WT-NC": 4.6,
               "SM-WT-C-HALCONE": 4.6}
@@ -3650,6 +3735,8 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
                                             steady_events)
 
     cfg = configs.get(arch)
+    if arch in PHASE8_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=PHASE8_LAYERS[arch])
     opt = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                             total_steps=steps)
     tcfg = dict(total_steps=steps, ckpt_period=ckpt, keep=2)
@@ -3660,14 +3747,14 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
     rep = {"arch": arch, "steps": steps, "ckpt_period": ckpt,
            "fail_at": fail}
 
-    # the fabric sees only the keys: a CPU trainer on short rows, 2 layers
-    # at full width, or every layer at the smoke widths where the keys
-    # depend on depth (zamba2's looped tail); it runs in a worker process
-    # while the card trains
-    if param_keys(dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)) == \
-            param_keys(cfg):
-        small = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS)
-    else:
+    # the fabric sees only the keys: a CPU trainer on short rows at the
+    # smoke widths, 2 layers, or every layer where the keys depend on
+    # depth (zamba2's looped tail); it runs in a worker process while the
+    # card trains (at full width, 2 layers of smollm and mamba2 took 38.8
+    # and 33.2 s there, longer than the card's run)
+    small = dataclasses.replace(configs.SMOKE[arch],
+                                n_layers=TRAIN_CPU_LAYERS)
+    if param_keys(small) != param_keys(cfg):
         small = dataclasses.replace(configs.SMOKE[arch],
                                     n_layers=cfg.n_layers)
     if param_keys(small) != param_keys(cfg):
@@ -3962,7 +4049,9 @@ def cpu_grads_side(cfg, weights, batch, threads):
     """Phase 11's CPU check, run in a worker process beside the card's
     run: loss and gradients of the weights saved at ``weights`` on
     ``batch`` under each policy, each gradient list saved beside the
-    weights; returns {policy: (loss, path, seconds)}."""
+    weights; returns {policy: (loss, path, seconds, the MoE layers' gates
+    by call, ``RouteLog``'s)}."""
+    import numpy as np
     import torch
 
     from repro_torch.models.training import loss_and_grads
@@ -3971,84 +4060,165 @@ def cpu_grads_side(cfg, weights, batch, threads):
     out = {}
     for name, c in _policies(torch, cfg).items():
         t0 = time.perf_counter()
-        loss, _, g = loss_and_grads(c, params, {
-            k: torch.from_numpy(v) for k, v in batch.items()})
+        with RouteLog(torch, np, c.top_k) as routes:
+            loss, _, g = loss_and_grads(c, params, {
+                k: torch.from_numpy(v) for k, v in batch.items()})
         path = pathlib.Path(weights).with_suffix(f".grads_{name}.pt")
         torch.save([t for _, t in named_leaves(g)], path)
-        out[name] = (float(loss), str(path), time.perf_counter() - t0)
+        del g
+        out[name] = (float(loss), str(path), time.perf_counter() - t0,
+                     routes.calls)
     return out
 
 
-def start_cpu_check(torch, np, dev, pool, arch, cpu_layers, cpu_seq, work):
-    """The card half of phase 11's card-vs-CPU check at ``cpu_layers``
-    layers of ``arch`` at full width: the weights built on the card, a
-    host copy saved for the CPU worker in ``pool``, the card's loss and
-    gradients on one row of ``cpu_seq`` tokens under each policy, every
-    attention layer's backward one ``flash_attention_bwd`` launch on the
-    policy's route (bf16: the tensor cores; f32: the CUDA cores).
-    Returns (card results by policy, the worker's future)."""
+def host_gb_available() -> float:
+    """The host's available memory (``MemAvailable``), GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+def expert_slices(named):
+    """Named gradient leaves with each MoE expert stack (``moe/wg``,
+    ``wi``, ``wo``: [..., E, rows, cols]) split into one entry an
+    expert, ``path[e]``: the unit a routing split touches."""
+    out = []
+    for path, t in named:
+        if path.rsplit("/", 2)[-2:-1] == ["moe"] and \
+                path.endswith(("/wg", "/wi", "/wo")):
+            dim = t.dim() - 3
+            out += [(f"{path}[{e}]", t.select(dim, e))
+                    for e in range(t.shape[dim])]
+        else:
+            out.append((path, t))
+    return out
+
+
+def start_cpu_check(torch, dev, pool, arch, cpu_layers, cpu_seq, work):
+    """The first half of phase 11's card-vs-CPU check at ``cpu_layers``
+    layers of ``arch`` at full width: the weights built on the card from
+    WEIGHT_SEED and a host copy saved for the CPU worker in ``pool``,
+    which starts on them at once.  The host's available memory is checked
+    first: the worker's f32 policy holds f32 copies of the weights and
+    their gradients (8 bytes a parameter; deepseek-v2's 43 GB).  Returns
+    (the config, the token row, the worker's future)."""
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
     from repro_torch.models import init_model
     from repro_torch.models.model import tree_map
-    from repro_torch.models.training import loss_and_grads
 
     deep = dataclasses.replace(configs.get(arch), n_layers=cpu_layers)
     params = init_model(deep, torch.Generator(dev).manual_seed(WEIGHT_SEED))
+    n_params = sum(t.numel() for t in leaves(params))
+    need, have = 8 * n_params / 1e9, host_gb_available()
+    log(f"  {arch} at {cpu_layers} layers: {n_params / 1e9:.3f} B "
+        f"parameters; the host has {have:.1f} GB available, the CPU side "
+        f"needs ~{need:.1f} GB beside what is running")
+    if have < need:
+        raise AssertionError(f"{arch}: the card-vs-CPU check needs ~{need:.1f}"
+                             f" GB of host memory, {have:.1f} available")
     t0 = time.perf_counter()
     path = work / f"{arch}_weights.pt"
     torch.save(tree_map(lambda t: t.cpu(), params), path)
+    del params
     row = {k: v[:1] for k, v in SyntheticLM(deep, DataConfig(
         global_batch=1, seq_len=cpu_seq)).batch(0).items()}
-    future = pool.submit(cpu_grads_side, deep, str(path), row, 4)
+    future = pool.submit(cpu_grads_side, deep, str(path), row,
+                         PHASE11_CPU_THREADS)
+    log(f"  {arch}: the weights to the CPU worker, one row of {cpu_seq} "
+        f"tokens ({time.perf_counter() - t0:.1f} s)")
+    return deep, row, future
+
+
+def card_grads(torch, np, dev, arch, deep, row):
+    """The card half of the check: the same weights built again on the
+    card from WEIGHT_SEED, the card's loss and gradients on ``row`` under
+    each policy, kept on the card, every attention layer's backward one
+    ``flash_attention_bwd`` launch on the policy's route (bf16: the tensor
+    cores; f32: the CUDA cores), and the MoE layers' gates by call.
+    Returns {policy: (loss, named leaves), "routes": {policy: gates}}."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import init_model
+    from repro_torch.models.training import loss_and_grads
+
+    params = init_model(deep, torch.Generator(dev).manual_seed(WEIGHT_SEED))
     routes = flash_attention_bwd.route_launches
-    card = {}
+    card = {"routes": {}}
     for name, c in _policies(torch, deep).items():
         before = dict(routes)
-        loss, _, g = loss_and_grads(c, params, {
-            k: torch.from_numpy(v).to(dev) for k, v in row.items()})
+        with RouteLog(torch, np, c.top_k) as gates:
+            loss, _, g = loss_and_grads(c, params, {
+                k: torch.from_numpy(v).to(dev) for k, v in row.items()})
+        card["routes"][name] = gates.calls
         got = {k: routes[k] - before[k] for k in routes}
         want = "wgmma" if name == "bf16" else "simt"
-        if got[want] != cpu_layers or sum(got.values()) != cpu_layers:
+        if got[want] != deep.n_layers or sum(got.values()) != deep.n_layers:
             raise AssertionError(f"{arch} {name}: flash backward routes "
-                                 f"{got} at {cpu_layers} layers")
-        card[name] = (float(loss), [(p, t.cpu()) for p, t in
-                                    named_leaves(g)])
-        del g
-    log(f"  {arch} at {cpu_layers} layers, full width, one row of {cpu_seq} "
-        f"tokens: the card's loss and gradients under the bf16 and the f32 "
-        f"policy, the weights to the CPU worker "
-        f"({time.perf_counter() - t0:.1f} s)")
-    return card, future
+                                 f"{got} at {deep.n_layers} layers")
+        card[name] = (float(loss), named_leaves(g))
+    return card
 
 
-def finish_cpu_check(torch, arch, card, future, cpu_layers, cpu_seq):
-    """The CPU worker's losses and gradients against the card's: under
+def finish_cpu_check(torch, np, dev, arch, deep, row, future):
+    """The card's losses and gradients (``card_grads``, on the card, free
+    of training by then) against the CPU worker's: under
     each policy the loss and the whole gradient within MODEL_REL_L2, and
     every leaf of at least PER_LEAF_MIN values; a bf16 leaf beyond it is
-    held to ``held_by_f32``'s rule, as phase 8 holds zamba2's gradient."""
+    held to ``held_by_f32``'s rule, as phase 8 holds zamba2's gradient.
+    A MoE model's expert stacks are held one expert at a time
+    (``expert_slices``); the experts of a token whose routing split card
+    vs CPU at a near-tie (``route_split``, at most one token in eight)
+    are logged and left out of the per-leaf check.  The sums run on the
+    card ``dev``."""
+    card = card_grads(torch, np, dev, arch, deep, row)
     t0 = time.perf_counter()
     paths = [p for p, _ in card["bf16"][1]]
-    cpu = {n: ((loss, list(zip(paths, torch.load(path, mmap=True)))), secs)
-           for n, (loss, path, secs) in future.result().items()}
+    result = future.result()
+    cpu = {n: ((loss, expert_slices(zip(paths, torch.load(
+        path, mmap=True)))), secs)
+        for n, (loss, path, secs, _) in result.items()}
     waited = time.perf_counter() - t0
+    k = deep.top_k
     errs = {}
     for name, (host, secs) in cpu.items():
-        e = compare_grads(card[name], host)
+        left_out, split, tokens = set(), 0, 0
+        for g_c, g_h in zip(card["routes"][name], result[name][3]):
+            differs, experts = route_split(np, g_c, g_h, k)
+            left_out |= experts
+            split, tokens = split + int(differs.sum()), tokens + len(differs)
+        if split * 8 > tokens:
+            raise AssertionError(f"{arch} {name}: MoE routing split card vs "
+                                 f"CPU on {split} of {tokens} tokens")
+        card[name] = (card[name][0], expert_slices(card[name][1]))
+        e = compare_grads(card[name], host, dev)
+        skip = {p for p in e["leaves"]
+                if p.endswith(tuple(f"[{x}]" for x in left_out))}
         errs[name] = {"loss": e["loss"], "gradient": e["gradient"],
-                      "worst_leaf": e["worst_leaf"], "cpu_s": secs,
-                      "leaves_held_by_f32": {}}
+                      "worst_leaf": max(
+                          x for p, (x, n) in e["leaves"].items()
+                          if n >= PER_LEAF_MIN and p not in skip),
+                      "cpu_s": secs, "leaves_held_by_f32": {},
+                      "routing_split": {"tokens": split, "of": tokens,
+                                        "experts_left_out":
+                                            sorted(left_out)}}
+        if left_out:
+            log(f"    {name} policy: {split} of {tokens} token routings "
+                f"split card vs CPU at a near-tie; experts "
+                f"{sorted(left_out)} left out of the per-leaf check ("
+                + ", ".join(f"{p} {e['leaves'][p][0]:.4f}"
+                            for p in sorted(skip)[:6]) + ")")
         beyond = [p for p, (x, n) in e["leaves"].items()
-                  if n >= PER_LEAF_MIN and x > MODEL_REL_L2]
+                  if n >= PER_LEAF_MIN and x > MODEL_REL_L2 and p not in skip]
         if name == "bf16" and beyond:
             held, beyond = held_by_f32(card["bf16"], host, cpu["f32"][0],
-                                       beyond)
+                                       beyond, dev)
             errs[name]["leaves_held_by_f32"] = held
         errs[name]["beyond"] = beyond
-    log(f"  {arch}: card vs cpu at {cpu_layers} layers ({waited:.1f} s "
+    log(f"  {arch}: card vs cpu at {deep.n_layers} layers ({waited:.1f} s "
         "waited for the worker): " + "; ".join(
             f"{n} policy loss {e['loss']:.2e}, gradient {e['gradient']:.2e}, "
             f"worst leaf {e['worst_leaf']:.2e} (cpu {e['cpu_s']:.1f} s)"
@@ -4062,16 +4232,23 @@ def finish_cpu_check(torch, arch, card, future, cpu_layers, cpu_seq):
     if bad:
         raise AssertionError(f"{arch}: card vs cpu beyond {MODEL_REL_L2}: "
                              f"{bad}")
-    return dict(errs, layers=cpu_layers, tokens=cpu_seq)
+    return dict(errs, layers=deep.n_layers,
+                tokens=next(iter(row.values())).shape[1])
 
 
 def check_wide_training(torch, np, dev, arch, layers, B, S, work):
     """``arch`` at full width and ``layers`` deep trained on the card for
     WIDE_TRAIN_STEPS steps of ``B`` x ``S`` through its ``Trainer``'s step:
-    losses finite, each below the step's before and below the untrained
-    model's loss on the same batch, every flash backward of the run on the
-    tensor-core route from a forward's row statistics (launch counts set
-    to 0 just before the run and read just after); then a step's wall,
+    losses finite, each below the step's before (for the rows of
+    WIDE_TRAIN_FALL_BY_GAP: the last below the first, and the fall
+    against the untrained model larger in the last half of the steps than
+    in the first) and below the untrained model's loss on the same batch, the first REPEAT_STEPS equal bit for
+    bit to a run of those steps from the same seeded state before it (the
+    step updates its state in place), a MoE model's aux > 0 at every
+    step, every flash backward of the run on the tensor-core route from a
+    forward's row statistics (launch counts set to 0 just before the run
+    and read just after; at deepseek-v2's MLA pair the profiled step's
+    flash kernels must be the (192, 128) ones); then a step's wall,
     host-enqueue and device ms, idle share, the backward kernels' share of
     device time and the run's peak memory."""
     import dataclasses
@@ -4091,12 +4268,25 @@ def check_wide_training(torch, np, dev, arch, layers, B, S, work):
     # step needs large contiguous ones
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"  {arch}: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        "on the card before its trainer")
     tr = Trainer(cfg, adamw.AdamWConfig(
         lr=WIDE_TRAIN_LR, warmup_steps=TRAIN_WARMUP,
         total_steps=WIDE_TRAIN_STEPS), TrainerConfig(
         total_steps=WIDE_TRAIN_STEPS, ckpt_dir=str(work / "ckpt")),
         data=SyntheticLM(cfg, DataConfig(global_batch=B, seq_len=S)),
         device=dev)
+    # the first steps from the seeded state, to repeat: the step writes
+    # the new state into the one it is given, so the run starts anew
+    batch = tr.data.batch
+    state = tr.init_state(WEIGHT_SEED)
+    first = []
+    for step in range(REPEAT_STEPS):
+        state, m = tr.step_fn(state, batch(step))
+        first.append(float(m["loss"]))
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
     state = tr.init_state(WEIGHT_SEED)
     n_params = sum(t.numel() for t in leaves(state.params))
     # the untrained model's loss on each batch of the run: the yardstick
@@ -4104,7 +4294,7 @@ def check_wide_training(torch, np, dev, arch, layers, B, S, work):
     with torch.no_grad():
         untrained = [float(loss_fn(cfg, state.params, {
             k: torch.from_numpy(v).to(dev)
-            for k, v in tr.data.batch(step).items()})[0])
+            for k, v in batch(step).items()})[0])
             for step in range(WIDE_TRAIN_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4112,10 +4302,11 @@ def check_wide_training(torch, np, dev, arch, layers, B, S, work):
     routes.update(dict.fromkeys(routes, 0))
     flash_attention.stats_writes = 0
     t0 = time.perf_counter()
-    losses = []
+    losses, auxes = [], []
     for step in range(WIDE_TRAIN_STEPS):
-        state, m = tr.step_fn(state, tr.data.batch(step))
+        state, m = tr.step_fn(state, batch(step))
         losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
     torch.cuda.synchronize()
     rep["run_s"] = time.perf_counter() - t0
     launches, fwd_routes = read_counts()
@@ -4123,19 +4314,34 @@ def check_wide_training(torch, np, dev, arch, layers, B, S, work):
     writes = flash_attention.stats_writes
     rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  card: {arch} at {layers} layers, {n_params / 1e9:.3f} B "
-        f"parameters, {WIDE_TRAIN_STEPS} steps of {B} x {S} in "
-        f"{rep['run_s']:.1f} s at lr {WIDE_TRAIN_LR}; losses "
+        f"parameters, {WIDE_TRAIN_STEPS} steps of {B} x {S}"
+        f" in {rep['run_s']:.1f} s at lr {WIDE_TRAIN_LR}; losses "
         f"{[round(x, 4) for x in losses]} (the untrained model's on the "
-        f"same batches {[round(x, 4) for x in untrained]}); "
+        f"same batches {[round(x, 4) for x in untrained]}; the first "
+        f"{REPEAT_STEPS} steps' run before: {first}); aux "
+        f"{[round(x, 4) for x in auxes]}; "
         f"launches {launches}; flash routes {fwd_routes}, backward {bwd}, "
         f"forwards that wrote row statistics {writes}; peak memory "
         f"{rep['peak_memory_gb']:.2f} GB")
-    if not np.all(np.isfinite(losses)) or \
-            any(b >= a for a, b in zip(losses, losses[1:])) or \
+    half = WIDE_TRAIN_STEPS // 2
+    gap = [u - t for t, u in zip(losses, untrained)]
+    falls = (losses[-1] < losses[0]
+             and sum(gap[-half:]) > sum(gap[:half])) \
+        if arch in WIDE_TRAIN_FALL_BY_GAP \
+        else all(b < a for a, b in zip(losses, losses[1:]))
+    if not np.all(np.isfinite(losses)) or not falls or \
             any(t >= u for t, u in zip(losses[1:], untrained[1:])):
-        raise AssertionError(f"{arch}: losses not finite, or not falling at "
-                             f"every step, or not below the untrained "
-                             f"model's {untrained}: {losses}")
+        raise AssertionError(f"{arch}: losses not finite, or not falling "
+                             f"(at every step, or for {WIDE_TRAIN_FALL_BY_GAP}"
+                             f" by the gap to the untrained model), or not "
+                             f"below the untrained model's {untrained}: "
+                             f"{losses}")
+    if losses[:REPEAT_STEPS] != first:
+        raise AssertionError(f"{arch}: the first {REPEAT_STEPS} steps from "
+                             f"the same state gave {first}, then "
+                             f"{losses[:REPEAT_STEPS]}")
+    if cfg.n_experts and not all(a > 0 for a in auxes):
+        raise AssertionError(f"{arch}: MoE aux loss {auxes}")
     need = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
             "flash_attention_bwd")
     if any(launches[n] < 1 for n in need) or launches["decode_attention"]:
@@ -4149,6 +4355,7 @@ def check_wide_training(torch, np, dev, arch, layers, B, S, work):
                              f"routes {fwd_routes}, {writes} forwards with "
                              "statistics")
     rep.update(losses=losses, untrained_losses=untrained, lr=WIDE_TRAIN_LR,
+               repeated_losses=first, aux=auxes,
                launches=launches, n_params=n_params,
                flash_routes=fwd_routes, flash_bwd_routes=bwd,
                stats_writes=writes)
@@ -4183,16 +4390,29 @@ def check_wide_training(torch, np, dev, arch, layers, B, S, work):
         f"flash_attention_bwd {st['flash_attention_bwd_share']:.3f}; "
         + ", ".join(f"{k} {ported[k]['us'] / 2e3:.2f} ms "
                     f"({ported[k]['count'] // 2})" for k in need)
-        + " a step (a CPU worker of 4 threads beside)")
+        + " a step (a CPU worker of 4 threads beside); the device's top "
+        "kernels a step: " + "; ".join(
+            f"{d['name'][:60]} {d['us'] / 2e3:.2f} ms"
+            for d in prof["device_by_name"][:4]))
+    if cfg.is_mla:
+        syms = ported["flash_attention"]["symbols"] \
+            + ported["flash_attention_bwd"]["symbols"]
+        if not ported["flash_attention_bwd"]["symbols"] or any(
+                "<192, 128" not in n for n in syms):
+            raise AssertionError(f"{arch}: a step's flash kernels were not "
+                                 f"the tensor-core ones at (192, 128): "
+                                 f"{syms}")
     del tr, state
     return launches, rep
 
 
 def check_phase11(torch, np, dev):
-    """hubert-xlarge and gemma3-4b trained at full width (gemma3 at a cut
-    depth), one after the other, each freed before the next.  Both
-    card-vs-CPU checks start first: the card's side, then the CPU's in one
-    worker process that runs while the card trains."""
+    """hubert-xlarge, gemma3-4b and deepseek-v2 trained at full width
+    (gemma3 and deepseek at a cut depth), one after the other, each freed
+    before the next.  The card-vs-CPU checks start first: each model's
+    weights go to one CPU worker process, which runs while the card
+    trains; each check ends, after all the training, with the card's
+    gradients (``finish_cpu_check``)."""
     import shutil
     work = ROOT / "build" / "phase11"
     shutil.rmtree(work, ignore_errors=True)
@@ -4201,17 +4421,25 @@ def check_phase11(torch, np, dev):
     with concurrent.futures.ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn")) as pool:
         for arch, _, _, _, cpu_layers, cpu_seq in WIDE_TRAIN:
-            checks[arch] = start_cpu_check(torch, np, dev, pool, arch,
+            checks[arch] = start_cpu_check(torch, dev, pool, arch,
                                            cpu_layers, cpu_seq, work)
+        gc.collect()
+        torch.cuda.empty_cache()
         for arch, layers, B, S, *_ in WIDE_TRAIN:
             t0 = time.perf_counter()
             counts[arch], reps[arch] = check_wide_training(
                 torch, np, dev, arch, layers, B, S, work)
             torch.cuda.empty_cache()
             log(f"  ({time.perf_counter() - t0:.0f} s for {arch})")
-        for arch, _, _, _, cpu_layers, cpu_seq in WIDE_TRAIN:
+        for arch, *_ in WIDE_TRAIN:
+            t0 = time.perf_counter()
             reps[arch]["card_vs_cpu"] = finish_cpu_check(
-                torch, arch, *checks.pop(arch), cpu_layers, cpu_seq)
+                torch, np, dev, arch, *checks.pop(arch))
+            for f in work.glob(f"{arch}_weights*"):
+                f.unlink()
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"  ({time.perf_counter() - t0:.0f} s for {arch}'s check)")
     shutil.rmtree(work, ignore_errors=True)
     return counts, reps
 
@@ -4393,9 +4621,11 @@ def main() -> None:
         launches[name] = trained[name]
     report["ssm_training"] = {}
     for arch, steps, ckpt, fail, layers in SSM_TRAIN:
-        log(f"phase 8: training {arch} at full width ({steps} steps, "
-            f"checkpoint every {ckpt}, failure at {fail}, resume) "
-            f"{elapsed()}")
+        log(f"phase 8: training {arch} at full width "
+            + (f"({PHASE8_LAYERS[arch]} layers) " if arch in PHASE8_LAYERS
+               else "")
+            + f"({steps} steps, checkpoint every {ckpt}, failure at {fail}, "
+            f"resume) {elapsed()}")
         trained, report["ssm_training"][arch] = check_training(
             torch, np, dev, arch, steps, ckpt, fail, layers, extras=False)
         launches["ssd_chunk_bwd"] = launches.get("ssd_chunk_bwd", 0) \
@@ -4413,7 +4643,7 @@ def main() -> None:
         f"{elapsed()}")
     p10_counts, report["phase10"] = check_phase10(torch, np, dev)
 
-    # ---- 11. training at head dims 80 and 256
+    # ---- 11. training at head dims 80 and 256 and MLA's (192, 128)
     log("phase 11: training " + ", ".join(
         f"{a} ({n} layers, {b} x {s})" for a, n, b, s, *_ in WIDE_TRAIN)
         + f" at full width, {WIDE_TRAIN_STEPS} steps {elapsed()}")
@@ -4435,7 +4665,7 @@ def main() -> None:
                   "ssd_chunk": [SERVE_B, 2, 256, 24, 64, 128],
                   "rmsnorm_bwd": [TRAIN_B * TRAIN_S, 960],
                   "flash_attention_bwd": [TRAIN_B, TRAIN_S, TRAIN_S, 15, 5,
-                                          64, 1, 0],
+                                          64, 64, 1, 0],
                   "ssd_chunk_bwd": [TRAIN_B, 2, 256, 24, 64, 128]}
     line = []
     for name, source, replaces in KERNELS:
@@ -4500,10 +4730,11 @@ def main() -> None:
                      "library_ms": row.get("library_ms")})
     # the backward at phase 11's head dims, each at its model's training
     # shape, its launches from phase 11's run of that model
-    for (name, arch), (B, S, Hq, Hkv, D, causal, window) in zip(
+    for (name, arch), (B, S, Hq, Hkv, D, Dv, causal, window) in zip(
             (("flash_attention_bwd_d80", AUDIO_ARCH),
-             ("flash_attention_bwd_d256", WINDOW_ARCH)), PHASE11_FLASH_BWD):
-        shape = [B, S, S, Hq, Hkv, D, int(causal), window]
+             ("flash_attention_bwd_d256", WINDOW_ARCH),
+             ("flash_attention_bwd_d192_v128", MLA_ARCH)), PHASE11_FLASH_BWD):
+        shape = [B, S, S, Hq, Hkv, D, Dv, int(causal), window]
         rows = [r for r in kreport["flash_attention_bwd"]
                 if r["shape"][5] == D]
         row = next(r for r in rows if r["shape"] == shape

@@ -15,7 +15,14 @@ memory through pinned buffers, allocated at the first save and refilled
 by every later one (the copies are enqueued on the stream, not waited
 for: a copy from the card into pageable memory would stall the training
 loop), and a background thread waits for them and writes the files.  ``restore`` puts each leaf on ``device``, or on its template
-leaf's device.
+leaf's device.  numpy has no bfloat16: a bfloat16 leaf (the bf16-param
+and bf16-moment policies of deepseek-v2 and llama4-maverick) is written
+as its bits, an int16 array, with ``bfloat16`` as its dtype in
+``meta.json``, and restored by viewing the bits, so it comes back bit
+for bit; a template leaf whose dtype is bfloat16 where the checkpoint's
+is not, or the other way round, raises.  (The reference writes such a
+leaf as raw 2-byte records, which it cannot restore itself; the port
+views those bits the same way.)
 """
 from __future__ import annotations
 
@@ -47,22 +54,30 @@ def _flatten(tree, prefix=""):
 
 
 def _unflatten_into(template, flat: Dict[str, np.ndarray], device,
-                    prefix=""):
+                    dtypes: Dict[str, str], prefix=""):
     if isinstance(template, dict):
-        return {k: _unflatten_into(template[k], flat, device, f"{prefix}/{k}")
+        return {k: _unflatten_into(template[k], flat, device, dtypes,
+                                   f"{prefix}/{k}")
                 for k in sorted(template)}
     if hasattr(template, "_fields"):
         return type(template)(*[
-            _unflatten_into(getattr(template, k), flat, device,
+            _unflatten_into(getattr(template, k), flat, device, dtypes,
                             f"{prefix}/{k}")
             for k in template._fields])
     if isinstance(template, (list, tuple)):
         return type(template)(
-            _unflatten_into(v, flat, device, f"{prefix}/{i}")
+            _unflatten_into(v, flat, device, dtypes, f"{prefix}/{i}")
             for i, v in enumerate(template))
     arr = flat[prefix]
     if isinstance(template, torch.Tensor):
         dev = template.device if device is None else torch.device(device)
+        bf16 = dtypes[prefix] == "bfloat16"
+        if bf16 != (template.dtype == torch.bfloat16):
+            raise TypeError(f"{prefix}: the checkpoint's leaf is "
+                            f"{dtypes[prefix]}, the template's "
+                            f"{template.dtype}")
+        if bf16:
+            return to_device(arr.view(np.int16), dev).view(torch.bfloat16)
         return to_device(arr, dev)
     return arr
 
@@ -72,8 +87,8 @@ def _snapshot(state, bufs: Dict[str, torch.Tensor]):
     the pinned buffers of ``bufs`` (by path; allocated on a path's first
     save or when its shape or dtype changes) with ``non_blocking=True``
     (one event marks the copies' end), CPU tensors cloned, anything else
-    as a numpy array.  Returns ({path: host tensor or array}, event or
-    None)."""
+    as a numpy array; a bfloat16 leaf as its bits (int16).  Returns
+    ({path: host tensor or array}, event or None)."""
     flat, card = {}, None
     for path, leaf in _flatten(state):
         if not isinstance(leaf, torch.Tensor):
@@ -81,9 +96,7 @@ def _snapshot(state, bufs: Dict[str, torch.Tensor]):
             continue
         leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
-            raise TypeError(f"{path}: bfloat16 leaves have no numpy dtype "
-                            "for state.npz (the ported configs keep f32 "
-                            "weights and moments)")
+            leaf = leaf.view(torch.int16)
         if leaf.device.type == "cuda":
             buf = bufs.get(path)
             if buf is None or buf.shape != leaf.shape or \
@@ -121,6 +134,9 @@ class CheckpointManager:
         write is waited for first: its thread reads the pinned buffers
         this snapshot refills, one set kept for the manager's life."""
         self.wait()
+        bf16 = {p for p, leaf in _flatten(state)
+                if isinstance(leaf, torch.Tensor)
+                and leaf.dtype == torch.bfloat16}
         flat, event = _snapshot(state, self._pinned)
 
         def _write():
@@ -130,7 +146,8 @@ class CheckpointManager:
                       for p, v in flat.items()}
             meta = {"step": int(step), "time": time.time(),
                     "extra": extra or {},
-                    "leaves": {p: [list(v.shape), str(v.dtype)]
+                    "leaves": {p: [list(v.shape), "bfloat16" if p in bf16
+                                   else str(v.dtype)]
                                for p, v in arrays.items()}}
             tmp = self.dir / f"step_{step:08d}.tmp"
             final = self.dir / f"step_{step:08d}"
@@ -183,7 +200,9 @@ class CheckpointManager:
         """Rebuild ``template``-structured state from checkpoint ``step``
         (None: the latest).  A tensor leaf comes back on ``device``, or on
         its template leaf's device when ``device`` is None, through
-        pinned memory; any other leaf as a numpy array."""
+        pinned memory; any other leaf as a numpy array.  A tensor leaf
+        that ``meta.json`` records as bfloat16 needs a bfloat16 template
+        leaf, and the other way round."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -192,4 +211,6 @@ class CheckpointManager:
         path = self.dir / f"step_{step:08d}"
         with np.load(path / "state.npz") as data:
             flat = {k.replace("|", "/"): data[k] for k in data.files}
-        return _unflatten_into(template, flat, device)
+        meta = json.loads((path / "meta.json").read_text())
+        dtypes = {p: d for p, (_, d) in meta["leaves"].items()}
+        return _unflatten_into(template, flat, device, dtypes)

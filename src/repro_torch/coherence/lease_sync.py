@@ -91,7 +91,8 @@ def make_lease_window_step(cfg, opt: adamw.AdamWConfig, lease: LeaseConfig,
 
     ``window_step(state, batches)``: ``batches`` leaves ``[W, B_rank,
     S]`` (this rank's rows); returns (state, mean loss of the window as a
-    host float)."""
+    host float).  The local steps update ``state``'s tensors in place
+    (``adamw.apply_updates``)."""
     W = lease.wr_lease
     grp = dist.group.WORLD if group is None else group
 
@@ -172,8 +173,10 @@ class VmappedWorkers:
 
     @staticmethod
     def _sync(state: adamw.TrainState) -> adamw.TrainState:
-        avg = lambda x: x.to(torch.float32).mean(0, keepdim=True).expand(
-            x.shape).to(x.dtype)
+        # each worker's row a tensor of its own: the next local step
+        # updates the rows in place, so they must not be one broadcast
+        avg = lambda x: x.to(torch.float32).mean(0, keepdim=True).to(
+            x.dtype).expand(x.shape).contiguous()
         return adamw.TrainState(adamw.tree_map(avg, state.params),
                                 adamw.tree_map(avg, state.m),
                                 adamw.tree_map(avg, state.v), state.step)

@@ -5,14 +5,15 @@
 // repro/kernels/flash_attention.py::_flash_kernel (pallas_call at
 // flash_attention.py:79).  The reference trains through jnp attention
 // that XLA differentiates and has no backward Pallas kernel.  Same
-// contract as the forward: q [B, Sq, Hq, D], k and v [B, Sk, Hkv, D],
-// query head h on kv head h / (Hq / Hkv), causal and / or windowed
-// masks that ADD NEG_INF = -1e30 to a score (so a row whose every key is
-// masked weighs its keys evenly, as the forward and the plain version
-// do), scale D^-0.5 on the f32 products.  Here every tensor is
-// contiguous; o is the forward's output and do its gradient, both in
-// q's dtype.  Outputs dq, dk, dv in q's dtype, computed in f32 and
-// rounded once.
+// contract as the forward: q [B, Sq, Hq, D], k [B, Sk, Hkv, D] and v
+// [B, Sk, Hkv, Dv] with Dv = D, or MLA's (D, Dv) = (192, 128) (o, do and
+// dv are v's width), query head h on kv head h / (Hq / Hkv), causal
+// and / or windowed masks that ADD NEG_INF = -1e30 to a score (so a
+// row whose every key is masked weighs its keys evenly, as the forward
+// and the plain version do), scale D^-0.5 on the f32 products.  Here
+// every tensor is contiguous; o is the forward's output and do its
+// gradient, both in q's dtype.  Outputs dq, dk, dv in q's dtype,
+// computed in f32 and rounded once.
 //
 // Bound: a causal call has 2.5x the forward's products (S = QK^T and dP =
 // dO V^T once each, and dV = P^T dO, dK = dS^T Q, dQ = dS K): 10 D flops
@@ -48,7 +49,9 @@
 // D = 256 (gemma3-4b) tiles are 32 rows, not 64: four f32 tiles of 64
 // rows would take 257 KB of shared memory (dK/dV's pass takes 140 KB at
 // 32); each thread then holds a 2 x 2 part of a score tile instead of
-// 4 x 4, and 8 threads, not 4, share a row's Di.
+// 4 x 4, and 8 threads, not 4, share a row's Di.  At MLA's (192, 128)
+// (deepseek-v2's f32 policy) the tiles are 32 rows too; Q and K are 192
+// columns, V, dO and O 128: S runs over 192 dims, dP and Di over 128.
 // Loops over tiles and over D stay rolled where unrolling would only
 // grow the build.
 #include "float_io.cuh"
@@ -57,8 +60,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Query rows and keys of a tile: 64, and 32 at D = 256, where four f32
-// tiles of 64 rows (257 KB with their padding) would not fit shared memory.
+// Query rows and keys of a tile: 64, and 32 at D = 256 (and at MLA's
+// 192), where four f32 tiles of 64 rows (257 KB with their padding) would
+// not fit shared memory.
 // Each thread of the 16 x 16 grid computes an R x R part of a score tile,
 // R = T / 16.
 template <int D>
@@ -74,14 +78,15 @@ __device__ __forceinline__ int64_t at(int b, int s, int h, int S, int H,
   return ((static_cast<int64_t>(b) * S + s) * H + h) * D;
 }
 
-// rows [r0, r0 + T) of head h of a [B, S, H, D] tensor into a T x (D + 1)
-// f32 tile; rows at or past S read as 0.
-template <typename T, int D>
+// rows [r0, r0 + TR) of head h of a [B, S, H, D] tensor into a TR x
+// (D + 1) f32 tile; rows at or past S read as 0.  TR: the kernel's tile
+// rows (at MLA's pair those of q's width, also for v's 128 columns).
+template <typename T, int D, int TR = Tile<D>::T>
 __device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ g,
                                           int b, int r0, int h, int S,
                                           int H) {
   constexpr int LD = D + 1;
-  for (int e = threadIdx.x; e < Tile<D>::T * D; e += kThreads) {
+  for (int e = threadIdx.x; e < TR * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int s = r0 + r;
     tile[r * LD + c] =
@@ -90,12 +95,13 @@ __device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ g,
 }
 
 // The R x R part of S = A B^T (and of dP = A2 B2^T when TWO) this thread
-// computes: rows ti + 16 r of A, columns tj + 16 c of B.
-template <int D, bool TWO, int R = Tile<D>::R>
+// computes: rows ti + 16 r of A, columns tj + 16 c of B; A and B are D
+// wide, A2 and B2 DP (v's width).
+template <int D, bool TWO, int DP = D, int R = Tile<D>::R>
 __device__ __forceinline__ void tile_products(
     const float* A, const float* Bt, const float* A2, const float* B2,
     int ti, int tj, float (&s)[R][R], float (&p)[R][R]) {
-  constexpr int LD = D + 1;
+  constexpr int LD = D + 1, LDP = DP + 1;
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -111,11 +117,11 @@ __device__ __forceinline__ void tile_products(
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int c = 0; c < R; ++c) s[r][c] += a[r] * bb[c];
-    if (TWO) {
+    if (TWO && d < DP) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = A2[(ti + 16 * r) * LD + d];
+      for (int r = 0; r < R; ++r) a[r] = A2[(ti + 16 * r) * LDP + d];
 #pragma unroll
-      for (int c = 0; c < R; ++c) bb[c] = B2[(tj + 16 * c) * LD + d];
+      for (int c = 0; c < R; ++c) bb[c] = B2[(tj + 16 * c) * LDP + d];
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -136,7 +142,7 @@ __device__ __forceinline__ float score(float dot, int qi, int kj, int Sk,
 }
 
 // ---------------------------------------------------------------- pass 1
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads) flash_bwd_rows(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ o, const T* __restrict__ dout,
@@ -152,15 +158,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_rows(
   const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
   load_tile<T, D>(Qs, q, b, q0, h, Sq, Hq);
 
-  // Di = dO . O: kThreads / TQ neighbouring threads a row (4 or 8), every
-  // such column each
+  // Di = dO . O over v's DV columns: kThreads / TQ neighbouring threads
+  // a row (4 or 8), every such column each
   {
     constexpr int kPer = kThreads / TQ;
     const int r = tid / kPer, part = tid % kPer, i = q0 + r;
     float acc = 0.f;
     if (i < Sq) {
-      const int64_t base = at(b, i, h, Sq, Hq, D);
-      for (int d = part; d < D; d += kPer)
+      const int64_t base = at(b, i, h, Sq, Hq, DV);
+      for (int d = part; d < DV; d += kPer)
         acc += halcone::to_f32(dout[base + d]) * halcone::to_f32(o[base + d]);
     }
 #pragma unroll
@@ -257,7 +263,7 @@ __device__ __forceinline__ void load_stats(
 }
 
 // ---------------------------------------------------------------- pass 2
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
@@ -265,14 +271,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
     const float* __restrict__ row_d, T* __restrict__ dk,
     T* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, float scale,
     int causal, int window) {
-  constexpr int LD = D + 1, DC = D / 16;
+  constexpr int LD = D + 1, DC = D / 16, LDV = DV + 1, DCV = DV / 16;
   constexpr int TQ = Tile<D>::T, R = Tile<D>::R, LP = Tile<D>::LP;
   extern __shared__ float smem[];
   float* Ks = smem;
   float* Vs = Ks + TQ * LD;
-  float* Qs = Vs + TQ * LD;
+  float* Qs = Vs + TQ * LDV;
   float* dOs = Qs + TQ * LD;
-  float* Ps = dOs + TQ * LD;
+  float* Ps = dOs + TQ * LDV;
   float* dSs = Ps + TQ * LP;
   float* mS = dSs + TQ * LP;
   float* ilS = mS + TQ;
@@ -281,15 +287,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
   const int qpk = Hq / Hkv;
   const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
   load_tile<T, D>(Ks, k, b, k0, hk, Sk, Hkv);
-  load_tile<T, D>(Vs, v, b, k0, hk, Sk, Hkv);
+  load_tile<T, DV, TQ>(Vs, v, b, k0, hk, Sk, Hkv);
 
   // this thread's dK / dV part: keys tk + 16 r, dims td + 16 c
   const int tk = tid / 16, td = tid % 16;
-  float adk[R][DC], adv[R][DC];
+  float adk[R][DC], adv[R][DCV];
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) adk[r][c] = adv[r][c] = 0.f;
+    for (int c = 0; c < DC; ++c) adk[r][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DCV; ++c) adv[r][c] = 0.f;
+  }
 
   // query rows before k0 see none of this block's keys under the causal
   // mask (a row with no visible key at all lies at or past Sk > k0)
@@ -298,17 +307,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
     for (int q0 = i_begin; q0 < Sq; q0 += TQ) {
       __syncthreads();                      // the last tiles are consumed
       load_tile<T, D>(Qs, q, b, q0, h, Sq, Hq);
-      load_tile<T, D>(dOs, dout, b, q0, h, Sq, Hq);
+      load_tile<T, DV, TQ>(dOs, dout, b, q0, h, Sq, Hq);
       load_stats(mS, ilS, dS_, row_m, row_il, row_d, b, h, q0, TQ, Sq, Hq);
       __syncthreads();
       float s[R][R], dp[R][R];
-      tile_products<D, true>(Qs, Ks, dOs, Vs, ti, tj, s, dp);
+      tile_products<D, true, DV>(Qs, Ks, dOs, Vs, ti, tj, s, dp);
       write_p_ds<R, LP>(s, dp, mS, ilS, dS_, Ps, dSs, q0, k0, ti, tj, Sk,
                         scale, causal, window);
       __syncthreads();
 #pragma unroll 2
       for (int i = 0; i < TQ; ++i) {
-        float pv[R], dsv[R], ov[DC], qv[DC];
+        float pv[R], dsv[R], ov[DCV], qv[DC];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           pv[r] = Ps[i * LP + tk + 16 * r];
@@ -316,14 +325,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
         }
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          ov[c] = dOs[i * LD + td + 16 * c];
+          if (c < DCV) ov[c] = dOs[i * LDV + td + 16 * c];
           qv[c] = Qs[i * LD + td + 16 * c];
         }
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
-            adv[r][c] += pv[r] * ov[c];
+            if (c < DCV) adv[r][c] += pv[r] * ov[c];
             adk[r][c] += dsv[r] * qv[c];
           }
       }
@@ -334,30 +343,32 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv(
     const int kj = k0 + tk + 16 * r;
     if (kj >= Sk) continue;
     const int64_t base = at(b, kj, hk, Sk, Hkv, D);
+    const int64_t vbase = at(b, kj, hk, Sk, Hkv, DV);
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       dk[base + td + 16 * c] = halcone::from_f32<T>(adk[r][c] * scale);
-      dv[base + td + 16 * c] = halcone::from_f32<T>(adv[r][c]);
+      if (c < DCV)
+        dv[vbase + td + 16 * c] = halcone::from_f32<T>(adv[r][c]);
     }
   }
 }
 
 // ---------------------------------------------------------------- pass 3
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ row_m, const float* __restrict__ row_il,
     const float* __restrict__ row_d, T* __restrict__ dq, int Sq, int Sk,
     int Hq, int Hkv, float scale, int causal, int window) {
-  constexpr int LD = D + 1, DC = D / 16;
+  constexpr int LD = D + 1, DC = D / 16, LDV = DV + 1;
   constexpr int TQ = Tile<D>::T, R = Tile<D>::R, LP = Tile<D>::LP;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* dOs = Qs + TQ * LD;
-  float* Ks = dOs + TQ * LD;
+  float* Ks = dOs + TQ * LDV;
   float* Vs = Ks + TQ * LD;
-  float* dSs = Vs + TQ * LD;
+  float* dSs = Vs + TQ * LDV;
   float* mS = dSs + TQ * LP;
   float* ilS = mS + TQ;
   float* dS_ = ilS + TQ;
@@ -365,7 +376,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, ti = tid / 16, tj = tid % 16;
   load_tile<T, D>(Qs, q, b, q0, h, Sq, Hq);
-  load_tile<T, D>(dOs, dout, b, q0, h, Sq, Hq);
+  load_tile<T, DV, TQ>(dOs, dout, b, q0, h, Sq, Hq);
   load_stats(mS, ilS, dS_, row_m, row_il, row_d, b, h, q0, TQ, Sq, Hq);
 
   // this thread's dQ part: rows tq + 16 r, dims td + 16 c
@@ -380,10 +391,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(
   for (int k0 = 0; k0 < kv_end; k0 += TQ) {
     __syncthreads();                        // the last tiles are consumed
     load_tile<T, D>(Ks, k, b, k0, hk, Sk, Hkv);
-    load_tile<T, D>(Vs, v, b, k0, hk, Sk, Hkv);
+    load_tile<T, DV, TQ>(Vs, v, b, k0, hk, Sk, Hkv);
     __syncthreads();
     float s[R][R], dp[R][R];
-    tile_products<D, true>(Qs, Ks, dOs, Vs, ti, tj, s, dp);
+    tile_products<D, true, DV>(Qs, Ks, dOs, Vs, ti, tj, s, dp);
     write_p_ds<R, LP>(s, dp, mS, ilS, dS_, nullptr, dSs, q0, k0, ti, tj, Sk,
                       scale, causal, window);
     __syncthreads();
@@ -429,9 +440,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 int launch(const Args& a) {
-  constexpr int LD = D + 1, TQ = Tile<D>::T, LP = Tile<D>::LP;
+  constexpr int LD = D + 1, LDV = DV + 1, TQ = Tile<D>::T, LP = Tile<D>::LP;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
@@ -440,31 +451,35 @@ int launch(const Args& a) {
   const int nq = (a.Sq + TQ - 1) / TQ, nk = (a.Sk + TQ - 1) / TQ;
 
   const size_t s1 = sizeof(float) * 2 * TQ * LD;
-  int e = allow_smem(flash_bwd_rows<T, D>, s1);
+  int e = allow_smem(flash_bwd_rows<T, D, DV>, s1);
   if (e) return e;
-  flash_bwd_rows<T, D><<<dim3(nq, a.Hq, a.B), kThreads, s1, a.stream>>>(
+  flash_bwd_rows<T, D, DV><<<dim3(nq, a.Hq, a.B), kThreads, s1, a.stream>>>(
       q, k, o, dout, a.row_m, a.row_il, a.row_d, a.Sq, a.Sk, a.Hq, a.Hkv,
       a.scale, a.causal, a.window);
   if ((e = static_cast<int>(cudaGetLastError()))) return e;
 
-  const size_t s2 = sizeof(float) * (4 * TQ * LD + 2 * TQ * LP + 3 * TQ);
-  if ((e = allow_smem(flash_bwd_dkdv<T, D>, s2))) return e;
-  flash_bwd_dkdv<T, D><<<dim3(nk, a.Hkv, a.B), kThreads, s2, a.stream>>>(
+  const size_t s2 =
+      sizeof(float) * (2 * TQ * (LD + LDV) + 2 * TQ * LP + 3 * TQ);
+  if ((e = allow_smem(flash_bwd_dkdv<T, D, DV>, s2))) return e;
+  flash_bwd_dkdv<T, D, DV><<<dim3(nk, a.Hkv, a.B), kThreads, s2, a.stream>>>(
       q, k, v, dout, a.row_m, a.row_il, a.row_d, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.Sq, a.Sk, a.Hq, a.Hkv, a.scale, a.causal,
       a.window);
   if ((e = static_cast<int>(cudaGetLastError()))) return e;
 
-  const size_t s3 = sizeof(float) * (4 * TQ * LD + TQ * LP + 3 * TQ);
-  if ((e = allow_smem(flash_bwd_dq<T, D>, s3))) return e;
-  flash_bwd_dq<T, D><<<dim3(nq, a.Hq, a.B), kThreads, s3, a.stream>>>(
+  const size_t s3 =
+      sizeof(float) * (2 * TQ * (LD + LDV) + TQ * LP + 3 * TQ);
+  if ((e = allow_smem(flash_bwd_dq<T, D, DV>, s3))) return e;
+  flash_bwd_dq<T, D, DV><<<dim3(nq, a.Hq, a.B), kThreads, s3, a.stream>>>(
       q, k, v, dout, a.row_m, a.row_il, a.row_d, static_cast<T*>(a.dq),
       a.Sq, a.Sk, a.Hq, a.Hkv, a.scale, a.causal, a.window);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int by_d(int D, const Args& a) {
+int by_d(int D, int Dv, const Args& a) {
+  if (D == 192 && Dv == 128) return launch<T, 192, 128>(a);
+  if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 16: return launch<T, 16>(a);
     case 32: return launch<T, 32>(a);
@@ -478,23 +493,24 @@ int by_d(int D, const Args& a) {
 
 }  // namespace
 
-// q, o, do, dq: [B, Sq, Hq, D] contiguous; k, v, dk, dv: [B, Sk, Hkv, D]
-// contiguous; all of dtype code `dt` (halcone::kF32 / kBF16), D in {16,
-// 32, 64, 80, 128, 256}, Hq a multiple of Hkv, Sk >= 1.  row_m, row_il, row_d:
+// q, dq: [B, Sq, Hq, D], o, do: [B, Sq, Hq, Dv], k, dk: [B, Sk, Hkv, D]
+// and v, dv: [B, Sk, Hkv, Dv], all contiguous and of dtype code `dt`
+// (halcone::kF32 / kBF16); D = Dv in {16, 32, 64, 80, 128, 256}, or (D, Dv)
+// = (192, 128); Hq a multiple of Hkv, Sk >= 1.  row_m, row_il, row_d:
 // [B, Hq, Sq] f32 scratch (the row pass's max, 1 / sum and dO . O).
 // scale: D^-0.5 as an f32.
 extern "C" int halcone_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, void* row_m,
     void* row_il, void* row_d, int B, int Sq, int Sk, int Hq, int Hkv, int D,
-    float scale, int causal, int window, int dt, void* stream) {
+    int Dv, float scale, int causal, int window, int dt, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, dq, dk, dv,
                static_cast<float*>(row_m), static_cast<float*>(row_il),
                static_cast<float*>(row_d), B, Sq, Sk, Hq, Hkv, scale, causal,
                window, static_cast<cudaStream_t>(stream)};
-  if (dt == halcone::kF32) return by_d<float>(D, a);
-  if (dt == halcone::kBF16) return by_d<__nv_bfloat16>(D, a);
+  if (dt == halcone::kF32) return by_d<float>(D, Dv, a);
+  if (dt == halcone::kBF16) return by_d<__nv_bfloat16>(D, Dv, a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,13 +1,15 @@
 // Flash attention backward on Hopper's tensor cores (sm_90a): the bf16
-// route for head dims 64, 80, 128 and 256.
+// route for head dims 64, 80, 128 and 256, and for MLA's q and k of 192
+// columns with v of 128 (deepseek-v2).
 //
 // The gradient of flash_attention_wgmma.cu, which replaces the Pallas
 // kernel repro/kernels/flash_attention.py::_flash_kernel (pallas_call at
 // flash_attention.py:79).  The reference trains through jnp attention that
 // XLA differentiates and has no backward Pallas kernel.  f32, and bf16 at
 // D in {16, 32}, stay on the CUDA-core flash_attention_bwd.cu.  Same
-// contract as the forward: q, o, do [B, Sq, Hq, D] and k, v [B, Sk, Hkv,
-// D], all contiguous bf16; query head h on kv head h / (Hq / Hkv); masks
+// contract as the forward: q [B, Sq, Hq, D], o, do [B, Sq, Hq, Dv], k [B,
+// Sk, Hkv, D] and v [B, Sk, Hkv, Dv], all contiguous bf16, Dv = D but at
+// MLA's (192, 128); query head h on kv head h / (Hq / Hkv); masks
 // ADD NEG_INF = -1e30 to the unscaled f32 product, keys at or past Sk weigh
 // exactly 0.  Outputs dq, dk, dv in bf16, each summed in f32 and rounded
 // once.
@@ -65,6 +67,18 @@
 // dV (pass 2), at D = 128's register profile (254 registers in pass 2, no
 // spills).  Shared memory there: the resident pair 64 KB, two stages of
 // 64 KB, the stats, 195 KB of the 227, one block an SM.
+// MLA's (192, 128) (deepseek-v2): q, k, dq and dk are three 64-column
+// boxes a row, v, o, dO and dv two; S takes 12 k-steps and dP 8, Di = dO .
+// O runs over v's 128 columns and the scale is 192^-0.5.  dQ is one block
+// a tile at N = 192 (a 128- and a 64-column product a k-step; its 96
+// accumulator registers a thread sit below D = 128's dK/dV pass).  dK/dV
+// in one block would hold dK's 96 and dV's 64 accumulator registers
+// beside S, dP and the split P and dS, past the 255 a thread; so pass 2
+// is two launches over the key tiles (Part): dV from P alone (no dP
+// product, no V tile, 128 accumulator and fragment registers), then dK
+// from dS (S and dP again).  S costs twice, 1.4x the pass's products of
+// one block.  Shared memory: the resident pair 40 KB and two stages of
+// 40 KB, 123 KB, one block an SM.
 // Precision: the plain version computes P and dS in f32.  Each is split
 // in registers into hi = bf16(x) and lo = bf16(x - hi), and both halves'
 // products add into the one f32 accumulator (~16 bits where one bf16
@@ -85,26 +99,38 @@ constexpr int kTile = 64;          // query rows or keys of every tile
 constexpr int kThreads = 128 + 32; // one consumer warpgroup + a producer warp
 constexpr int kStages = 2;         // ring depth
 
-template <int D>
+// What a dK/dV block accumulates: both, or at MLA's pair one of the two
+// (see the header)
+enum Part { kBoth, kDK, kDV };
+
+// D: q and k's head dim; Dv: v's, o's and dO's
+template <int D, int Dv = D>
 struct Shape {
   // tiles take whole 64-column boxes: at D = 80 TMA zero-fills columns
   // 80-127, which S and dP never read (D / 16 k-steps)
-  static constexpr int DT = (D + kBox - 1) / kBox * kBox;
+  static constexpr int DT = (D + kBox - 1) / kBox * kBox;     // Q, K
+  static constexpr int DVT = (Dv + kBox - 1) / kBox * kBox;   // V, dO
   // at D = 256 an output tile's 64 x 256 f32 accumulator does not fit one
   // warpgroup's registers beside S, dP and the split P and dS: two blocks
   // share each tile, each with half of the output columns (and all of S
   // and dP), at D = 128's register profile
-  static constexpr int kSplit = DT > 128 ? 2 : 1;
+  static constexpr int kSplit = D == Dv && DT > 128 ? 2 : 1;
   static constexpr int kCols = DT / kSplit;       // tile columns a block
+  static constexpr int kVCols = DVT / kSplit;
   static constexpr int kStore = D / kSplit;       // output columns a block
-  static constexpr int N = D == 80 ? 80 : kCols;  // product width
+  static constexpr int kVStore = Dv / kSplit;
+  static constexpr int N = D == 80 ? 80 : kCols;  // dQ's, dK's product width
+  static constexpr int NV = Dv == 80 ? 80 : kVCols;   // dV's
+  // dK and dV in one block, or (MLA's pair) in two launches
+  static constexpr int kParts = D == Dv ? 1 : 2;
   // dQ at D = 64 overlaps a tile's arithmetic with its products; at D =
   // 128 the registers that needs are not there, and dK/dV, whose P^T and
   // dS^T would have to stay live beside both accumulators, is faster
   // waiting for each group at once (scripts/flash_bwd_breakdown.py)
   static constexpr bool kOverlapDq = D == 64;
-  static constexpr int kTileBytes = kTile * DT * 2;
-  static constexpr int kStageBytes = 2 * kTileBytes;  // Q+dO, or K+V
+  static constexpr int kTileBytes = kTile * DT * 2;    // Q or K
+  static constexpr int kVTileBytes = kTile * DVT * 2;  // dO or V
+  static constexpr int kStageBytes = kTileBytes + kVTileBytes;  // Q+dO, K+V
   static constexpr int kStatFloats = 3 * kTile;       // m, 1 / l, Di
   // resident pair, ring, stats of each stage (dK/dV only), barriers
   static constexpr int kSmem = kSwizzleAtom + kStageBytes
@@ -114,13 +140,13 @@ struct Shape {
   static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
 };
 
-// one 64-row tile of head h at rows r0, as DT / 64 boxes
-template <int D>
+// one 64-row tile of head h at rows r0, W columns as whole 64-column boxes
+template <int W>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           uint64_t* bar, int h, int r0,
                                           int b) {
 #pragma unroll
-  for (int x = 0; x < Shape<D>::DT / kBox; ++x)
+  for (int x = 0; x < Shape<W>::DT / kBox; ++x)
     tma_load(dst + x * kTile * 128, map, bar, x * kBox, h, r0, b);
 }
 
@@ -137,9 +163,25 @@ __device__ __forceinline__ void product_ss(float* acc, const uint8_t* a,
   }
 }
 
+// acc += a t over N columns for one k-step of 16 rows at t, the MN-major
+// B operand with 64-column boxes kTile * 128 bytes apart; N = 192 (MLA's
+// q and k) is a 128-column product over two boxes and a 64-column one
+// over the third, whose accumulator entries follow at acc + 64
+template <int N>
+__device__ __forceinline__ void rs_step(float* acc, const uint32_t* a,
+                                        const uint8_t* t) {
+  if constexpr (N == 192) {
+    wgmma_rs<128>(acc, a, desc_sw128(t, kTile * 128, kSwizzleAtom));
+    wgmma_rs<64>(acc + 64, a, desc_sw128(t + 2 * kTile * 128, kTile * 128,
+                                         kSwizzleAtom));
+  } else {
+    wgmma_rs<N>(acc, a, desc_sw128(t, kTile * 128, kSwizzleAtom));
+  }
+}
+
 // acc += (hi + lo) T, hi and lo A fragments over the tile's 64 rows of
-// T's N columns from its box ``box`` (T a 64 x DT tile with DT contiguous:
-// the MN-major B operand)
+// T's N columns from its box ``box`` (T a 64-row tile of whole boxes, its
+// columns contiguous: the MN-major B operand)
 template <int N>
 __device__ __forceinline__ void product_rs(float* acc,
                                            const uint32_t (&hi)[4][4],
@@ -148,12 +190,10 @@ __device__ __forceinline__ void product_rs(float* acc,
   t += box * kTile * 128;
 #pragma unroll
   for (int kt = 0; kt < kTile / 16; ++kt)
-    wgmma_rs<N>(acc, hi[kt], desc_sw128(t + kt * 16 * 128, kTile * 128,
-                                        kSwizzleAtom));
+    rs_step<N>(acc, hi[kt], t + kt * 16 * 128);
 #pragma unroll
   for (int kt = 0; kt < kTile / 16; ++kt)
-    wgmma_rs<N>(acc, lo[kt], desc_sw128(t + kt * 16 * 128, kTile * 128,
-                                        kSwizzleAtom));
+    rs_step<N>(acc, lo[kt], t + kt * 16 * 128);
 }
 
 // Commit the products issued since the last commit as one group; without
@@ -212,9 +252,9 @@ struct Smem {
   uint64_t* empty;
 };
 
-template <int D>
+template <int D, int Dv>
 __device__ __forceinline__ Smem carve(uint8_t* raw_p, int full_count) {
-  using Sh = Shape<D>;
+  using Sh = Shape<D, Dv>;
   // TMA's 128-byte swizzle and the wgmma descriptors want 1024-byte tiles
   const uint32_t raw = smem_u32(raw_p);
   Smem s;
@@ -238,8 +278,8 @@ __device__ __forceinline__ Smem carve(uint8_t* raw_p, int full_count) {
 }
 
 // ---------------------------------------------------------------- pass 1
-template <int D>
-__global__ void __launch_bounds__(kThreads, Shape<D>::kBlocksPerSM)
+template <int D, int Dv>
+__global__ void __launch_bounds__(kThreads, Shape<D, Dv>::kBlocksPerSM)
 flash_bwd_wgmma_dq(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -248,9 +288,9 @@ flash_bwd_wgmma_dq(
     const bf16* __restrict__ dout, const float* __restrict__ stats,
     float* __restrict__ di, bf16* __restrict__ dq, int Sq, int Sk, int Hq,
     int qpk, float scale, int causal, int window) {
-  using Sh = Shape<D>;
+  using Sh = Shape<D, Dv>;
   extern __shared__ uint8_t smem_raw[];
-  const Smem sm = carve<D>(smem_raw, 1);
+  const Smem sm = carve<D, Dv>(smem_raw, 1);
   const uint8_t* qs = sm.pair;
   const uint8_t* dos = sm.pair + Sh::kTileBytes;
 
@@ -267,15 +307,15 @@ flash_bwd_wgmma_dq(
     if (lane == 0) {
       mbar_expect_tx(sm.pbar, Sh::kStageBytes);
       load_tile<D>(sm.pair, &qmap, sm.pbar, h, q0, b);
-      load_tile<D>(sm.pair + Sh::kTileBytes, &domap, sm.pbar, h, q0, b);
+      load_tile<Dv>(sm.pair + Sh::kTileBytes, &domap, sm.pbar, h, q0, b);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % kStages;
         mbar_wait(&sm.empty[s], ((t / kStages) & 1) ^ 1);
         mbar_expect_tx(&sm.full[s], Sh::kStageBytes);
         uint8_t* ks = sm.ring + s * Sh::kStageBytes;
         load_tile<D>(ks, &kmap, &sm.full[s], hk, t * kTile, b);
-        load_tile<D>(ks + Sh::kTileBytes, &vmap, &sm.full[s], hk, t * kTile,
-                     b);
+        load_tile<Dv>(ks + Sh::kTileBytes, &vmap, &sm.full[s], hk,
+                      t * kTile, b);
       }
     }
     return;
@@ -296,11 +336,12 @@ flash_bwd_wgmma_dq(
     m[r] = live[r] ? stats[idx] : 0.f;
     il[r] = live[r] ? stats[nstat + idx] : 0.f;   // a dead row weighs 0
     // Di = dO . O over the row's 16-byte chunks: the quad's four lanes a
-    // quarter of the row each, or at D = 80 (ten chunks) every fourth
+    // quarter of the row each, or at Dv = 80 (ten chunks) every fourth
     float acc = 0.f;
     if (live[r]) {
-      const int64_t at = ((static_cast<int64_t>(b) * Sq + row) * Hq + h) * D;
-      constexpr int kChunks = D / 8;
+      const int64_t at = ((static_cast<int64_t>(b) * Sq + row) * Hq + h)
+                         * Dv;
+      constexpr int kChunks = Dv / 8;
 #pragma unroll
       for (int j = 0; j < (kChunks + 3) / 4; ++j) {
         const int c = kChunks % 4 == 0 ? (lane % 4) * (kChunks / 4) + j
@@ -343,7 +384,7 @@ flash_bwd_wgmma_dq(
     wgmma_fence();
     product_ss<D>(sacc, qs, ks);                 // S = Q K^T
     commit<Sh::kOverlapDq>();
-    product_ss<D>(pacc, dos, vs);                // dP = dO V^T
+    product_ss<Dv>(pacc, dos, vs);               // dP = dO V^T
     commit<Sh::kOverlapDq>();
     wgmma_wait<1>();                 // S, and the last tile's dQ product
     fence_operands(sacc);
@@ -383,8 +424,8 @@ flash_bwd_wgmma_dq(
 }
 
 // ---------------------------------------------------------------- pass 2
-template <int D>
-__global__ void __launch_bounds__(kThreads, Shape<D>::kBlocksPerSM)
+template <int D, int Dv, int Part>
+__global__ void __launch_bounds__(kThreads, Shape<D, Dv>::kBlocksPerSM)
 flash_bwd_wgmma_dkdv(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
@@ -393,11 +434,12 @@ flash_bwd_wgmma_dkdv(
     const float* __restrict__ stats, const float* __restrict__ di,
     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int Hq,
     int qpk, float scale, int causal, int window) {
-  using Sh = Shape<D>;
+  using Sh = Shape<D, Dv>;
+  constexpr bool kWantDk = Part != kDV, kWantDv = Part != kDK;
   extern __shared__ uint8_t smem_raw[];
   // a stage is full when its TMA bytes landed and the producer's 32
   // lanes (plus lane 0's expect_tx) arrived with its statistics
-  const Smem sm = carve<D>(smem_raw, 1 + 32);
+  const Smem sm = carve<D, Dv>(smem_raw, 1 + 32);
   const uint8_t* ks = sm.pair;
   const uint8_t* vs = sm.pair + Sh::kTileBytes;
 
@@ -415,9 +457,11 @@ flash_bwd_wgmma_dkdv(
 
   if (warp == 4) {                               // the producer warp
     if (lane == 0) {
-      mbar_expect_tx(sm.pbar, Sh::kStageBytes);
+      // V feeds dP alone, which dV's block does not form
+      mbar_expect_tx(sm.pbar, kWantDk ? Sh::kStageBytes : Sh::kTileBytes);
       load_tile<D>(sm.pair, &kmap, sm.pbar, hk, k0, b);
-      load_tile<D>(sm.pair + Sh::kTileBytes, &vmap, sm.pbar, hk, k0, b);
+      if (kWantDk)
+        load_tile<Dv>(sm.pair + Sh::kTileBytes, &vmap, sm.pbar, hk, k0, b);
     }
     const int64_t nstat = static_cast<int64_t>(gridDim.y) * Hq * Sq;
     for (int t = 0; t < ntiles; ++t) {
@@ -429,7 +473,7 @@ flash_bwd_wgmma_dkdv(
         mbar_expect_tx(&sm.full[s], Sh::kStageBytes);
         uint8_t* qs = sm.ring + s * Sh::kStageBytes;
         load_tile<D>(qs, &qmap, &sm.full[s], h, q0, b);
-        load_tile<D>(qs + Sh::kTileBytes, &domap, &sm.full[s], h, q0, b);
+        load_tile<Dv>(qs + Sh::kTileBytes, &domap, &sm.full[s], h, q0, b);
       }
       float* sv = sm.stats + s * Sh::kStatFloats;
       const int64_t row0 = (static_cast<int64_t>(b) * Hq + h) * Sq;
@@ -449,11 +493,14 @@ flash_bwd_wgmma_dkdv(
   // group of 8 accumulator columns (queries, then head dims) the pair at cq
   const int row_k = k0 + 16 * warp + lane / 4;
   const int cq = 2 * (lane % 4);
-  constexpr int N = Sh::N;
+  constexpr int N = Sh::N, NV = Sh::NV;
   const int box = vpart * (Sh::kCols / kBox);    // the half's first box
-  float dka[N / 2], dva[N / 2], sacc[kTile / 2], pacc[kTile / 2];
+  const int vbox = vpart * (Sh::kVCols / kBox);
+  float dka[N / 2], dva[NV / 2], sacc[kTile / 2], pacc[kTile / 2];
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV / 2; ++i) dva[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kTile / 2; ++i) sacc[i] = pacc[i] = 0.f;
   const float sl = scale * kLog2e;
@@ -461,7 +508,8 @@ flash_bwd_wgmma_dkdv(
 
   // Per tile: S^T and dP^T, P^T in a pass of its own, dS^T and the
   // splits, then dV += P^T dO with dK += dS^T Q; each group is waited
-  // for at once (see Shape).
+  // for at once (see Shape).  A block of one Part leaves out the other's
+  // work: dV's needs no dP^T and no dS^T, dK's no split P^T.
 #pragma unroll 1
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % kStages;
@@ -472,10 +520,10 @@ flash_bwd_wgmma_dkdv(
     const float* sv = sm.stats + s * Sh::kStatFloats;
     wgmma_fence();
     product_ss<D>(sacc, ks, qs);                 // S^T = K Q^T
-    product_ss<D>(pacc, vs, dos);                // dP^T = V dO^T
+    if constexpr (kWantDk) product_ss<Dv>(pacc, vs, dos);   // dP^T = V dO^T
     commit<false>();
     fence_operands(sacc);
-    fence_operands(pacc);
+    if constexpr (kWantDk) fence_operands(pacc);
 
     const bool mask = (causal && k0 + kTile - 1 > q0) || window > 0
                       || k0 + kTile > Sk;
@@ -492,27 +540,33 @@ flash_bwd_wgmma_dkdv(
 #pragma unroll
     for (int i = 0; i < kTile / 2; i += 2) {
       const int c = 8 * (i / 4) + cq;
-      split(sacc[i], sacc[i + 1], i, phi, plo);
-      split(sacc[i] * (pacc[i] - sv[2 * kTile + c]),
-            sacc[i + 1] * (pacc[i + 1] - sv[2 * kTile + c + 1]), i, dhi,
-            dlo);                                // dS^T
+      if constexpr (kWantDv) split(sacc[i], sacc[i + 1], i, phi, plo);
+      if constexpr (kWantDk)
+        split(sacc[i] * (pacc[i] - sv[2 * kTile + c]),
+              sacc[i + 1] * (pacc[i + 1] - sv[2 * kTile + c + 1]), i, dhi,
+              dlo);                              // dS^T
     }
     wgmma_fence();
-    product_rs<N>(dva, phi, plo, dos, box);      // dV += P^T dO
-    product_rs<N>(dka, dhi, dlo, qs, box);       // dK += dS^T Q
+    if constexpr (kWantDv)
+      product_rs<NV>(dva, phi, plo, dos, vbox);  // dV += P^T dO
+    if constexpr (kWantDk)
+      product_rs<N>(dka, dhi, dlo, qs, box);     // dK += dS^T Q
     commit<false>();
-    fence_operands(dka);
-    fence_operands(dva);
+    if constexpr (kWantDk) fence_operands(dka);
+    if constexpr (kWantDv) fence_operands(dva);
     mbar_arrive(&sm.empty[s]);
   }
 
   const int Hkv = gridDim.x / Sh::kSplit;
   const bool live[2] = {row_k < Sk, row_k + 8 < Sk};
-  const int64_t at = ((static_cast<int64_t>(b) * Sk + row_k) * Hkv + hk) * D
-                     + vpart * Sh::kCols + cq;
-  const int64_t step = static_cast<int64_t>(8) * Hkv * D;
-  store_rows<Sh::kStore>(dka, scale, dk + at, step, live);
-  store_rows<Sh::kStore>(dva, 1.f, dv + at, step, live);
+  const int64_t row = (static_cast<int64_t>(b) * Sk + row_k) * Hkv + hk;
+  if constexpr (kWantDk)
+    store_rows<Sh::kStore>(dka, scale, dk + row * D + vpart * Sh::kCols + cq,
+                           static_cast<int64_t>(8) * Hkv * D, live);
+  if constexpr (kWantDv)
+    store_rows<Sh::kVStore>(dva, 1.f,
+                            dv + row * Dv + vpart * Sh::kVCols + cq,
+                            static_cast<int64_t>(8) * Hkv * Dv, live);
 }
 
 // A contiguous [B, S, H, D] bf16 tensor's rank-4 map, 64-row boxes.
@@ -528,68 +582,99 @@ int allow_smem(K* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-template <int D>
+template <int D, int Dv, int Part>
+int launch_dkdv(const CUtensorMap& qm, const CUtensorMap& km,
+                const CUtensorMap& vm, const CUtensorMap& dom,
+                const float* stats, const float* di, void* dk, void* dv,
+                int B, int Sq, int Sk, int Hq, int Hkv, float scale,
+                int causal, int window, cudaStream_t stream) {
+  using Sh = Shape<D, Dv>;
+  static bool attr = false;
+  if (!attr) {
+    const int e = allow_smem(flash_bwd_wgmma_dkdv<D, Dv, Part>, Sh::kSmem);
+    if (e) return e;
+    attr = true;
+  }
+  const int nk = (Sk + kTile - 1) / kTile;
+  flash_bwd_wgmma_dkdv<D, Dv, Part><<<dim3(Hkv * Sh::kSplit, B, nk),
+                                      kThreads, Sh::kSmem, stream>>>(
+      qm, km, vm, dom, stats, di, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Sk, Hq, Hq / Hkv, scale, causal, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int Dv>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* stats, void* dq, void* dk,
            void* dv, float* di, int B, int Sq, int Sk, int Hq, int Hkv,
            float scale, int causal, int window, cudaStream_t stream) {
-  using Sh = Shape<D>;
+  using Sh = Shape<D, Dv>;
   CUtensorMap qm, km, vm, dom;
   if (!map_of(&qm, q, B, Sq, Hq, D) || !map_of(&km, k, B, Sk, Hkv, D) ||
-      !map_of(&vm, v, B, Sk, Hkv, D) || !map_of(&dom, dout, B, Sq, Hq, D))
+      !map_of(&vm, v, B, Sk, Hkv, Dv) || !map_of(&dom, dout, B, Sq, Hq, Dv))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool attr = false;
   if (!attr) {
-    int e = allow_smem(flash_bwd_wgmma_dq<D>, Sh::kSmem);
-    if (!e) e = allow_smem(flash_bwd_wgmma_dkdv<D>, Sh::kSmem);
+    const int e = allow_smem(flash_bwd_wgmma_dq<D, Dv>, Sh::kSmem);
     if (e) return e;
     attr = true;
   }
-  const int nq = (Sq + kTile - 1) / kTile, nk = (Sk + kTile - 1) / kTile;
-  const int qpk = Hq / Hkv;
-  flash_bwd_wgmma_dq<D><<<dim3(Hq * Sh::kSplit, B, nq), kThreads, Sh::kSmem,
-                          stream>>>(
+  const int nq = (Sq + kTile - 1) / kTile;
+  flash_bwd_wgmma_dq<D, Dv><<<dim3(Hq * Sh::kSplit, B, nq), kThreads,
+                              Sh::kSmem, stream>>>(
       qm, km, vm, dom, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), stats, di, static_cast<bf16*>(dq), Sq,
-      Sk, Hq, qpk, scale, causal, window);
-  const int e = static_cast<int>(cudaGetLastError());
+      Sk, Hq, Hq / Hkv, scale, causal, window);
+  int e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-  flash_bwd_wgmma_dkdv<D><<<dim3(Hkv * Sh::kSplit, B, nk), kThreads,
-                            Sh::kSmem, stream>>>(
-      qm, km, vm, dom, stats, di, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Sq, Sk, Hq, qpk, scale, causal, window);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (Sh::kParts == 1) {
+    return launch_dkdv<D, Dv, kBoth>(qm, km, vm, dom, stats, di, dk, dv, B,
+                                     Sq, Sk, Hq, Hkv, scale, causal, window,
+                                     stream);
+  } else {
+    e = launch_dkdv<D, Dv, kDV>(qm, km, vm, dom, stats, di, dk, dv, B, Sq,
+                                Sk, Hq, Hkv, scale, causal, window, stream);
+    if (e) return e;
+    return launch_dkdv<D, Dv, kDK>(qm, km, vm, dom, stats, di, dk, dv, B, Sq,
+                                   Sk, Hq, Hkv, scale, causal, window,
+                                   stream);
+  }
 }
 
 }  // namespace
 
-// q, o, do, dq: [B, Sq, Hq, D] and k, v, dk, dv: [B, Sk, Hkv, D], all
-// contiguous bf16 starting on 16 bytes; D in {64, 80, 128, 256}, Hq a
+// q, dq: [B, Sq, Hq, D], o, do: [B, Sq, Hq, Dv], k, dk: [B, Sk, Hkv, D]
+// and v, dv: [B, Sk, Hkv, Dv], all contiguous bf16 starting on 16 bytes;
+// (D, Dv) in {(64, 64), (80, 80), (128, 128), (256, 256), (192, 128)}, Hq a
 // multiple of Hkv, Sk >= 1.  stats: [2, B, Hq, Sq] f32, the forward's m
 // and 1 / max(l, 1e-30); di: [B, Hq, Sq] f32 scratch (dO . O, written by
 // pass 1, read by pass 2).  scale: D^-0.5 as an f32.  Returns a cudaError_t.
 extern "C" int halcone_flash_attention_bwd_wgmma(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* stats, void* dq, void* dk, void* dv,
-    void* di, int B, int Sq, int Sk, int Hq, int Hkv, int D, float scale,
-    int causal, int window, void* stream) {
+    void* di, int B, int Sq, int Sk, int Hq, int Hkv, int D, int Dv,
+    float scale, int causal, int window, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv || B > 65535 ||
       Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* st = static_cast<const float*>(stats);
   float* d = static_cast<float*>(di);
+  if (D == 192 && Dv == 128)
+    return launch<192, 128>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk,
+                            Hq, Hkv, scale, causal, window, s);
+  if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64)
-    return launch<64>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
-                      Hkv, scale, causal, window, s);
+    return launch<64, 64>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
+                          Hkv, scale, causal, window, s);
   if (D == 80)
-    return launch<80>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
-                      Hkv, scale, causal, window, s);
+    return launch<80, 80>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
+                          Hkv, scale, causal, window, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
-                       Hkv, scale, causal, window, s);
+    return launch<128, 128>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk,
+                            Hq, Hkv, scale, causal, window, s);
   if (D == 256)
-    return launch<256>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk, Hq,
-                       Hkv, scale, causal, window, s);
+    return launch<256, 256>(q, k, v, o, dout, st, dq, dk, dv, d, B, Sq, Sk,
+                            Hq, Hkv, scale, causal, window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

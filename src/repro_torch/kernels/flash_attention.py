@@ -24,14 +24,14 @@ rope columns of q and k, 128 of v; the output has v's width):
   took that head dim), to time the two against each other on the card;
   nothing on the model's path passes it.
 
-The gradient ``flash_attention_bwd`` takes the same route, at the head
-dims of ``BWD_HEAD_DIMS`` only, v as wide (the pair (192, 128) has no
-backward kernel yet: ``kernels.ops`` raises under grad there):
-``"wgmma"`` runs ``csrc/flash_attention_bwd_wgmma.cu`` (two launches on
-the tensor cores, P recomputed from the forward's m and 1 / l, P and dS
-split into bf16 halves; at D = 256 two blocks share each tile, each with
-half of the output columns), ``"simt"`` ``csrc/flash_attention_bwd.cu``
-(three launches on the CUDA cores, its own row pass).  Its plain
+The gradient ``flash_attention_bwd`` takes the same route at every pair
+of ``PAIRS``: ``"wgmma"`` runs ``csrc/flash_attention_bwd_wgmma.cu`` (dQ,
+then dK/dV, on the tensor cores, P recomputed from the forward's m and
+1 / l, P and dS split into bf16 halves; at D = 256 two blocks share each
+tile, each with half of the output columns; at MLA's (192, 128) dQ is
+one block a tile at N = 192 and dV and dK are two launches, dV from P
+alone), ``"simt"`` ``csrc/flash_attention_bwd.cu`` (three launches on
+the CUDA cores, its own row pass; 32-row tiles at 192 and 256).  Its plain
 version is autograd of the plain forward
 (``kernels.ref.attention_bwd_ref``), and ``FlashAttentionFn`` joins
 forward and backward for autograd, passing the forward's statistics on.
@@ -58,7 +58,8 @@ PAIRS = tuple((d, d) for d in HEAD_DIMS) + (MLA_PAIR,)
 WGMMA_PAIRS = tuple((d, d) for d in WGMMA_HEAD_DIMS) + (MLA_PAIR,)
 # the pairs csrc/flash_attention.cu builds bf16 code for
 SIMT_BF16_PAIRS = ((16, 16), (32, 32), (80, 80))
-# the head dims flash_attention_bwd's kernels are built for
+# the head dims flash_attention_bwd's kernels are built for with v as wide
+# (with MLA_PAIR: every pair of PAIRS)
 BWD_HEAD_DIMS = HEAD_DIMS
 ROUTES = ("wgmma", "simt")
 _ARGS = ([cuda.P, cuda.LD, cuda.LD, cuda.LD] * 3 + [cuda.P] + [cuda.I] * 7
@@ -146,12 +147,11 @@ def flash_attention(q, k, v, *, causal=True, window=0, stats=None,
     names; allocates its output, launches on the current stream and does
     not synchronise.
 
-    ``stats``: None, or on the ``"wgmma"`` route at a head dim of
-    ``BWD_HEAD_DIMS`` (v as wide: the pairs a backward kernel takes) a
-    ``[2, B, Hq, Sq]`` f32 tensor that receives each row's m (the max of
-    its unscaled masked products) and 1 / max(l, 1e-30), the statistics
-    ``flash_attention_bwd`` recomputes P from.  Raises if asked anywhere
-    else.
+    ``stats``: None, or on the ``"wgmma"`` route a ``[2, B, Hq, Sq]``
+    f32 tensor that receives each row's m (the max of its unscaled masked
+    products) and 1 / max(l, 1e-30), the statistics
+    ``flash_attention_bwd`` recomputes P from.  Raises if asked on the
+    other route.
 
     ``_route="simt"`` forces the CUDA-core kernel at any pair it takes
     (bf16 at D = 80 and f32 everywhere), to time the routes against each
@@ -174,10 +174,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, stats=None,
         if path != "wgmma":
             raise ValueError("flash_attention: only the tensor-core route "
                              "writes row statistics")
-        if D != Dv or D not in BWD_HEAD_DIMS:
-            raise ValueError(f"flash_attention: no backward kernel at head "
-                             f"dim {D} with v's {Dv}, so no row "
-                             "statistics there")
         check_stats("flash_attention", stats, q)
     strides = ([tma_strides(n, t) for n, t in (("q", q), ("k", k), ("v", v))]
                if path == "wgmma" else [t.stride()[:3] for t in (q, k, v)])
@@ -211,26 +207,28 @@ flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention.stats_writes = 0
 
 
-_ARGS_BWD = [cuda.P] * 11 + [cuda.I] * 6 + [cuda.F, cuda.I, cuda.I, cuda.I,
+# (B, Sq, Sk, Hq, Hkv, D, Dv) after the pointers
+_ARGS_BWD = [cuda.P] * 11 + [cuda.I] * 7 + [cuda.F, cuda.I, cuda.I, cuda.I,
                                             cuda.P]
-_ARGS_BWD_WGMMA = [cuda.P] * 10 + [cuda.I] * 6 + [cuda.F, cuda.I, cuda.I,
+_ARGS_BWD_WGMMA = [cuda.P] * 10 + [cuda.I] * 7 + [cuda.F, cuda.I, cuda.I,
                                                   cuda.P]
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0,
                         stats=None, _route=None):
     """The gradient of ``flash_attention(q, k, v, causal=causal,
-    window=window)``: q, out, dout [B, Sq, Hq, D] and k, v [B, Sk, Hkv, D],
-    all contiguous and of one dtype, ``out`` the forward's output.
-    Returns (dq, dk, dv) in that dtype, computed in f32, with no atomics,
-    so the result is the same from run to run.  Takes the kernel
-    ``route(q.dtype, D)`` names:
+    window=window)``: q [B, Sq, Hq, D], k [B, Sk, Hkv, D], v [B, Sk, Hkv,
+    Dv] and out, dout [B, Sq, Hq, Dv] at a ``(D, Dv)`` of ``PAIRS``, all
+    contiguous and of one dtype, ``out`` the forward's output.  Returns
+    (dq, dk, dv) in that dtype, computed in f32, with no atomics, so the
+    result is the same from run to run.  Takes the kernel
+    ``route(q.dtype, D, Dv)`` names:
 
-    - ``"wgmma"``: two launches (dQ with Di = dO . O, then dK/dV) that
-      recompute P from ``stats``, the ``[2, B, Hq, Sq]`` row statistics
-      the forward kernel wrote for this ``out`` (``flash_attention(...,
-      stats=)``, as ``FlashAttentionFn`` does); raises ``ValueError``
-      without them.  Allocates a ``[B, Hq, Sq]`` f32 scratch for Di.
+    - ``"wgmma"``: dQ with Di = dO . O, then dK/dV (at (192, 128) dV and
+      dK in two launches), recomputing P from ``stats``, the ``[2, B, Hq,
+      Sq]`` row statistics the forward kernel wrote for this ``out``
+      (``flash_attention(..., stats=)``, as ``FlashAttentionFn`` does);
+      raises ``ValueError`` without them.  Allocates a ``[B, Hq, Sq]`` f32 scratch for Di.
     - ``"simt"``: three launches (row statistics, dK/dV, dQ); ignores
       ``stats``.  Allocates three ``[B, Hq, Sq]`` f32 rows of scratch.
 
@@ -238,26 +236,28 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0,
     to time the two routes against each other on the card; nothing on the
     training path passes it.  Allocates its outputs, launches on the
     current stream and does not synchronise."""
-    dt = check_qkv(q, k, v, "flash_attention_bwd", BWD_HEAD_DIMS)
+    dt = check_qkv(q, k, v, "flash_attention_bwd", pairs=PAIRS)
     dev = q.device
+    want = (*q.shape[:3], v.shape[3])
     for name, t in (("out", out), ("dout", dout)):
         cuda.check_float(name, t, dev, q.dtype)
-        if t.shape != q.shape:
+        if t.shape != want:
             raise ValueError(f"flash_attention_bwd: {name} shape "
-                             f"{tuple(t.shape)}, q has {tuple(q.shape)}")
+                             f"{tuple(t.shape)}, expected {want} (q's rows "
+                             "and heads, v's width)")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
                     ("dout", dout)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} must be "
                              f"contiguous, got strides {t.stride()}")
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if Sk < 1:
         raise ValueError("flash_attention_bwd: needs at least one key")
     if _route not in (None, "simt"):
         raise ValueError(f"flash_attention_bwd: _route must be None or "
                          f"'simt', got {_route!r}")
-    path = _route or route(q.dtype, D)
+    path = _route or route(q.dtype, D, Dv)
     if path == "wgmma":
         if stats is None:
             raise ValueError(
@@ -279,7 +279,7 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0,
                                _ARGS_BWD_WGMMA)
             args = [t.data_ptr() for t in (q, k, v, out, dout, stats, dq, dk,
                                            dv, di)]
-            args += [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal),
+            args += [B, Sq, Sk, Hq, Hkv, D, Dv, D ** -0.5, int(causal),
                      int(window)]
         else:
             rows = torch.empty((3, B, Hq, Sq), dtype=torch.float32,
@@ -288,7 +288,7 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0,
                                "halcone_flash_attention_bwd", _ARGS_BWD)
             args = [t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv,
                                            *rows)]
-            args += [B, Sq, Sk, Hq, Hkv, D, D ** -0.5, int(causal),
+            args += [B, Sq, Sk, Hq, Hkv, D, Dv, D ** -0.5, int(causal),
                      int(window), dt]
         cuda.launch(fn, args, dev)
         flash_attention_bwd.launches += 1

@@ -13,10 +13,9 @@ their ``autograd.Function`` (the forward kernel, and a backward kernel
 as the gradient) only when grad mode is on and an input requires grad;
 otherwise they launch the forward kernel directly, which keeps the
 serving path's host time as it was.  ``decode_attention`` has no
-backward kernel, nor has ``flash_attention`` at MLA's q/k width 192 with
-v's 128 (deepseek-v2): on a CUDA tensor that requires grad they raise
+backward kernel: on a CUDA tensor that requires grad it raises
 ``NotImplementedError`` naming the ROADMAP item, before any launch, and
-never differentiate a plain version on the card.
+never differentiates a plain version on the card.
 """
 from __future__ import annotations
 
@@ -36,9 +35,6 @@ from repro_torch.kernels.tier_pass import write_grant as _write_grant
 
 # the ROADMAP item that would give decode_attention a backward
 DECODE_BWD_ITEM = "20: a decode_attention backward, if a consumer needs one"
-# the ROADMAP item that gives it one at MLA's (192, 128)
-MLA_BWD_ITEM = ("24: flash_attention_bwd at (D, Dv) = (192, 128), and "
-                "training deepseek-v2 and llama4-maverick on the card")
 
 
 def _on_cpu(t) -> bool:
@@ -85,10 +81,6 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     if _on_cpu(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if _wants_grad(q, k, v):
-        D, Dv = q.shape[-1], v.shape[-1]
-        if Dv != D:
-            raise _no_backward(f"flash_attention at (D, Dv) = ({D}, {Dv})",
-                               MLA_BWD_ITEM)
         return FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash(q, k, v, causal=causal, window=window)
 

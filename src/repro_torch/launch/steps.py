@@ -24,7 +24,11 @@ def make_train_step(cfg: ModelConfig,
     ``loss`` and ``gnorm`` (f32 scalar tensors on the state's device).
     With a ``torch.distributed`` ``group`` it is synchronous data
     parallelism: each rank's gradients and metrics are averaged over the
-    group by one flattened ``all_reduce`` before the update."""
+    group by one flattened ``all_reduce`` before the update.  The step
+    owns the state it is given, as a jit with donated arguments would:
+    ``apply_updates`` writes the new weights and moments into that
+    state's tensors (new_state holds them), so a caller that needs the
+    old state keeps a copy of it."""
 
     def train_step(state: adamw.TrainState, batch) -> Tuple[
             adamw.TrainState, Dict[str, torch.Tensor]]:

@@ -8,6 +8,13 @@ The step is an int32 scalar tensor, and every scalar of the update (the
 learning rate, the clip scale, the bias corrections ``1 - b ** step``)
 is an f32 tensor computed as JAX computes it, not a Python float64.
 Plain torch: the reference has no kernel here either.
+
+The update is in place, as a jit with donated arguments would run it:
+each leaf's new weights and moments are written into the state's own
+tensors, a chunk of the leaf at a time, so the f32 temporaries are a
+chunk's.  deepseek-v2's 2-layer state under its bf16 policy is 42.9 GB
+with the gradient; a new state beside it would add 32.2 GB, and
+whole-leaf f32 temporaries 5 GB each on an expert stack.
 """
 from __future__ import annotations
 
@@ -16,6 +23,13 @@ import math
 from typing import Any, Iterator, NamedTuple
 
 import torch
+
+
+# elements of a leaf updated at a time: the chunk's f32 temporaries (at
+# most about ten, 256 MB each) against the host's launches, ~20 a chunk
+# (at 2^24 deepseek-v2's update took 414 ms to enqueue and 455 ms on an
+# H100: scripts/adamw_update_ab.py)
+INPLACE_CHUNK = 1 << 26
 
 
 class TrainState(NamedTuple):
@@ -49,13 +63,17 @@ def tree_leaves(tree) -> Iterator[torch.Tensor]:
 def tree_unflatten(like, leaves):
     """A dict tree of ``like``'s structure with ``leaves`` (an iterable in
     sorted-key order) at its leaves."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-    return build(like)
+
+def _build(t, it):
+    # a module-level function, not a closure over ``it``: a recursive
+    # closure is a reference cycle, which kept each training step's
+    # gradients alive until Python's cyclic collector ran (deepseek-v2's
+    # step ran out of card memory on three steps' gradients)
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def tree_map(fn, *trees):
@@ -104,37 +122,52 @@ def _bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
     return 1 - torch.pow(b, step.to(torch.float32))
 
 
+@torch.no_grad()
 def apply_updates(cfg: AdamWConfig, state: TrainState, grads) -> TrainState:
     """One AdamW step: gradients clipped to ``clip_norm`` by their global
     norm, f32 moments, bias-corrected, decoupled weight decay on every
     leaf whose STACKED tensor has two or more dims (so the stacked
     ``[L, D]`` norm weights decay and ``ln_f`` and 1-D biases do not),
-    each result cast back to its leaf's dtype.  Returns a new state; the
-    old one is not written."""
+    each result cast back to its leaf's dtype.
+
+    The state is consumed: each leaf's new params, m and v are written
+    into its own tensors, ``INPLACE_CHUNK`` elements at a time, and the
+    returned state holds those tensors with the new step; a caller that
+    needs the old state clones it first.  An f32 leaf is updated by
+    in-place ops on it, a leaf of another dtype through an f32 copy of the
+    chunk that is cast back; either way each element's arithmetic and
+    rounding are those of the whole-leaf update, the reference's.  params,
+    m and v must be contiguous tensors that share no memory."""
+    trees = (state.params, state.m, state.v)
+    owned = [t for tree in trees for t in tree_leaves(tree) if t.numel()]
+    if len({t.data_ptr() for t in owned}) != len(owned) \
+            or not all(t.is_contiguous() for t in owned):
+        raise ValueError("apply_updates: params, m and v must be "
+                         "contiguous tensors that share no memory")
     step = state.step + 1
     lr = schedule(cfg, step)
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
     c1 = _bias_correction(cfg.b1, step)
     c2 = _bias_correction(cfg.b2, step)
-
-    def upd(p, m, v, g):
-        g = g.to(torch.float32) * scale
-        m32 = m.to(torch.float32) * cfg.b1 + g * (1 - cfg.b1)
-        v32 = v.to(torch.float32) * cfg.b2 + g * g * (1 - cfg.b2)
-        mh = m32 / c1
-        vh = v32 / c2
-        p32 = p.to(torch.float32)
-        p32 = p32 - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                          + cfg.weight_decay * p32 * float(p.dim() > 1))
-        return p32.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
-
-    out = tree_map(upd, state.params, state.m, state.v, grads)
-    return TrainState(params=_pick(out, 0), m=_pick(out, 1),
-                      v=_pick(out, 2), step=step)
-
-
-def _pick(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+    for p, m, v, g in zip(*(tree_leaves(t) for t in trees),
+                          tree_leaves(grads)):
+        decay = float(p.dim() > 1)
+        flat = [t.view(-1) for t in (p, m, v)]
+        gf = g.reshape(-1)
+        for i in range(0, p.numel(), INPLACE_CHUNK):
+            part = slice(i, i + INPLACE_CHUNK)
+            p_, m_, v_ = (t[part] for t in flat)
+            # an f32 chunk is the state's own (``to`` copies nothing)
+            p32, m32, v32 = (t.to(torch.float32) for t in (p_, m_, v_))
+            g32 = gf[part].to(torch.float32) * scale
+            m32.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
+            v32.mul_(cfg.b2).add_(g32 * g32 * (1 - cfg.b2))
+            mh = m32 / c1
+            vh = v32 / c2
+            p32.sub_(lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                           + cfg.weight_decay * p32 * decay))
+            for t, t32 in ((p_, p32), (m_, m32), (v_, v32)):
+                if t.dtype != torch.float32:
+                    t.copy_(t32)
+    return state._replace(step=step)

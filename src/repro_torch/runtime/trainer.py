@@ -5,7 +5,13 @@ Checkpoint/restart (the write-through manager), straggler detection (a
 per-step wall-time watchdog with an EMA and a threshold), simulated node
 failures and resume, optionally on another device or over a
 ``torch.distributed`` group (the counterpart of the reference's
-``resume(mesh=)``: state is restored onto the new placement).  Every
+``resume(mesh=)``: state is restored onto the new placement).  The
+trainer owns the state it trains: ``step_fn`` (and so ``run``) writes
+each step's weights and moments into the tensors of the state it is
+given (``adamw.apply_updates`` is in place), the memory plan that lets a
+state near the card's size train (deepseek-v2).  A checkpoint's snapshot
+is enqueued on the stream before the next step's writes, so it holds the
+step it was taken at.  Every
 checkpoint publish is a batched write-through on the coherence fabric:
 one ``write_batch`` re-stamps every parameter block under the
 reference's keys, in its order, then a ``fence``, then the parameter

@@ -13,11 +13,12 @@ and skips (dQ walks key tiles to the causal limit, dK/dV walks the group's
 query heads and query tiles from the causal start), and P and dS split
 into bf16 halves ``hi = bf16(x)`` and ``lo = bf16(x - hi)`` whose two
 products add into one f32 accumulator.  dK and dQ are scaled by D^-0.5 in
-the epilogue.  The kernel's layout (``layout=True``): a head dim that is
-not a multiple of 64 (80) loads as whole 64-column boxes, zero-filled
-past it, and at D = 256 two blocks share each tile, each computing all of
-S and dP and its half of the output columns.  Imports neither jax nor
-``repro``.
+the epilogue.  v, the output and dO may be narrower than q and k (MLA's
+(D, Dv) = (192, 128)): dP and Di run over v's columns.  The kernel's
+layout (``layout=True``): a head dim that is not a multiple of 64 (80)
+loads as whole 64-column boxes, zero-filled past it, and at D = 256 two
+blocks share each tile, each computing all of S and dP and its half of
+the output columns.  Imports neither jax nor ``repro``.
 """
 import torch
 
@@ -26,10 +27,12 @@ from attention_emulation import LOG2E, NEG_INF, zero_filled
 TILE = 64                     # query rows and keys of every tile
 
 
-def column_parts(D):
-    """The blocks that share a tile at head dim D, each with its part of
-    the output columns: two past 128 columns (D = 256), else one."""
-    return 2 if -(-D // 64) * 64 > 128 else 1
+def column_parts(D, Dv=None):
+    """The blocks that share a tile at head dim D (v's Dv; None: the
+    same), each with its part of the output columns: two past 128
+    columns with v as wide (D = 256), else one (MLA's (192, 128) splits
+    dK from dV instead, which changes no sum)."""
+    return 2 if Dv in (None, D) and -(-D // 64) * 64 > 128 else 1
 
 
 def _heads(t, qpk):
@@ -83,30 +86,31 @@ def _split(x, split):
 
 def emulate_bwd(q, k, v, out, dout, stats=None, *, causal, window,
                 split=True, layout=False):
-    """The kernel's arithmetic in f32: q, out, dout [B, Sq, Hq, D] and k, v
-    [B, Sk, Hkv, D] bf16 -> (dq, dk, dv) f32, before the outputs' bf16
-    rounding.  ``stats``: (m, 1 / l), each [B, Hq, Sq], as the forward
-    kernel wrote them; None computes them with ``row_stats``.
+    """The kernel's arithmetic in f32: q [B, Sq, Hq, D], k [B, Sk, Hkv,
+    D], v [B, Sk, Hkv, Dv] and out, dout [B, Sq, Hq, Dv] bf16 -> (dq, dk,
+    dv) f32, before the outputs' bf16 rounding.  ``stats``: (m, 1 / l),
+    each [B, Hq, Sq], as the forward kernel wrote them; None computes
+    them with ``row_stats``.
     ``split=False`` rounds P and dS to bf16 once instead; ``layout``
     takes the kernel's zero-filled boxes and column parts (Di = dO . O
     from the rows themselves, as the kernel reads them from memory)."""
     B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     qpk = Hq // Hkv
     scale, c = _scale(D)
     di = (dout.float() * out.float()).sum(-1).transpose(1, 2)   # [B, Hq, Sq]
-    parts = column_parts(D) if layout else 1
+    parts = column_parts(D, Dv) if layout else 1
     if layout:
         q, k, v, dout = (zero_filled(t) for t in (q, k, v, dout))
     m, il = row_stats(q, k, causal=causal, window=window, D=D) \
         if stats is None else (t.float() for t in stats)
     qf, dof = q.float().transpose(1, 2), dout.float().transpose(1, 2)
     kf, vf = _heads(k, qpk), _heads(v, qpk)
-    DT = q.shape[3]
+    DT, DVT = q.shape[3], v.shape[3]
 
     def product(a, t):
         """a @ t, t's columns in the blocks' parts."""
-        w = DT // parts
+        w = t.shape[-1] // parts
         return torch.cat([a @ t[..., i * w:(i + 1) * w]
                           for i in range(parts)], -1)
 
@@ -134,11 +138,11 @@ def emulate_bwd(q, k, v, out, dout, stats=None, *, causal, window,
                 acc = acc + product(part, kf[:, :, cols])
         dq[:, :, rows] = acc * scale
     dk = torch.zeros(B, Hkv, Sk, DT)
-    dv = torch.zeros(B, Hkv, Sk, DT)
+    dv = torch.zeros(B, Hkv, Sk, DVT)
     for kt in range(nk):
         cols = torch.arange(kt * TILE, min(kt * TILE + TILE, Sk))
         ak = torch.zeros(B, Hkv, len(cols), DT)
-        av = torch.zeros(B, Hkv, len(cols), DT)
+        av = torch.zeros(B, Hkv, len(cols), DVT)
         for g in range(qpk):                     # the group's query heads
             h = torch.arange(Hkv) * qpk + g
             for qt in range(kt if causal else 0, nq):
@@ -152,12 +156,13 @@ def emulate_bwd(q, k, v, out, dout, stats=None, *, causal, window,
                                       qf[:, h][:, :, rows])
         dk[:, :, cols] = ak * scale
         dv[:, :, cols] = av
-    return tuple(t.transpose(1, 2)[..., :D] for t in (dq, dk, dv))
+    return tuple(t.transpose(1, 2)[..., :w]
+                 for t, w in ((dq, D), (dk, D), (dv, Dv)))
 
 
 def exact_attention_bwd(q, k, v, dout, *, causal, window):
     """(dq, dk, dv) of softmax attention in f64 with the reference's
-    masks, by autograd."""
+    masks, by autograd (v and dout may be narrower than q and k)."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))

@@ -26,6 +26,14 @@ output columns (and all of S and dP); the emulation takes that layout
 (``layout=True``) for those cases, and it must change no bit of the
 outputs.
 
+At MLA's (D, Dv) = (192, 128) (deepseek-v2) q and k are three 64-column
+boxes and v, the output and dO two; dP and Di run over v's 128 columns.
+The reference's ``repro.kernels.ref.attention_ref`` shapes its output
+with q's width, so these cases are held to ``jax.vjp`` of the reference's
+MLA attention, ``repro.models.layers.attention``, run in f32 on the bf16
+inputs' values (its P stays f32 there), at the same 2e-2 and the same
+split margins.
+
 The kernel itself is held to this emulation on the card in
 ``tests/test_torch_cuda.py`` (``test_cuda_flash_bwd_wgmma_keeps_split``).
 """
@@ -38,6 +46,7 @@ import torch
 from attention_bwd_emulation import (column_parts, emulate_bwd,
                                      exact_attention_bwd, row_stats)
 from repro.kernels import ref as jref
+from repro.models import layers as rlayers
 from repro_torch.kernels import ref
 
 CASES = [
@@ -55,11 +64,26 @@ CASES = [
 ]
 
 
-def _inputs(B, Sq, Sk, Hq, Hkv, D):
+def _inputs(B, Sq, Sk, Hq, Hkv, D, Dv=None):
     rng = np.random.default_rng(Sq + Sk + D)
+    Dv = Dv or D
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
         torch.bfloat16) for s in ((B, Sq, Hq, D), (B, Sk, Hkv, D),
-                                  (B, Sk, Hkv, D), (B, Sq, Hq, D))]
+                                  (B, Sk, Hkv, Dv), (B, Sq, Hq, Dv))]
+
+
+def _beats_one_rounding(q, k, v, out, dout, got, causal, window):
+    """The split's mean error against the f64 gradient, before the
+    outputs' rounding, at least 1.5x (dq, dk) and 100x (dv) below one
+    bf16 rounding of P and dS."""
+    exact = exact_attention_bwd(q, k, v, dout, causal=causal, window=window)
+    one = emulate_bwd(q, k, v, out, dout, causal=causal, window=window,
+                      split=False)
+    for name, s, o, e, margin in zip("qkv", got, one, exact,
+                                     (1.5, 1.5, 100.0)):
+        err_split = float((s.double() - e).abs().mean())
+        err_one = float((o.double() - e).abs().mean())
+        assert err_split * margin < err_one, (name, err_split, err_one)
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", CASES)
@@ -78,15 +102,40 @@ def test_bwd_split_emulation_matches_jax_and_beats_one_rounding(
         np.testing.assert_allclose(
             g.to(torch.bfloat16).float().numpy(), np.asarray(w, np.float32),
             rtol=2e-2, atol=2e-2)
+    _beats_one_rounding(q, k, v, out, dout, got, causal, window)
 
-    exact = exact_attention_bwd(q, k, v, dout, causal=causal, window=window)
-    one = emulate_bwd(q, k, v, out, dout, causal=causal, window=window,
-                      split=False)
-    for name, s, o, e, margin in zip("qkv", got, one, exact,
-                                     (1.5, 1.5, 100.0)):
-        err_split = float((s.double() - e).abs().mean())
-        err_one = float((o.double() - e).abs().mean())
-        assert err_split * margin < err_one, (name, err_split, err_one)
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window", [
+    (1, 256, 256, 4, 4, True, 0),             # deepseek-v2's MHA, causal
+    (1, 130, 130, 4, 2, True, 32),            # GQA, windowed, ragged
+    (1, 100, 150, 2, 1, False, 0),            # Sq != Sk
+    (1, 130, 50, 4, 2, True, 16),             # rows with no visible key
+])
+def test_bwd_split_emulation_at_the_mla_pair_matches_jax(
+        B, Sq, Sk, Hq, Hkv, causal, window):
+    """(D, Dv) = (192, 128): the emulation (q and k on three boxes, v on
+    two, the kernel's layout) against ``jax.vjp`` of the reference's MLA
+    attention in f32 on the same bf16 values, and the split against one
+    rounding, as above; dq and dk are 192 wide, dv 128."""
+    D, Dv = 192, 128
+    assert column_parts(D, Dv) == 1
+    q, k, v, dout = _inputs(B, Sq, Sk, Hq, Hkv, D, Dv)
+    out = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert out.shape == (B, Sq, Hq, Dv)
+    got = emulate_bwd(q, k, v, out, dout, causal=causal, window=window,
+                      layout=True)
+    assert [g.shape[-1] for g in got] == [D, D, Dv]
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v,
+                                                               dout))
+    _, vjp = jax.vjp(lambda a, b, c: rlayers.attention(
+        a, b, c, causal=causal, window=window, chunk=Sq), jq, jk, jv)
+    for g, w in zip(got, vjp(jdo)):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(
+            g.to(torch.bfloat16).float().numpy(),
+            np.asarray(w.astype(jnp.bfloat16), np.float32), rtol=2e-2,
+            atol=2e-2)
+    _beats_one_rounding(q, k, v, out, dout, got, causal, window)
 
 
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal,window", [

@@ -13,7 +13,11 @@ over the rows, is held to 1e-5 of the sum of its terms' magnitudes.
 The attention cases are those of
 ``test_cuda_flash_attention_bwd_equals_plain``, the training shape at
 one row of the batch; the rmsnorm cases those of
-``test_cuda_rmsnorm_bwd_equals_plain``.
+``test_cuda_rmsnorm_bwd_equals_plain``.  At MLA's (D, Dv) = (192, 128)
+(deepseek-v2) the reference's ``attention_ref`` shapes its output with
+q's width, so the plain backward is held to ``jax.vjp`` of the
+reference's MLA attention, ``repro.models.layers.attention``, run in f32
+(on the bf16 values for the bf16 cases, whose result is rounded once).
 
 ``ref.ssd_chunk_bwd_ref`` (what ``csrc/ssd_chunk_bwd.cu`` is held to) is
 held to ``jax.vjp`` of the reference's one-chunk ``ssd_chunk_ref``,
@@ -39,6 +43,7 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.models import layers as rlayers
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, check_stats,
                                                  route)
@@ -127,6 +132,32 @@ def test_attention_bwd_ref_matches_jax_vjp(B, Sq, Sk, Hq, Hkv, D, causal,
         _close(g, w, dtype)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,causal,window", [
+    (1, 512, 512, 4, 4, True, 0),             # deepseek-v2's training rows
+    (1, 130, 130, 4, 2, True, 32),            # GQA, windowed, ragged
+    (1, 77, 130, 4, 1, False, 0),             # rectangular
+    (1, 130, 50, 4, 2, True, 16),             # rows with no visible key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_ref_at_the_mla_pair_matches_jax_vjp(
+        B, Sq, Sk, Hq, Hkv, causal, window, dtype):
+    """The plain backward at (D, Dv) = (192, 128): dq and dk 192 wide, dv
+    128, against ``jax.vjp`` of the reference's MLA attention."""
+    D, Dv = 192, 128
+    arrs = _arrays(Sq + Sk + D, ((B, Sq, Hq, D), (B, Sk, Hkv, D),
+                                 (B, Sk, Hkv, Dv), (B, Sq, Hq, Dv)))
+    q, k, v, dout = (torch.from_numpy(a).to(dtype) for a in arrs)
+    got = ref.attention_bwd_ref(q, k, v, dout, causal=causal, window=window)
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v,
+                                                               dout))
+    _, vjp = jax.vjp(lambda a, b, c: rlayers.attention(
+        a, b, c, causal=causal, window=window, chunk=Sq), jq, jk, jv)
+    for g, w in zip(got, vjp(jdo)):
+        assert torch.isfinite(g.float()).all()
+        _close(g, w.astype(JDT[dtype]), dtype)
+
+
 @pytest.mark.parametrize("D", BWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_takes_the_forward_route(dtype, D):
@@ -145,6 +176,17 @@ def test_flash_bwd_takes_the_forward_route(dtype, D):
                 torch.zeros(2, 2, 3, 10)[..., ::2], None):
         with pytest.raises(ValueError, match="stats"):
             check_stats("t", bad, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_takes_the_forward_route_at_the_mla_pair(dtype):
+    """At (192, 128) the backward's route is the forward's: bf16 on the
+    tensor cores (which needs the forward's row statistics, one row per
+    query as at every pair), f32 on the CUDA cores."""
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert route(dtype, 192, 128) == want
+    check_stats("t", torch.zeros(2, 2, 3, 5),
+                torch.zeros(2, 5, 3, 192, dtype=dtype))
 
 
 @pytest.mark.parametrize("R,D,vec_len", [

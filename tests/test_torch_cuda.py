@@ -792,6 +792,10 @@ def test_cuda_flash_wgmma_keeps_split_p(cuda_device, B, Sq, Sk, Hq, Hkv, D,
     (1, 130, 130, 4, 2, 80, True, 32),
     (1, 160, 160, 4, 2, 256, True, 64),
     (1, 100, 70, 2, 1, 256, False, 0),
+    # D = 192: MLA's (192, 128), v, o and dO 128 wide
+    (1, 256, 256, 4, 4, 192, True, 0),
+    (1, 130, 130, 4, 2, 192, True, 32),
+    (1, 100, 150, 2, 1, 192, False, 0),
 ])
 def test_cuda_flash_bwd_wgmma_keeps_split(cuda_device, B, Sq, Sk, Hq, Hkv,
                                           D, causal, window):
@@ -806,15 +810,16 @@ def test_cuda_flash_bwd_wgmma_keeps_split(cuda_device, B, Sq, Sk, Hq, Hkv,
     40-43%), so at least 20% must differ from that emulation.  Against an
     f64 gradient each output's mean error must also be at least 1.2x
     below the single rounding's (1.36-1.62x on the CPU), and within 2% of
-    the split's."""
+    the split's.  At D = 192 v is 128 wide (MLA's pair)."""
     from attention_bwd_emulation import emulate_bwd, exact_attention_bwd
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
+    Dv = 128 if D == 192 else D
     rng = np.random.default_rng(Sq + Sk + D)
     q, k, v, dout = (torch.from_numpy(
         rng.standard_normal(shp).astype(np.float32)).to(torch.bfloat16)
-        for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
-                    (B, Sq, Hq, D)))
+        for shp in ((B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                    (B, Sq, Hq, Dv)))
     dev = [t.to(cuda_device) for t in (q, k, v, dout)]
     stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32,
                         device=cuda_device)
@@ -825,7 +830,7 @@ def test_cuda_flash_bwd_wgmma_keeps_split(cuda_device, B, Sq, Sk, Hq, Hkv,
         *dev[:3], out, dev[3], causal=causal, window=window, stats=stats)]
     assert flash_attention_bwd.route_launches["wgmma"] == before + 1
     kw = dict(stats=stats.cpu(), causal=causal, window=window,
-              layout=D in (80, 256))
+              layout=D in (80, 192, 256))
     split = emulate_bwd(q, k, v, out.cpu(), dout, **kw)
     one = emulate_bwd(q, k, v, out.cpu(), dout, split=False, **kw)
     exact = exact_attention_bwd(q, k, v, dout, causal=causal, window=window)
@@ -996,12 +1001,14 @@ def test_cuda_flash_mla_pair_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
 
 @pytest.mark.cuda
 def test_cuda_flash_mla_pair_refusals(cuda_device):
-    """Pairs not built raise; the (192, 128) pair writes no row
-    statistics (it has no backward kernel), and ``ops.flash_attention``
-    under grad there raises naming the ROADMAP item before any launch;
-    without grad it launches on the tensor-core route."""
+    """Pairs not built raise; the (192, 128) pair writes row statistics
+    on the tensor-core route, and ``ops.flash_attention`` under grad
+    there runs ``FlashAttentionFn``: the forward with statistics, the
+    backward on the tensor cores, gradients of q's, k's and v's shapes;
+    without grad it launches the forward on the tensor-core route."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     dev = cuda_device
     q = _randn(dev, (1, 64, 2, 192), torch.bfloat16, 1)
     k, v = _mla_kv(dev, torch.bfloat16, 1, 64, 2, 2)
@@ -1009,13 +1016,22 @@ def test_cuda_flash_mla_pair_refusals(cuda_device):
         flash_attention(q, k, k)                 # (192, 192)
     with pytest.raises(ValueError, match="head dim 128 with v's 64"):
         flash_attention(v, v, v[..., :64])
-    stats = torch.empty((2, 1, 2, 64), dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="no backward kernel"):
-        flash_attention(q, k, v, stats=stats)
+    stats = torch.full((2, 1, 2, 64), float("nan"), device=dev)
+    writes = flash_attention.stats_writes
+    flash_attention(q, k, v, stats=stats)
+    assert flash_attention.stats_writes == writes + 1
+    assert torch.isfinite(stats).all() and (stats[1] > 0).all()
+    before = (flash_attention.launches, flash_attention.stats_writes,
+              flash_attention_bwd.route_launches["wgmma"])
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ops.flash_attention(qg, kg, vg).float().sum().backward()
+    assert (flash_attention.launches, flash_attention.stats_writes,
+            flash_attention_bwd.route_launches["wgmma"]) == \
+        (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert [t.grad.shape for t in (qg, kg, vg)] == [q.shape, k.shape,
+                                                     v.shape]
+    assert all(torch.isfinite(t.grad).all() for t in (qg, kg, vg))
     before = flash_attention.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 24"):
-        ops.flash_attention(q.clone().requires_grad_(), k, v)
-    assert flash_attention.launches == before
     wgmma = flash_attention.route_launches["wgmma"]
     with torch.no_grad():
         out = ops.flash_attention(q, k, v)
@@ -1569,6 +1585,13 @@ def test_cuda_rmsnorm_bwd_equals_plain(exact_f32, R, D, dtype):
     (1, 333, 333, 4, 2, 256, False, 0),
     (1, 130, 130, 4, 1, 256, True, 32),
     (1, 70, 100, 4, 2, 256, False, 16),
+    # D = 192: MLA's (192, 128), v 128 wide: deepseek-v2's training shape,
+    # then odd Sq != Sk, windowed and non-causal
+    (2, 512, 512, 128, 128, 192, True, 0),
+    (1, 77, 130, 4, 2, 192, False, 0),
+    (1, 333, 333, 8, 2, 192, True, 64),
+    (1, 130, 50, 4, 2, 192, True, 16),
+    (1, 200, 200, 8, 8, 192, False, 0),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_bwd_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
@@ -1582,11 +1605,12 @@ def test_cuda_flash_attention_bwd_equals_plain(exact_f32, B, Sq, Sk, Hq, Hkv,
                                                      flash_attention_bwd,
                                                      route)
     dev = exact_f32
+    Dv = 128 if D == 192 else D
     q = _randn(dev, (B, Sq, Hq, D), dtype, 1)
     k = _randn(dev, (B, Sk, Hkv, D), dtype, 2)
-    v = _randn(dev, (B, Sk, Hkv, D), dtype, 3)
-    dout = _randn(dev, (B, Sq, Hq, D), dtype, 4)
-    path = route(dtype, D)
+    v = _randn(dev, (B, Sk, Hkv, Dv), dtype, 3)
+    dout = _randn(dev, (B, Sq, Hq, Dv), dtype, 4)
+    path = route(dtype, D, Dv)
     stats = (torch.empty((2, B, Hq, Sq), dtype=torch.float32, device=dev)
              if path == "wgmma" else None)
     out = flash_attention(q, k, v, causal=causal, window=window, stats=stats)
@@ -2232,3 +2256,106 @@ def test_cuda_loss_fn_grads_at_the_models_head_dims_equal_cpu(exact_f32,
     for a, b in zip(g_card, g_cpu):
         if b.numel() >= 64 and b.abs().max() > 0:
             assert _rel(a, b) <= 2e-2
+
+
+def _moe_train_case(arch, dtype):
+    """The smoke MoE config to train on the card: deepseek-v2 with MLA's
+    real head dims (``_mla_cfg``: flash at (192, 128)), llama4-maverick
+    as it is (head dim 16, the CUDA-core kernels); bf16: the full
+    configs' own policy (bf16 params and moments), f32: compute in f32.
+    Returns (config, the flash backward's route)."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = _mla_cfg(dtype) if arch == "deepseek-v2-236b" \
+        else configs.SMOKE[arch]
+    if dtype == torch.bfloat16:
+        return dataclasses.replace(cfg, policy=configs.ARCHS[arch].policy), \
+            ("wgmma" if arch == "deepseek-v2-236b" else "simt")
+    return dataclasses.replace(cfg, policy=dataclasses.replace(
+        cfg.policy, compute_dtype=torch.float32,
+        cache_dtype=torch.float32)), "simt"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_loss_fn_grads_equal_cpu(exact_f32, arch, dtype):
+    """``loss_and_grads`` of the smoke MoE models (``_moe_train_case``) on
+    the card against the CPU on the same weights and tokens: every
+    attention layer's backward one ``flash_attention_bwd`` launch on the
+    route of the config's dtype and head dims, aux > 0 on both; under the
+    f32 policy the loss and every leaf within rtol = atol = 1e-4; in
+    bf16 the loss and the whole gradient within a relative L2 of 2e-2."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import init_model
+    from repro_torch.models.model import tree_map
+    from repro_torch.models.training import loss_and_grads
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg, path = _moe_train_case(arch, dtype)
+    params = init_model(cfg, torch.Generator(exact_f32).manual_seed(4))
+    tok = np.random.default_rng(5).integers(2, cfg.vocab, (2, 64)).astype(
+        np.int32)
+    out = []
+    for dev in (exact_f32, torch.device("cpu")):
+        before = dict(flash_attention_bwd.route_launches)
+        loss, metrics, grads = loss_and_grads(
+            cfg, tree_map(lambda t: t.to(dev), params),
+            {"tokens": torch.from_numpy(tok).to(dev)})
+        if dev.type == "cuda":
+            got = {k: flash_attention_bwd.route_launches[k] - before[k]
+                   for k in before}
+            assert got[path] == cfg.n_layers and sum(got.values()) == \
+                cfg.n_layers, got
+        assert float(metrics["aux"]) > 0
+        out.append((loss.cpu(), [g.cpu() for g in tree_leaves(grads)]))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    assert all(torch.isfinite(g.float()).all() for g in g_card)
+    if dtype == torch.float32:
+        torch.testing.assert_close(l_card, l_cpu, rtol=1e-4, atol=1e-4)
+        for a, b in zip(g_card, g_cpu):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        return
+    assert _rel(l_card, l_cpu) <= 2e-2
+    whole = lambda gs: torch.cat([g.float().reshape(-1) for g in gs])
+    assert _rel(whole(g_card), whole(g_cpu)) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+def test_cuda_moe_trainer_steps_repeat_bit_for_bit(cuda_device, tmp_path,
+                                                   arch):
+    """Two steps of the smoke MoE models' ``Trainer.step_fn`` on the card
+    under the configs' own bf16 policy, run twice from the same seeded
+    state (the step updates its state in place): the losses, aux and the
+    whole state after each step equal bit for bit (what a resume needs;
+    the MoE dispatch's backward is a gather's and a sum's, no atomics)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg, _ = _moe_train_case(arch, torch.bfloat16)
+    tr = Trainer(cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                        total_steps=4),
+                 TrainerConfig(total_steps=4, ckpt_dir=str(tmp_path)),
+                 data=SyntheticLM(cfg, DataConfig(global_batch=2,
+                                                  seq_len=64)),
+                 device=cuda_device)
+    runs = []
+    for _ in range(2):
+        state = tr.init_state(0)
+        seen = []
+        for step in range(2):
+            state, m = tr.step_fn(state, tr.data.batch(step))
+            seen.append((m["loss"].cpu(), m["aux"].cpu(), [
+                t.cpu() for t in adamw.tree_leaves(
+                    {"params": state.params, "m": state.m, "v": state.v})]))
+        runs.append(seen)
+        del state
+    for (la, aa, sa), (lb, ab, sb) in zip(*runs):
+        assert torch.isfinite(la) and float(aa) > 0
+        assert torch.equal(la, lb) and torch.equal(aa, ab)
+        assert all(torch.equal(a, b) for a, b in zip(sa, sb))

@@ -18,7 +18,14 @@ Tolerances, with their reasons:
   is the same elementwise f32 math; the global norm sums in another order
   and ``pow``/``cos`` come from two libraries, which moves a result by an
   f32 rounding or two — of its operands, so a parameter that the update
-  brings near zero is held at the leaf's scale.
+  brings near zero is held at the leaf's scale;
+- under a bf16-param, bf16-moment policy the same f32 rounding or two
+  can move a result across a bf16 rounding boundary: within one bf16
+  step of the reference's, element by element, the step taken at the
+  larger of the two results and the element's old value (a moment that
+  cancels to near zero is held at its operands' scale, as ``OPT`` is);
+- AdamW's in-place update (the Trainer's memory plan) against its
+  out-of-place one: equal bit for bit (the same arithmetic per element).
 
 The reference ``Trainer`` runs on a mesh whose axes are ``Auto``: jax
 0.9's ``make_mesh`` defaults to ``Explicit`` axes, under which the
@@ -337,6 +344,174 @@ def test_apply_updates_matches_reference(step, gscale):
         rtol=1e-6)
 
 
+def _own_policy(arch):
+    """The smoke config under its full config's own policy (the smoke
+    configs keep only the moment dtype; deepseek-v2's and llama4's params
+    are bf16 too)."""
+    return dataclasses.replace(tcfgs.SMOKE[arch],
+                               policy=tcfgs.ARCHS[arch].policy)
+
+
+def _bf16_steps_apart(got, want, old) -> float:
+    """The largest distance between two bf16-valued arrays in bf16 steps:
+    the spacing of bf16 values (2^(e - 7) for a value in [2^e, 2^(e + 1)))
+    at the largest magnitude of the two and the element's ``old``
+    value."""
+    got, want = _np(got).astype(np.float64), np.asarray(want, np.float64)
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)),
+                     np.abs(_np(old)))
+    step = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    return float((np.abs(got - want) / step).max()) if got.size else 0.0
+
+
+@pytest.mark.parametrize("step,gscale", [(0, 1e-3), (4, 10.0)])
+def test_apply_updates_under_bf16_moments_matches_reference(step, gscale):
+    """One AdamW step on the smoke deepseek-v2's tree under the full
+    config's policy (bf16 params, bf16 moments, bf16 gradients) from the
+    same state and gradients: every element of params, m and v within one
+    bf16 step of the reference's, the step equal; in warmup and clipped."""
+    rc, tc = rcfgs.SMOKE["deepseek-v2-236b"], _own_policy("deepseek-v2-236b")
+    assert tc.policy.param_dtype == tc.policy.moment_dtype == torch.bfloat16
+    params, m, v = _ref_state(rc, 8)
+    rng = np.random.default_rng(9)
+    g = jax.tree.map(lambda x: (rng.standard_normal(x.shape) * gscale)
+                     .astype(np.float32), params)
+    ocfg = dict(lr=1e-3, warmup_steps=10, total_steps=100)
+    tstate = convert.train_state_from_numpy(tc, params, m, v, step,
+                                            device="cpu")
+    tg = convert.params_from_numpy(tc, g, device="cpu")
+    # the reference gets the same bf16 values
+    bf = lambda tree: jax.tree.map(
+        lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16), tree)
+    rstate = radamw.TrainState(bf(tstate.params), bf(tstate.m),
+                               bf(tstate.v), jnp.asarray(step, jnp.int32))
+    rnew = jax.jit(lambda s, gg: radamw.apply_updates(
+        radamw.AdamWConfig(**ocfg), s, gg))(rstate, bf(tg))
+    # the update writes the state it is given
+    olds = {name: [(pa, t.clone()) for pa, t in _leaves(getattr(tstate,
+                                                                 name))]
+            for name in ("params", "m", "v")}
+    tnew = adamw.apply_updates(adamw.AdamWConfig(**ocfg), tstate, tg)
+    assert int(tnew.step) == int(rnew.step) == step + 1
+    for name in ("params", "m", "v"):
+        ra = _leaves(jax.tree.map(np.asarray, getattr(rnew, name)))
+        ta = _leaves(getattr(tnew, name))
+        old = olds[name]
+        assert [pa for pa, _ in ra] == [pb for pb, _ in ta]
+        for (pa, a), (_, b), (_, o) in zip(ra, ta, old):
+            assert b.dtype == torch.bfloat16 and str(a.dtype) == "bfloat16"
+            assert _bf16_steps_apart(b, a.astype(np.float32), o) <= 1.0, \
+                f"{name}{pa}"
+
+
+def _whole_leaf_update(cfg, state, grads):
+    """AdamW as one out-of-place expression a leaf, each result cast back
+    to its leaf's dtype: the arithmetic ``adamw.apply_updates`` must
+    repeat element for element."""
+    step = state.step + 1
+    lr = adamw.schedule(cfg, step)
+    scale = torch.clamp(cfg.clip_norm / (adamw.global_norm(grads) + 1e-9),
+                        max=1.0)
+    c1 = 1 - torch.pow(cfg.b1, step.to(torch.float32))
+    c2 = 1 - torch.pow(cfg.b2, step.to(torch.float32))
+
+    def upd(p, m, v, g):
+        g = g.to(torch.float32) * scale
+        m32 = m.to(torch.float32) * cfg.b1 + g * (1 - cfg.b1)
+        v32 = v.to(torch.float32) * cfg.b2 + g * g * (1 - cfg.b2)
+        p32 = p.to(torch.float32)
+        p32 = p32 - lr * (m32 / c1 / (torch.sqrt(v32 / c2) + cfg.eps)
+                          + cfg.weight_decay * p32 * float(p.dim() > 1))
+        return p32.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+
+    out = [upd(*x) for x in zip(*(adamw.tree_leaves(t) for t in (
+        state.params, state.m, state.v, grads)))]
+    return [x for leaf in out for x in leaf], step
+
+
+def _pmv(state):
+    """Each leaf's params, m and v, leaf after leaf."""
+    return [x for leaf in zip(*(adamw.tree_leaves(t) for t in (
+        state.params, state.m, state.v))) for x in leaf]
+
+
+@pytest.mark.parametrize("arch,chunk", [
+    ("smollm-360m", 37),                   # f32 params and moments
+    ("deepseek-v2-236b", 37),              # bf16 params and moments
+    ("deepseek-v2-236b", adamw.INPLACE_CHUNK),
+])
+def test_in_place_update_equals_the_whole_leaf_update(arch, chunk,
+                                                     monkeypatch):
+    """The memory plan: ``apply_updates`` writes each leaf's new params,
+    m and v into the state's own tensors ``INPLACE_CHUNK`` (here
+    ``chunk``) elements at a time, an f32 leaf by in-place ops; three
+    steps of it (warmup, clipped, cosine) equal the whole-leaf
+    out-of-place update bit for bit.  smollm under its f32 policy,
+    deepseek-v2 under its own bf16 one."""
+    monkeypatch.setattr(adamw, "INPLACE_CHUNK", chunk)
+    rc, tc = rcfgs.SMOKE[arch], _own_policy(arch)
+    params, m, v = _ref_state(rc, 10)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    mine = convert.train_state_from_numpy(tc, params, m, v, 1, device="cpu")
+    rng = np.random.default_rng(11)
+    for gscale in (1e-3, 10.0, 1e-2):
+        g = convert.params_from_numpy(tc, jax.tree.map(
+            lambda x: (rng.standard_normal(x.shape) * gscale).astype(
+                np.float32), params), device="cpu")
+        want, step = _whole_leaf_update(ocfg, mine, g)
+        owned = _pmv(mine)
+        mine = adamw.apply_updates(ocfg, mine, g)
+        got = _pmv(mine)
+        assert all(a is b for a, b in zip(owned, got))
+        assert len(got) == len(want) == len(owned)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert torch.equal(mine.step, step)
+
+
+def test_a_train_step_frees_its_gradients_without_the_cyclic_gc(
+        monkeypatch):
+    """Each step's gradients are freed when the step returns, by their
+    reference counts: a reference cycle around them (the recursive
+    closure ``tree_unflatten`` had) kept them until Python's cyclic
+    collector ran, three steps of deepseek-v2's 10.7 GB on the card."""
+    import gc
+    import weakref
+    tc = tcfgs.SMOKE["smollm-360m"]
+    tr = Trainer(tc, tcfg=TrainerConfig(total_steps=3),
+                 data=SyntheticLM(tc, DataConfig(global_batch=2, seq_len=16)),
+                 device="cpu")
+    refs = []
+    update = adamw.apply_updates
+
+    def spy(cfg, state, grads, **kw):
+        refs.append([weakref.ref(t) for t in adamw.tree_leaves(grads)])
+        return update(cfg, state, grads, **kw)
+    monkeypatch.setattr(adamw, "apply_updates", spy)
+    state = tr.init_state(0)
+    state, _ = tr.step_fn(state, tr.data.batch(0))   # lazy imports first
+    gc.collect()
+    gc.disable()
+    try:
+        for step in range(1, 3):
+            state, _ = tr.step_fn(state, tr.data.batch(step))
+        alive = [sum(r() is not None for r in rs) for rs in refs[1:]]
+    finally:
+        gc.enable()
+    assert alive == [0, 0], alive
+
+
+def test_in_place_update_refuses_shared_memory():
+    """In place, two leaves on one storage would be updated twice: the
+    update raises before it writes anything."""
+    w = torch.ones(4, 3)
+    st = adamw.init_state({"a": w, "b": w[:2]})
+    g = {"a": torch.ones(4, 3), "b": torch.ones(2, 3)}
+    with pytest.raises(ValueError, match="share no memory"):
+        adamw.apply_updates(adamw.AdamWConfig(), st, g)
+    assert torch.equal(w, torch.ones(4, 3))
+
+
 def test_weight_decay_follows_the_stacked_leaf_rank():
     """With zero gradients and moments the update is -lr wd p exactly
     where the STACKED leaf has two or more dims: the stacked ``[L, D]``
@@ -348,6 +523,9 @@ def test_weight_decay_follows_the_stacked_leaf_rank():
     ocfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
     st = convert.train_state_from_numpy(tc, params, zeros, zeros, 0,
                                         device="cpu")
+    old = {k: t.clone() for k, t in st.params["segments"]["seg0"]["0"].items()
+           if isinstance(t, torch.Tensor)}
+    ln_f = st.params["ln_f"].clone()
     new = adamw.apply_updates(ocfg, st, convert.params_from_numpy(
         tc, zeros, device="cpu"))
     rnew = radamw.apply_updates(
@@ -357,7 +535,6 @@ def test_weight_decay_follows_the_stacked_leaf_rank():
                           jnp.asarray(0, jnp.int32)),
         jax.tree.map(jnp.asarray, zeros))
     seg = new.params["segments"]["seg0"]["0"]
-    old = st.params["segments"]["seg0"]["0"]
     assert old["ln1"].shape == (tc.n_layers, tc.d_model)
     lr = float(adamw.schedule(ocfg, new.step))
     for name in ("ln1", "ln2"):
@@ -367,9 +544,9 @@ def test_weight_decay_follows_the_stacked_leaf_rank():
                                    rtol=1e-6)
         _opt_close(seg[name],
                    np.asarray(rnew.params["segments"]["seg0"]["0"][name]))
-    assert torch.equal(new.params["ln_f"], st.params["ln_f"])
+    assert torch.equal(new.params["ln_f"], ln_f)
     np.testing.assert_array_equal(np.asarray(rnew.params["ln_f"]),
-                                  st.params["ln_f"].numpy())
+                                  ln_f.numpy())
 
 
 # ------------------------------------------------------------- compression
@@ -599,6 +776,73 @@ def test_trainer_fail_and_resume_match_reference(arch, tmp_path):
     assert len(first) == 6 and res["losses"][:2] == first[4:6]
     assert all(np.isfinite(res["losses"]))
     np.testing.assert_allclose(res["losses"], rres["losses"], rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_trainer_fail_and_resume_repeats_its_losses(arch, tmp_path):
+    """The smoke MoE configs under their full configs' bf16-param,
+    bf16-moment policy: the port's ``Trainer`` with a failure at step 6
+    and a resume from the step-4 checkpoint repeats the first run's
+    losses at steps 4 and 5 bit for bit (the checkpoint carries the bf16
+    leaves as their bits), every loss finite, the restore logged.
+    Port-only: the reference ``Trainer`` cannot resume these configs on
+    jax 0.9 (its checkpoint writes a bf16 leaf as raw 2-byte records,
+    which ``jax.device_put`` refuses on restore)."""
+    tc = _own_policy(arch)
+    assert tc.policy.param_dtype == tc.policy.moment_dtype == torch.bfloat16
+    tr = Trainer(tc, tcfg=TrainerConfig(
+        total_steps=8, ckpt_period=4, ckpt_dir=str(tmp_path)),
+        data=SyntheticLM(tc, DataConfig(global_batch=2, seq_len=32)),
+        device="cpu")
+    with pytest.raises(RuntimeError, match="simulated node failure"):
+        tr.run(fail_at=6)
+    first = [loss for _, loss in tr.history]
+    res = tr.resume()
+    assert res["final_step"] == 8 and len(first) == 6
+    assert {"kind": "restore", "step": 4} in tr.events
+    assert res["losses"][:2] == first[4:6]
+    assert all(np.isfinite(first + res["losses"]))
+    assert all(t.dtype == torch.bfloat16 for t in adamw.tree_leaves(
+        {"params": res["state"].params, "m": res["state"].m}))
+
+
+def test_bf16_leaves_round_trip_through_a_checkpoint(tmp_path):
+    """A bfloat16 leaf is written as its bits and restored bit for bit
+    into a bfloat16 template; f32 leaves are unchanged."""
+    rng = np.random.default_rng(3)
+    state = {"w": torch.from_numpy(rng.standard_normal((5, 7)).astype(
+        np.float32)).to(torch.bfloat16), "b": torch.arange(3.0)}
+    mgr = CheckpointManager(tmp_path / "ck")
+    mgr.save(2, state)
+    back = mgr.restore(2, {"w": torch.zeros(5, 7, dtype=torch.bfloat16),
+                           "b": torch.zeros(3)}, device="cpu")
+    assert back["w"].dtype == torch.bfloat16
+    assert torch.equal(back["w"], state["w"])
+    assert torch.equal(back["b"], state["b"])
+
+
+@pytest.mark.parametrize("w_dtype,b_dtype", [
+    (torch.float32, torch.float32),        # the bf16 leaf into f32
+    (torch.bfloat16, torch.bfloat16),      # the f32 leaf into bf16
+])
+def test_bf16_checkpoint_leaves_keep_their_dtype(tmp_path, w_dtype, b_dtype):
+    """``meta.json`` records a bfloat16 leaf as bfloat16, not as the int16
+    of its bits, and a restore into a template whose dtype disagrees on
+    bfloat16 raises rather than return the bits as integers."""
+    import json
+    state = {"w": torch.ones(5, 7, dtype=torch.bfloat16),
+             "b": torch.arange(3.0)}
+    mgr = CheckpointManager(tmp_path / "ck")
+    mgr.save(2, state)
+    mgr.wait()
+    meta = json.loads((tmp_path / "ck" / "step_00000002" / "meta.json")
+                      .read_text())
+    assert meta["leaves"]["/w"] == [[5, 7], "bfloat16"]
+    assert meta["leaves"]["/b"] == [[3], "float32"]
+    with pytest.raises(TypeError, match="checkpoint's leaf is"):
+        mgr.restore(2, {"w": torch.zeros(5, 7, dtype=w_dtype),
+                        "b": torch.zeros(3, dtype=b_dtype)}, device="cpu")
 
 
 def test_trainer_resume_on_a_new_device_logs_the_remesh(tmp_path):

@@ -76,16 +76,20 @@ def main(argv) -> None:
             (state, loss), c = collective_counts(step, state, batches)
             counts.append(c)
             losses.append(loss)
-            params.append({k: v.numpy() for k, v in _flat(state.params)})
+            # copies: the next window's steps update these tensors in place
+            params.append({k: v.numpy().copy()
+                           for k, v in _flat(state.params)})
         res["windows"][W] = {"params": params, "counts": counts,
                              "losses": losses, "step": int(state.step)}
     tr = Trainer(cfg, opt, TrainerConfig(total_steps=job["dp_steps"],
                                          ckpt_period=2,
                                          ckpt_dir=f"{job['ckpt_dir']}/{rank}"),
                  data=data, device="cpu", group=group)
-    state = tr.init_state(job["seed"])
-    _, c = collective_counts(tr.step_fn, state, data.batch(0))
-    out = tr.run(state=state)
+    # the trainer's step updates the state it is given in place: the
+    # collectives are counted on a state of their own
+    _, c = collective_counts(tr.step_fn, tr.init_state(job["seed"]),
+                             data.batch(0))
+    out = tr.run(state=tr.init_state(job["seed"]))
     res["dp"] = {"counts": c, "losses": out["losses"], "events": tr.events,
                  "stats": out["fabric_stats"],
                  "params": {k: v.numpy() for k, v in
