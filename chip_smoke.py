@@ -227,7 +227,33 @@ Phases (any failure raises and the script exits non-zero):
      and peak memory.  Phase 2 holds the backward at the three training
      shapes on both routes against autograd of the plain version, beside
      SDPA's backward;
- 12. the kernel summary line (with rows for the head dims phase 9 adds,
+ 12. expert parallelism (run inside phase 11, once its card work is done
+     and while its last CPU check's worker, deepseek's, runs on): two
+     ranks sharing the card over gloo with CUDA
+     tensors (``--model-rank`` starts one) form a (1, 2) mesh
+     (``launch.mesh.make_model_mesh``) and serve deepseek-v2-236b at
+     full width and 2 of 60 layers (the dense layer 0 and one MoE layer
+     of 160 experts, 80 a rank, MLA; each rank's shards built leaf by
+     leaf from the seeded global weights): a prefill of 2 x 512 tokens
+     through ``make_prefill_step`` (the expert-parallel route: two
+     ``all_to_all`` and one all-gather along the sequence a MoE layer,
+     no expert weight gathered) and 8 ``make_decode_step`` steps (the
+     global route: one all-gather of the expert rows), every MoE call
+     against ``moe_by_token`` in f32 (per-rank capacity for the prefill,
+     global for the decode steps; every expert drawn whole from the
+     seed), both ranks' ids equal, the kernels'
+     launches (counts zeroed just before, read just after) and the
+     collectives by kind; prefill and decode wall and device ms, the
+     all-to-all's host and device ms, peak memory; at capacity factor 8
+     the mesh prefill's final hidden state against rank 0's one-device
+     prefill of the seeded global weights (relative L2 2e-2, ids equal
+     outside near-ties).  Then the
+     mesh train step at the deepseek-v2 (MLA's own head dims) and llama4
+     smoke configs on (1, 2) and (2, 1) meshes, 3 steps on CUDA tensors
+     and on CPU tensors in the same ranks: loss and gradients card vs CPU
+     within 2e-2, replicated leaves equal bit for bit across the ranks,
+     ``flash_attention_bwd`` and ``rmsnorm_bwd`` launched;
+ 13. the kernel summary line (with rows for the head dims phase 9 adds,
      the shapes phase 10 adds and phase 11's backward), then
      ``{"ok": true, "device": ...}`` last.  Each phase's start time is
      printed as ``[N s]``.
@@ -494,6 +520,33 @@ WIDE_TRAIN_LR = 1e-5
 PHASE11_FLASH_BWD = ((8, 512, 16, 16, 80, 80, False, 0),
                      (4, 1536, 8, 4, 256, 256, True, 1024),
                      (2, 512, 128, 128, 192, 128, True, 0))
+# phase 12: expert parallelism.  deepseek-v2-236b at full width, 2 of 60
+# layers (the dense layer 0, then one MoE layer of 160 routed experts,
+# top-6, 2 shared, MLA) in its bf16-param policy, on a (1, 2) mesh of two
+# ranks sharing the card over gloo with CUDA tensors (NCCL refuses two
+# ranks on one device): 80 experts a rank, each rank's shard built leaf by
+# leaf from the seeded global weights (1.58 B replicated and 1.89 B
+# expert-shard parameters, ~7 GB a rank).  A prefill of B = 2 x 512
+# tokens (the expert-parallel route), then 8 decode steps (S = 1: the
+# global route); at capacity factor 8 (nothing dropped) the mesh
+# prefill's final hidden state against rank 0's one-device prefill.  Then
+# the mesh train step at the deepseek-v2 (MLA's own head dims) and llama4
+# smoke configs on (1, 2) and (2, 1) meshes, B = 4 x S = 64, 3 steps, on
+# CUDA tensors and on CPU tensors in the same ranks, within 2e-2.  Full
+# width training needs ~28 GB of params, moments and gradients a rank
+# before activations: not two ranks on one card (ROADMAP item 25).
+EP_ARCH = "deepseek-v2-236b"
+EP_LAYERS = 2
+EP_MESH = (1, 2)
+EP_B, EP_PROMPT, EP_DECODE = 2, 512, 8
+EP_TIMED = 3                 # timed prefills and decode steps a rank
+EP_EQUAL_CF = 8.0
+EP_SEED = 12
+EP_TRAIN_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+EP_TRAIN_MESHES = ((1, 2), (2, 1))
+EP_TRAIN_B, EP_TRAIN_S, EP_TRAIN_STEPS = 4, 64, 3
+EP_TRAIN_TOL = 2e-2
+EP_RANK_TIMEOUT_S = 400
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -4406,13 +4459,15 @@ def check_wide_training(torch, np, dev, arch, layers, B, S, work):
     return launches, rep
 
 
-def check_phase11(torch, np, dev):
+def check_phase11(torch, np, dev, beside=None):
     """hubert-xlarge, gemma3-4b and deepseek-v2 trained at full width
     (gemma3 and deepseek at a cut depth), one after the other, each freed
     before the next.  The card-vs-CPU checks start first: each model's
     weights go to one CPU worker process, which runs while the card
     trains; each check ends, after all the training, with the card's
-    gradients (``finish_cpu_check``)."""
+    gradients (``finish_cpu_check``).  ``beside()`` (phase 12), when
+    given, runs on the card before the last check, while that check's
+    CPU worker runs on (deepseek's, the longest)."""
     import shutil
     work = ROOT / "build" / "phase11"
     shutil.rmtree(work, ignore_errors=True)
@@ -4432,6 +4487,10 @@ def check_phase11(torch, np, dev):
             torch.cuda.empty_cache()
             log(f"  ({time.perf_counter() - t0:.0f} s for {arch})")
         for arch, *_ in WIDE_TRAIN:
+            if beside is not None and arch == WIDE_TRAIN[-1][0]:
+                beside()
+                gc.collect()
+                torch.cuda.empty_cache()
             t0 = time.perf_counter()
             reps[arch]["card_vs_cpu"] = finish_cpu_check(
                 torch, np, dev, arch, *checks.pop(arch))
@@ -4442,6 +4501,466 @@ def check_phase11(torch, np, dev):
             log(f"  ({time.perf_counter() - t0:.0f} s for {arch}'s check)")
     shutil.rmtree(work, ignore_errors=True)
     return counts, reps
+
+
+# ------------------------------------------------------------- phase 12
+def ep_train_cfg(arch):
+    """A phase-12 training config: the smoke config in its own policy;
+    deepseek-v2's with MLA's own head dims (q and k 128 + 64, v 128), the
+    pair the flash kernels build, where the smoke config's (24, 16) is
+    none of theirs."""
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.SMOKE[arch]
+    if cfg.is_mla:
+        full = configs.ARCHS[arch]
+        cfg = dataclasses.replace(cfg, nope_head_dim=full.nope_head_dim,
+                                  rope_head_dim=full.rope_head_dim,
+                                  v_head_dim=full.v_head_dim)
+    return cfg
+
+
+def near_tie_ids(torch, logits_a, logits_b):
+    """Rows whose greedy ids differ between two ``[B, V]`` logit arrays,
+    each of which must sit at a near-tie of ``logits_b`` (its top two
+    within NEAR_TIE of the top's magnitude), else raise.  Returns the
+    mask of rows kept (ids equal)."""
+    a, b = logits_a.float(), logits_b.float()
+    same = a.argmax(-1) == b.argmax(-1)
+    top2 = torch.topk(b, 2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()
+    if bool((gap[~same] > NEAR_TIE).any()):
+        raise AssertionError(f"greedy ids differ away from a near-tie: "
+                             f"gaps {gap[~same].tolist()}")
+    return same
+
+
+def ep_moe_checks(torch, np, cfg, p_full, calls, M):
+    """Every recorded MoE call of the mesh's serving run against
+    ``moe_by_token`` in f32 on the card: a prefill (split sequence) block
+    by block at the per-rank capacity (each of the M sequence blocks of
+    the rank's rows, as the expert-parallel path routes them), a decode
+    step (S = 1) over its global batch at the global capacity.  Returns
+    one row a call."""
+    rows = []
+    for kind, h, got in calls:
+        if h.shape[1] % M == 0:
+            parts, want = [], []
+            w = h.shape[1] // M
+            for m in range(M):
+                blk = h[:, m * w:(m + 1) * w]
+                out, routed, dropped = moe_by_token(torch, np, cfg, p_full,
+                                                    blk)
+                want.append(out.reshape(blk.shape))
+                parts.append((routed, dropped))
+            want = torch.cat(want, 1)
+            routed, dropped = (sum(x) for x in zip(*parts))
+        else:
+            want, routed, dropped = moe_by_token(torch, np, cfg, p_full, h)
+        err = rel_l2(got.reshape(want.shape), want)
+        rows.append({"kind": kind, "tokens": int(h.shape[0] * h.shape[1]),
+                     "routed": routed, "dropped": dropped, "rel_l2": err})
+        if not err <= MODEL_REL_L2:
+            raise AssertionError(f"phase 12: {kind} MoE layer vs its "
+                                 f"token-by-token evaluation: relative L2 "
+                                 f"{err}")
+    return rows
+
+
+def ep_serving(torch, np, mesh, rank):
+    """deepseek-v2 at full width and EP_LAYERS layers on the (1, 2) mesh:
+    the rank's shards built leaf by leaf from the seeded global weights;
+    a counted prefill and EP_DECODE decode steps (every MoE call against
+    ``moe_by_token``, the collectives of a prefill and of a decode step,
+    the kernels' launches); timed prefills and decode steps with the
+    all-to-all's host and device time; then at capacity factor
+    EP_EQUAL_CF the mesh prefill's final hidden state against rank 0's
+    one-device prefill of the same weights."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import comm, moe
+    from repro_torch.models import model as M
+    from repro_torch.obs.xprof import collective_counts
+    from repro_torch.sharding import ShardCtx
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(configs.ARCHS[EP_ARCH], n_layers=EP_LAYERS)
+    n_moe = sum(cfg.layer_kind(i) == "moe" for i in range(cfg.n_layers))
+    Mm = mesh.axis_size(("model",))
+    rep, stage = {}, {}
+    t0 = time.perf_counter()
+    params = M.init_model_shard(
+        cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED), mesh)
+    torch.cuda.synchronize()
+    rep["build_s"] = time.perf_counter() - t0
+    specs = M.param_placement(cfg, mesh)
+    n_all = sum(t.numel() for _, t in named_leaves(params))
+    n_split = sum(t.numel() for (_, t), s in zip(named_leaves(params),
+                                                  leaves_of(specs)) if s)
+    rep["params_rank"] = {"replicated": n_all - n_split,
+                          "expert_shard": n_split}
+    params = M.cast_params(cfg, params)
+    rng = np.random.default_rng(EP_SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (EP_B, EP_PROMPT)).astype(np.int32)).to(dev)
+    max_len = EP_PROMPT + EP_DECODE + 8
+    prefill, decode = make_prefill_step(cfg, mesh), make_decode_step(cfg,
+                                                                     mesh)
+
+    def serve(counted=False):
+        cache = M.init_cache(cfg, EP_B, max_len, device=dev)
+        coll = {}
+        if counted:
+            (ids, cache), coll["prefill"] = collective_counts(
+                prefill, params, cache, {"tokens": tokens})
+        else:
+            ids, cache = prefill(params, cache, {"tokens": tokens})
+        seq = [ids]
+        for t in range(EP_DECODE):
+            if counted and t == 0:
+                (ids, cache), coll["decode"] = collective_counts(
+                    decode, params, cache, ids[:, None], EP_PROMPT + t)
+            else:
+                ids, cache = decode(params, cache, ids[:, None],
+                                    EP_PROMPT + t)
+            seq.append(ids)
+        return torch.stack(seq, 1), coll
+
+    # the counted run: launches, collectives, every MoE call's input
+    calls, apply = [], moe.moe_apply
+
+    def record(cfg_, p, h, **kw):
+        out = apply(cfg_, p, h, **kw)
+        calls.append(("prefill" if h.shape[1] > 1 else "decode", h, out[0]))
+        return out
+
+    stage["t"] = time.perf_counter()
+    zero_counts()
+    moe.moe_apply = record
+    try:
+        with torch.no_grad():
+            ids, coll = serve(counted=True)
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_apply = apply
+    rep["launches"], rep["routes"] = read_counts()
+    rep["collectives"] = {k: v["by_op"] for k, v in coll.items()}
+    rep["ids"] = ids.cpu().numpy()
+    want = {"prefill": {"alltoall_base_": 2 * n_moe,
+                        "_allgather_base_": n_moe},
+            "decode": {"_allgather_base_": n_moe}}
+    if rep["collectives"] != want:
+        raise AssertionError(f"phase 12: collectives {rep['collectives']}, "
+                             f"expected {want}")
+    # the seeded global weights, every expert, drawn whole on this rank
+    t0 = time.perf_counter()
+    full = M.cast_params(cfg, M.init_model(
+        cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
+    stage["counted_run"] = t0 - stage.pop("t")
+    with torch.no_grad():
+        p_moe = full["segments"]["seg1"]["0"]["moe"]
+        rep["moe_layers"] = ep_moe_checks(torch, np, cfg, p_moe, calls, Mm)
+    del calls
+    t1 = time.perf_counter()
+    stage["moe_checks"] = t1 - t0
+
+    # timings: whole prefills and decode steps, and each all-to-all
+    a2a, orig = [], comm._a2a
+
+    def timed_a2a(x, group):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        y = orig(x, group)
+        e1.record()
+        torch.cuda.synchronize()
+        a2a.append((time.perf_counter() - t, e0.elapsed_time(e1)))
+        return y
+
+    def wall_and_device(fn):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, e0.elapsed_time(e1), out
+
+    with torch.no_grad():
+        cache0 = M.init_cache(cfg, EP_B, max_len, device=dev)
+        pre, dec = [], []
+        for _ in range(EP_TIMED):
+            wall, devms, (ids1, cache) = wall_and_device(
+                lambda: prefill(params, cache0, {"tokens": tokens}))
+            pre.append((wall, devms))
+            wall, devms, _ = wall_and_device(
+                lambda: decode(params, cache, ids1[:, None], EP_PROMPT))
+            dec.append((wall, devms))
+        comm._a2a = timed_a2a
+        try:
+            prefill(params, cache0, {"tokens": tokens})
+        finally:
+            comm._a2a = orig
+    rep["prefill_ms"] = pre
+    rep["decode_ms"] = dec
+    rep["a2a_ms"] = [(h * 1e3, d) for h, d in a2a]
+    t2 = time.perf_counter()
+    stage["timings"] = t2 - t1
+    # one exchange's buffer a rank: E x C rows of D bf16 values
+    rep["a2a_bytes"] = cfg.n_experts * moe.capacity_for(
+        cfg, EP_B * EP_PROMPT // Mm) * cfg.d_model * 2
+
+    # nothing dropped: the mesh prefill against one device's
+    cfg8 = dataclasses.replace(cfg, capacity_factor=EP_EQUAL_CF)
+    with torch.no_grad():
+        cache = M.init_cache(cfg, EP_B, max_len, device=dev)
+        h_mesh, _ = M.forward(cfg8, params, tokens, cache=cache,
+                              ctx=ShardCtx(mesh))
+        W = M.unembed_matrix(cfg, params).to(h_mesh.dtype)
+        rep["equal"] = None
+        if rank == 0:
+            h_one, _ = M.forward(cfg8, full, tokens, cache=cache)
+            kept = near_tie_ids(torch, h_mesh[:, -1] @ W, h_one[:, -1] @ W)
+            rep["equal"] = {"rel_l2": rel_l2(h_mesh, h_one),
+                            "ids_kept": int(kept.sum()),
+                            "rows": int(kept.numel())}
+            del h_one
+    del full, h_mesh
+    stage["one_device"] = time.perf_counter() - t2
+    rep["stage_s"] = stage
+    rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def leaves_of(tree):
+    """A spec tree's leaves (tuples) in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves_of(tree[k])]
+    return [tree]
+
+
+def ep_training(torch, np, meshes, rank):
+    """The mesh train step at the deepseek-v2 and llama4 smoke configs
+    (``ep_train_cfg``) on each mesh, on CUDA tensors (the kernels'
+    launches counted) and then on CPU tensors in the same ranks: the first
+    step's loss and gradients and EP_TRAIN_STEPS steps' losses, and a
+    digest of every replicated leaf after the steps (the ranks compare
+    theirs)."""
+    import hashlib
+
+    from repro_torch.launch.steps import make_grad_step, make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import shard_index
+    out = {}
+    for arch in EP_TRAIN_ARCHS:
+        cfg = ep_train_cfg(arch)
+        glob = M.init_model(cfg, torch.Generator().manual_seed(WEIGHT_SEED))
+        rng = np.random.default_rng(EP_SEED + 1)
+        batches = [{"tokens": rng.integers(0, cfg.vocab, (
+            EP_TRAIN_B, EP_TRAIN_S)).astype(np.int32)}
+            for _ in range(EP_TRAIN_STEPS)]
+        opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=20)
+        for shape, mesh in meshes.items():
+            specs = M.param_placement(cfg, mesh)
+            i, n = shard_index(mesh, ("data",))
+            b = EP_TRAIN_B // n
+            mine = [{k: v[i * b:(i + 1) * b] for k, v in bt.items()}
+                    for bt in batches]
+            res = {}
+            for where in ("cuda", "cpu"):
+                dev = torch.device(where)
+                p = adamw.tree_map(lambda t: t.to(dev),
+                                   M.shard_model(cfg, glob, mesh))
+                if where == "cuda":
+                    zero_counts()
+                loss, _, grads = make_grad_step(cfg, mesh=mesh)(p, mine[0])
+                step = make_train_step(cfg, opt, mesh=mesh)
+                state = adamw.init_state(p, cfg.policy.moment_dtype)
+                losses = []
+                for bt in mine:
+                    state, m = step(state, bt)
+                    losses.append(float(m["loss"]))
+                r = {"loss": float(loss), "losses": losses,
+                     "grads": [(k, g.detach().cpu()) for k, g in
+                               named_leaves(grads)]}
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                    r["launches"], r["routes"] = read_counts()
+                r["digests"] = {
+                    k: hashlib.sha256(t.detach().cpu().contiguous().view(
+                        torch.uint8).numpy().tobytes()).hexdigest()
+                    for (k, t), s in zip(named_leaves(state.params),
+                                         leaves_of(specs)) if s == ()}
+                res[where] = r
+            cmp = compare_grads((res["cuda"]["loss"], res["cuda"]["grads"]),
+                                (res["cpu"]["loss"], res["cpu"]["grads"]))
+            steps_err = max(abs(a - b) / abs(b) for a, b in zip(
+                res["cuda"]["losses"], res["cpu"]["losses"]))
+            if not (cmp["loss"] <= EP_TRAIN_TOL
+                    and cmp["gradient"] <= EP_TRAIN_TOL
+                    and steps_err <= EP_TRAIN_TOL):
+                raise AssertionError(
+                    f"phase 12: {arch} on {shape}, card vs CPU: loss "
+                    f"{cmp['loss']}, gradient {cmp['gradient']}, the "
+                    f"steps' losses {steps_err}")
+            out[(arch, shape)] = {
+                "loss_err": cmp["loss"], "grad_rel_l2": cmp["gradient"],
+                "worst_leaf": cmp["worst_leaf"], "steps_loss_err": steps_err,
+                "losses": {w: res[w]["losses"] for w in res},
+                "launches": res["cuda"]["launches"],
+                "routes": res["cuda"]["routes"],
+                "digests": {w: res[w]["digests"] for w in res}}
+    return out
+
+
+def model_rank(rank: int, world: int, rdzv: str, out_path: str) -> None:
+    """One rank of phase 12 (``chip_smoke.py --model-rank``): a gloo world
+    of ``world`` ranks sharing the card (NCCL refuses two ranks on one
+    device), CUDA tensors through gloo; the (1, 2) mesh serves deepseek-v2
+    at full width (``ep_serving``), then the (1, 2) and (2, 1) meshes
+    train the smoke configs (``ep_training``).  Pickles what it saw."""
+    import datetime
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_model_mesh
+
+    stage = {"begin": time.perf_counter()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the host's CPUs less those of phase 11's CPU worker, which runs on
+    torch.set_num_threads(max(1, (len(os.sched_getaffinity(0))
+                                  - PHASE11_CPU_THREADS) // world))
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdzv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=EP_RANK_TIMEOUT_S))
+    meshes = {shape: make_model_mesh(shape, backend="gloo")
+              for shape in EP_TRAIN_MESHES}
+    stage["start"] = time.perf_counter()
+    out = {"serve": ep_serving(torch, np, meshes[EP_MESH], rank)}
+    stage["serve"] = time.perf_counter()
+    out["train"] = ep_training(torch, np, meshes, rank)
+    stage["train"] = time.perf_counter()
+    names = list(stage)
+    out["stage_s"] = {b: stage[b] - stage[a] for a, b in zip(names, names[1:])}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def check_phase12(torch, np):
+    """Start the two ranks of phase 12 and check what they saw: equal ids
+    on both, the collectives, the MoE layers, the mesh prefill against one
+    device, the training checks, replicated leaves equal bit for bit
+    across the ranks, and the kernels' launches."""
+    import pickle
+    import shutil
+    tmp = ROOT / "build" / "phase12"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    world = EP_MESH[0] * EP_MESH[1]
+    procs = []
+    for r in range(world):
+        with open(tmp / f"log{r}.txt", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--model-rank",
+                 str(r), str(world), str(tmp / "rdzv"),
+                 str(tmp / f"out{r}.pkl")],
+                stdout=out, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=EP_RANK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError("phase 12: a rank did not finish in time")
+    finally:
+        stop_ranks(procs)
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 12: rank {r} exited {p.returncode}"
+                                 f":\n{(tmp / f'log{r}.txt').read_text()[-4000:]}")
+    res = [pickle.loads((tmp / f"out{r}.pkl").read_bytes())
+           for r in range(world)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    s = [x["serve"] for x in res]
+    if any(not np.array_equal(x["ids"], s[0]["ids"]) for x in s):
+        raise AssertionError("phase 12: the ranks' greedy ids differ")
+    eq = s[0]["equal"]
+    if not (eq["rel_l2"] <= MODEL_REL_L2 and eq["ids_kept"] >= 1):
+        raise AssertionError(f"phase 12: mesh prefill vs one device {eq}")
+    counts = {}
+    for r, x in enumerate(s):
+        need = ("rmsnorm", "flash_attention")   # MLA decodes by einsums
+        if min(x["launches"][k] for k in need) < 1 \
+                or x["routes"].get("simt", 0):
+            raise AssertionError(f"phase 12: rank {r} serving launches "
+                                 f"{x['launches']}, routes {x['routes']}")
+        log(f"  rank {r}: {x['params_rank']['replicated'] / 1e9:.2f} B "
+            f"replicated + {x['params_rank']['expert_shard'] / 1e9:.2f} B "
+            f"expert-shard parameters built in {x['build_s']:.1f} s; "
+            f"collectives {x['collectives']}; peak memory "
+            f"{x['peak_memory_gb']:.2f} GB")
+        log(f"  rank {r}: prefill {EP_B} x {EP_PROMPT} wall/device ms "
+            f"{[(round(a, 3), round(b, 3)) for a, b in x['prefill_ms']]}; "
+            f"decode step {[(round(a, 3), round(b, 3)) for a, b in x['decode_ms']]}"
+            f"; all-to-all host/device ms "
+            f"{[(round(a, 3), round(b, 3)) for a, b in x['a2a_ms']]} "
+            f"({x['a2a_bytes'] / 1e6:.1f} MB a rank each way, through the "
+            f"host: gloo, not NVLink)")
+        log("  rank " + str(r) + ": MoE calls == token-by-token: " + "; ".join(
+            f"{m['kind']} {m['tokens']} tokens: {m['routed']} routed, "
+            f"{m['dropped']} dropped, relative L2 {m['rel_l2']:.4f}"
+            for m in x["moe_layers"][:3]) + f" ... ({len(x['moe_layers'])} "
+            "calls)")
+        log(f"  rank {r}: serving stages (s) "
+            f"{ {k: round(v, 2) for k, v in x['stage_s'].items()} }")
+        counts[f"serve{r}"] = x["launches"]
+    log(f"  mesh prefill at capacity factor {EP_EQUAL_CF} vs rank 0's one "
+        f"device: final hidden state relative L2 {eq['rel_l2']:.5f}, ids "
+        f"equal on {eq['ids_kept']} of {eq['rows']} rows (others near-ties)")
+    t0, t1 = (x["train"] for x in res)
+    for key, a in t0.items():
+        b = t1[key]
+        for where in ("cuda", "cpu"):
+            if a["digests"][where] != b["digests"][where]:
+                bad = [k for k in a["digests"][where]
+                       if a["digests"][where][k] != b["digests"][where][k]]
+                raise AssertionError(f"phase 12: {key} on {where}: "
+                                     f"replicated leaves differ across the "
+                                     f"ranks: {bad[:5]}")
+        for x in (a, b):
+            if x["launches"]["flash_attention_bwd"] < 1 \
+                    or x["launches"]["rmsnorm_bwd"] < 1:
+                raise AssertionError(f"phase 12: {key} training launches "
+                                     f"{x['launches']}")
+        counts[key] = a["launches"]
+        log(f"  train {key[0]} on {key[1]}: card vs CPU loss "
+            f"{a['loss_err']:.2e}, gradient relative L2 "
+            f"{a['grad_rel_l2']:.4f} (worst leaf {a['worst_leaf']:.4f}), "
+            f"{EP_TRAIN_STEPS} steps' losses {a['steps_loss_err']:.2e}; "
+            f"card losses {a['losses']['cuda']}; replicated leaves equal "
+            f"bit for bit on both ranks; flash_attention_bwd "
+            f"{a['launches']['flash_attention_bwd']}, rmsnorm_bwd "
+            f"{a['launches']['rmsnorm_bwd']} launches")
+    rep = {"serve": [{k: v for k, v in x.items() if k != "ids"} for x in s],
+           "train": {f"{k[0]} {k[1]}": {kk: vv for kk, vv in v.items()
+                                        if kk != "digests"}
+                     for k, v in t0.items()},
+           "stage_s": [x["stage_s"] for x in res]}
+    log(f"  rank stages (s): {[x['stage_s'] for x in res]}")
+    return counts, rep
 
 
 def main() -> None:
@@ -4647,15 +5166,29 @@ def main() -> None:
     log("phase 11: training " + ", ".join(
         f"{a} ({n} layers, {b} x {s})" for a, n, b, s, *_ in WIDE_TRAIN)
         + f" at full width, {WIDE_TRAIN_STEPS} steps {elapsed()}")
-    p11_counts, report["phase11"] = check_phase11(torch, np, dev)
+    # ---- 12. expert parallelism over a mesh of two ranks on the card,
+    # run inside phase 11 while its last CPU check's worker runs on
+    p12 = {}
+
+    def phase12():
+        log(f"phase 12: expert parallelism, {EP_ARCH} ({EP_LAYERS} layers) "
+            f"served at full width on a {EP_MESH} mesh of gloo ranks sharing "
+            f"the card, then the mesh train step at the smoke configs, "
+            f"beside phase 11's last CPU check {elapsed()}")
+        _, p12["report"] = check_phase12(torch, np)
+        log(f"  (phase 12 ends, phase 11's last check follows) {elapsed()}")
+
+    p11_counts, report["phase11"] = check_phase11(torch, np, dev,
+                                                  beside=phase12)
+    report["phase12"] = p12["report"]
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     report["script_s"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"phases 1-11 took {report['script_s']:.0f} s")
+    log(f"phases 1-12 took {report['script_s']:.0f} s")
 
-    # ---- 12. summary lines: each kernel's row at the main path's shapes
+    # ---- 13. summary lines: each kernel's row at the main path's shapes
     main_shape = {"lease_probe": [64, 8], "miss_round": [8, 64, 1024],
                   "write_grant": [8, 64, 1024],
                   "rmsnorm": [SERVE_B * PROMPT_LEN, 960],
@@ -4759,5 +5292,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--fabric-rank"]:
         r, w, b, z, o = sys.argv[2:7]
         fabric_rank(int(r), int(w), b, z, o)
+    elif sys.argv[1:2] == ["--model-rank"]:
+        r, w, z, o = sys.argv[2:6]
+        model_rank(int(r), int(w), z, o)
     else:
         main()

@@ -9,7 +9,8 @@ its ``TrainState`` holds a params tree, moments m and v of the same
 shape and an int32 step.  The port keeps these layouts, so converting is a walk of the
 port's spec that checks every leaf's path and shape and makes it a tensor
 (``numpy`` arrays in, including the ``bfloat16`` arrays JAX hands out).
-Tests use this so that both packages compute with the same numbers.
+Tests use this so that both packages compute with the same numbers;
+``params_shard_from_numpy`` gives a mesh rank its shards of such a tree.
 """
 from __future__ import annotations
 
@@ -52,6 +53,26 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
     param dtype on ``device`` (None = the CUDA card)."""
     return _convert(model_spec(cfg), tree, cfg.policy.param_dtype,
                     resolve_device(device))
+
+
+def params_shard_from_numpy(cfg: ModelConfig, tree: dict, mesh,
+                            device=None) -> dict:
+    """The reference's parameter tree (numpy leaves, global) as this
+    rank's shards of the port's on ``mesh`` (``models.model.shard_model``:
+    the MoE layers' router and expert stacks sliced by their specs, every
+    other leaf whole), each leaf checked and converted on the host before
+    it is sliced and moved to ``device`` (None = the CUDA card)."""
+    from repro_torch.models.model import param_placement
+    from repro_torch.models.params import shard_params
+    host = _convert(model_spec(cfg), tree, cfg.policy.param_dtype, "cpu")
+    dev = resolve_device(device)
+    return _to(shard_params(host, param_placement(cfg, mesh), mesh), dev)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def _leaf_shapes(tree):

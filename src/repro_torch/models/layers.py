@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.models import comm
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
@@ -88,7 +89,7 @@ def _chunk_loss(hb, unembed, lb, mb):
     return ((lse - tgt) * mb).sum()
 
 
-def chunked_xent(h, unembed, labels, mask=None, chunk=512):
+def chunked_xent(h, unembed, labels, mask=None, chunk=512, group=None):
     """Next-token CE without holding ``[B, S, V]`` logits for autograd.
 
     h: [B, S, D] (already shifted so h[t] predicts labels[t]);
@@ -96,7 +97,11 @@ def chunked_xent(h, unembed, labels, mask=None, chunk=512):
     ``min(chunk, S)`` positions (S must be a multiple); under grad each
     chunk's loss is checkpointed, so its logits are recomputed in the
     backward rather than kept.  Returns the masked mean in f32 over
-    ``max(count, 1)``, summed chunk by chunk as the reference's scan."""
+    ``max(count, 1)``, summed chunk by chunk as the reference's scan.
+    With a data-parallel ``group``, the sum and the count are each summed
+    over its ranks before the division (``comm.ratio``): the one CE of
+    the global batch, the reference's, whatever each rank's mask
+    holds."""
     B, S, D = h.shape
     chunk = min(chunk, S)
     if S % chunk:
@@ -116,7 +121,7 @@ def chunked_xent(h, unembed, labels, mask=None, chunk=512):
                 else _chunk_loss(*args))
         tot = tot + part
         cnt = cnt + args[3].sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return comm.ratio(tot, cnt, group)
 
 
 def update_cache(cache_kv, new_kv, pos: int):

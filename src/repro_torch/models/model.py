@@ -16,10 +16,20 @@ and ``v``), so the tests compare like with like; the reference's
 ``lax.scan`` over the stack becomes a Python loop over the layer index,
 each stacked leaf unbound into its layers once (so autograd stacks the
 layers' gradients in one step).  Every block kind of the reference is
-ported: dense, MoE (``models/moe.py``, the one-device dispatch), SSM and
-shared attention, with GQA or MLA, global or windowed.  A windowed
+ported: dense, MoE (``models/moe.py``: the one-device dispatch, and on a
+mesh the expert-parallel one), SSM and shared attention, with GQA or MLA, global or windowed.  A windowed
 layer's decode step attends to the whole filled cache, as the
 reference's does (``layers.attention``; ROADMAP Queue 3 R1).
+
+On a mesh (``ctx = sharding.ShardCtx(mesh)``, the reference's ``ctx``)
+a rank holds its data rank's rows of the batch, replicated over its
+model ranks, and the parameters as ``param_placement`` places them: the
+MoE layers' router and expert stacks as their specs' shards, every other
+leaf whole.  Attention, the norms and the dense FFN compute replicated
+over the model ranks (tensor parallelism and FSDP of the dense weights
+change the layout, not the values, and are not ported); the MoE layers
+run expert-parallel (``moe.moe_apply``); ``loss_fn``'s CE is the ratio
+of the data group's summed loss and count.
 
 The MoE layers' load-balance losses are summed only for ``loss_fn``
 (``ce + 0.01 * aux``, as the reference's); ``forward``, ``prefill`` and
@@ -49,7 +59,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import chunked_xent, rmsnorm, swiglu
 from repro_torch.models.params import (P, map_with_path, materialize,
-                                       stack_specs)
+                                       materialize_shard, pspecs,
+                                       shard_params, stack_specs)
+from repro_torch.sharding import NOSHARD, ShardCtx
 
 @dataclasses.dataclass(frozen=True)
 class LayerDesc:
@@ -207,7 +219,8 @@ def cast_params(cfg: ModelConfig, params: dict) -> dict:
 
 # ------------------------------------------------------------------ forward
 def _apply_block(cfg: ModelConfig, desc: LayerDesc, bp: dict, h, *,
-                 positions, cache, pos, shared_attn, want_aux=False):
+                 positions, cache, pos, shared_attn, want_aux=False,
+                 ctx: ShardCtx = NOSHARD):
     """One block: (h, new_cache, aux), aux the MoE layer's load-balance
     loss when ``want_aux``, else None."""
     if desc.kind == "ssm":
@@ -224,7 +237,8 @@ def _apply_block(cfg: ModelConfig, desc: LayerDesc, bp: dict, h, *,
     hn = rmsnorm(h, p["ln2"], cfg.rms_eps)
     aux = None
     if desc.kind == "moe":
-        m, aux = moe_mod.moe_apply(cfg, bp["moe"], hn, want_aux=want_aux)
+        m, aux = moe_mod.moe_apply(cfg, bp["moe"], hn, want_aux=want_aux,
+                                   ctx=ctx)
     else:
         m = swiglu(hn, p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"],
                    h.dtype)
@@ -236,7 +250,7 @@ def _add(a, b):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
-            frames=None, cache=None, pos=None):
+            frames=None, cache=None, pos=None, ctx: ShardCtx = NOSHARD):
     """tokens: [B, S] int (None with ``frames``); ``frames`` [B, S,
     d_frontend]: audio frame embeddings, projected by ``frontend`` in
     place of the token embedding; ``patches`` [B, n, D]: vision patch
@@ -244,14 +258,16 @@ def forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
     (host int) = cache fill level for a decode step.  Returns (h_final
     [B, S, D], new_cache); the given cache is never written.  With
     ``cfg.policy.remat``, no cache and grad mode on (training), each layer
-    of a stacked segment is checkpointed."""
+    of a stacked segment is checkpointed.  On a mesh (``ctx``), the
+    inputs and the result are this rank's rows."""
     h, new_cache, _ = _forward(cfg, params, tokens, patches=patches,
-                               frames=frames, cache=cache, pos=pos)
+                               frames=frames, cache=cache, pos=pos, ctx=ctx)
     return h, new_cache
 
 
 def _forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
-             frames=None, cache=None, pos=None, want_aux=False):
+             frames=None, cache=None, pos=None, want_aux=False,
+             ctx: ShardCtx = NOSHARD):
     """``forward``, and the sum of the MoE layers' load-balance losses
     (an f32 scalar, 0 without MoE layers) when ``want_aux``, else None:
     (h_final, new_cache, aux)."""
@@ -286,7 +302,7 @@ def _forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
                 h, nc, a = _apply_block(
                     cfg, desc, bp[str(j)], h, positions=positions,
                     cache=None if bc is None else bc[str(j)], pos=pos,
-                    shared_attn=shared_attn, want_aux=want_aux)
+                    shared_attn=shared_attn, want_aux=want_aux, ctx=ctx)
                 ncs[str(j)] = {} if nc is None else nc
                 aux = _add(aux, a)
             return h, ncs, aux
@@ -322,17 +338,22 @@ def unembed_matrix(cfg: ModelConfig, params: dict):
     return params["unembed"]
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            ctx: ShardCtx = NOSHARD):
     """Training loss.  batch: ``tokens`` [B, S] (or ``labels`` and an
     optional ``mask``; an encoder always takes them), and ``patches`` or
     ``frames`` for a frontend, tensors on the params' device.  Next-token
     CE: labels are the tokens rolled by one, the last position masked; the
     loss is ``ce + 0.01 * aux``, aux the MoE layers' summed load-balance
     losses (0 without MoE layers).  Returns (loss, {"ce", "aux"}), f32
-    scalars."""
+    scalars.  With ``ctx.data_group`` (a mesh's data axes, or a
+    data-parallel group) the batch is this rank's rows and the CE that of
+    the global batch: its masked sum and count summed over the group
+    before the division, as the reference's one ratio over the whole
+    batch; the ranks' mean gradient is the global loss's."""
     tokens = batch.get("tokens")
     h, _, aux = _forward(cfg, params, tokens, patches=batch.get("patches"),
-                         frames=batch.get("frames"), want_aux=True)
+                         frames=batch.get("frames"), want_aux=True, ctx=ctx)
     W = unembed_matrix(cfg, params)
     if cfg.causal and "labels" not in batch:
         ll = torch.roll(tokens, -1, dims=1)       # h[t] predicts tokens[t+1]
@@ -341,7 +362,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict):
     else:
         ll = batch["labels"]
         mask = batch.get("mask")
-    ce = chunked_xent(h, W, ll, mask)
+    ce = chunked_xent(h, W, ll, mask, group=ctx.data_group)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
@@ -354,19 +375,21 @@ def _next_ids(cfg: ModelConfig, params: dict, h):
 
 # ------------------------------------------------------------------ serving
 def prefill(cfg: ModelConfig, params: dict, tokens, cache, *, patches=None,
-            frames=None):
+            frames=None, ctx: ShardCtx = NOSHARD):
     """Fill the cache from a prompt (tokens, or ``frames``; ``patches``
     over the first positions, as in ``forward``); returns
-    (next_token_ids [B], cache)."""
+    (next_token_ids [B], cache), on a mesh this rank's rows."""
     h, new_cache = forward(cfg, params, tokens, patches=patches,
-                           frames=frames, cache=cache)
+                           frames=frames, cache=cache, ctx=ctx)
     return _next_ids(cfg, params, h), new_cache
 
 
-def decode_step(cfg: ModelConfig, params: dict, cache, tokens, pos: int):
+def decode_step(cfg: ModelConfig, params: dict, cache, tokens, pos: int,
+                ctx: ShardCtx = NOSHARD):
     """One decode step.  tokens: [B, 1]; pos: host int (cache fill
     level).  Returns (next_token_ids [B], new_cache)."""
-    h, new_cache = forward(cfg, params, tokens, cache=cache, pos=pos)
+    h, new_cache = forward(cfg, params, tokens, cache=cache, pos=pos,
+                           ctx=ctx)
     return _next_ids(cfg, params, h), new_cache
 
 
@@ -383,3 +406,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     return map_with_path(cache_spec(cfg, batch, max_len),
                          lambda _, p: torch.zeros(p.shape, device=dev,
                                                   dtype=cfg.policy.cache_dtype))
+
+
+# ------------------------------------------------------------------ meshes
+def param_placement(cfg: ModelConfig, mesh) -> dict:
+    """Every leaf's spec as a rank of ``mesh`` holds it: the MoE layers'
+    router and expert stacks (``moe/router``, ``moe/wg``, ``moe/wi``,
+    ``moe/wo``) under their ``pspecs``, every other leaf () (whole,
+    replicated)."""
+    spec = model_spec(cfg)
+    full = pspecs(spec, mesh)
+
+    def walk(sp, fs, path):
+        if isinstance(sp, P):
+            parts = path.split("/")
+            held = len(parts) >= 2 and parts[-2] == "moe" \
+                and parts[-1] in moe_mod.SHARDED
+            return fs if held else ()
+        return {k: walk(sp[k], fs[k], f"{path}/{k}") for k in sp}
+
+    return walk(spec, full, "")
+
+
+def init_model_shard(cfg: ModelConfig, gen: torch.Generator, mesh):
+    """This rank's shards of ``init_model(cfg, gen)`` under
+    ``param_placement``, drawn one leaf at a time (``materialize_shard``):
+    every rank of the mesh draws the same global weights."""
+    return materialize_shard(model_spec(cfg), param_placement(cfg, mesh),
+                             gen, mesh, cfg.policy.param_dtype)
+
+
+def shard_model(cfg: ModelConfig, params: dict, mesh) -> dict:
+    """This rank's shards of a global parameter tree (or of a moments
+    tree of the same structure)."""
+    return shard_params(params, param_placement(cfg, mesh), mesh)

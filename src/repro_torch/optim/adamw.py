@@ -105,12 +105,31 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum over leaves (sorted-key order) of each leaf's sum
-    of squares in f32."""
+    of squares in f32.  On a ``mesh``, ``specs`` (a tree of spec tuples,
+    ``models.model.param_placement``) says which leaves are shards: a
+    shard's sum of squares is summed over the group of the axes it is
+    split over, so every rank takes the norm of the whole tree, and the
+    same one (a replicated leaf's gradient is equal on every rank)."""
+    sq = [torch.sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(tree)]
+    if mesh is not None:
+        from repro_torch.models.comm import all_reduce_sum
+        from repro_torch.sharding import split_axes
+        by_axes: dict = {}
+        for i, spec in enumerate(tree_leaves(specs)):
+            axes = split_axes(spec)
+            key = tuple(a for a in mesh.axis_names if a in axes)
+            if key:
+                by_axes.setdefault(key, []).append(i)
+        for key, idx in by_axes.items():
+            summed = all_reduce_sum(torch.stack([sq[i] for i in idx]),
+                                    mesh.group(key))
+            for j, i in enumerate(idx):
+                sq[i] = summed[j]
     total = None
-    for x in tree_leaves(tree):
-        s = torch.sum(torch.square(x.to(torch.float32)))
+    for s in sq:
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -123,7 +142,8 @@ def _bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, state: TrainState, grads) -> TrainState:
+def apply_updates(cfg: AdamWConfig, state: TrainState, grads,
+                  gnorm=None) -> TrainState:
     """One AdamW step: gradients clipped to ``clip_norm`` by their global
     norm, f32 moments, bias-corrected, decoupled weight decay on every
     leaf whose STACKED tensor has two or more dims (so the stacked
@@ -137,7 +157,11 @@ def apply_updates(cfg: AdamWConfig, state: TrainState, grads) -> TrainState:
     in-place ops on it, a leaf of another dtype through an f32 copy of the
     chunk that is cast back; either way each element's arithmetic and
     rounding are those of the whole-leaf update, the reference's.  params,
-    m and v must be contiguous tensors that share no memory."""
+    m and v must be contiguous tensors that share no memory.  ``gnorm``
+    is the gradients' global norm when the caller has taken it (on a
+    mesh: ``global_norm(grads, specs, mesh)``, the whole tree's); None
+    takes ``global_norm(grads)``.  On a mesh the moments are the params'
+    shards, as the reference's ``state_shardings`` place them."""
     trees = (state.params, state.m, state.v)
     owned = [t for tree in trees for t in tree_leaves(tree) if t.numel()]
     if len({t.data_ptr() for t in owned}) != len(owned) \
@@ -146,7 +170,7 @@ def apply_updates(cfg: AdamWConfig, state: TrainState, grads) -> TrainState:
                          "contiguous tensors that share no memory")
     step = state.step + 1
     lr = schedule(cfg, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.clip_norm / (gn + 1e-9), max=1.0)
     c1 = _bias_correction(cfg.b1, step)
     c2 = _bias_correction(cfg.b2, step)

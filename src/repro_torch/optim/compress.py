@@ -6,9 +6,13 @@ Gradients cross the wire as int8 (4x fewer bytes than f32); the
 quantization error is fed back into the next step's gradient, so the
 optimizer sees an unbiased long-run signal (the standard EF-SGD result).
 The reference's ``compressed_psum`` and ``make_compressed_allreduce``
-(an int8 reduce-scatter and all-gather inside ``shard_map``) have no
-consumer in the reference outside its tests, and are not ported yet
-(ROADMAP Queue 1 item 12f's remainder).
+(an int8 reduce-scatter and all-gather inside ``shard_map``) are not
+ported: no module of the reference calls them, and they cannot run
+there, so nothing could hold a port to them.  ``compressed_psum`` hands
+``jax.lax.all_to_all`` ``q[None]``, whose split axis has size 1 where
+the mesh axis has n, so ``make_compressed_allreduce`` raises
+``ValueError`` on every mesh (ROADMAP "Findings about the reference",
+R2; Queue 1 item 12f's remainder).
 """
 from __future__ import annotations
 

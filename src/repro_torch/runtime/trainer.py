@@ -5,7 +5,14 @@ Checkpoint/restart (the write-through manager), straggler detection (a
 per-step wall-time watchdog with an EMA and a threshold), simulated node
 failures and resume, optionally on another device or over a
 ``torch.distributed`` group (the counterpart of the reference's
-``resume(mesh=)``: state is restored onto the new placement).  The
+``resume(mesh=)``: state is restored onto the new placement).  On a
+(data, model) ``mesh`` (``launch.mesh.make_model_mesh``) the step is the
+mesh step, the state this rank's shards of the seeded global init
+(``models.model.init_model_shard``), and a checkpoint holds the global
+tensors, gathered from the shards as the reference's holds its global
+arrays; a resume on the same mesh restores them and takes its shards
+again.  Re-meshing on resume under a mesh is not ported (ROADMAP item
+25).  The
 trainer owns the state it trains: ``step_fn`` (and so ``run``) writes
 each step's weights and moments into the tensors of the state it is
 given (``adamw.apply_updates`` is in place), the memory plan that lets a
@@ -38,7 +45,9 @@ from repro_torch.coherence.lease_sync import LeaseClock
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import init_model
-from repro_torch.models.model import model_spec
+from repro_torch.models.comm import full_tree
+from repro_torch.models.model import (init_model_shard, model_spec,
+                                      param_placement, shard_model)
 from repro_torch.models.params import P
 from repro_torch.optim import adamw
 
@@ -73,7 +82,7 @@ class Trainer:
                  tcfg: TrainerConfig = TrainerConfig(),
                  data: Optional[SyntheticLM] = None,
                  fabric: Optional[FabricBackend] = None, device=None,
-                 group=None):
+                 group=None, mesh=None):
         self.cfg, self.tcfg = cfg, tcfg
         self.opt = opt or adamw.AdamWConfig(total_steps=tcfg.total_steps)
         self.data = data
@@ -88,21 +97,36 @@ class Trainer:
         self.events: List[Dict] = []
         self.history: List[Tuple[int, float]] = []   # (step, loss) run
         self._ema = None
+        self.mesh = mesh
         self._build(group)
 
     # --------------------------------------------------------- building
     def _build(self, group):
         self.group = group
-        self.step_fn = make_train_step(self.cfg, self.opt, group=group)
+        self.step_fn = make_train_step(self.cfg, self.opt, group=group,
+                                       mesh=self.mesh)
+        self.specs = None if self.mesh is None else param_placement(
+            self.cfg, self.mesh)
         # stable per-parameter-block fabric keys: each checkpoint publish
         # re-stamps the SAME keys (a republish storm — eval readers
         # self-invalidate on lease expiry, never via invalidations)
         self._param_keys = param_keys(self.cfg)
 
     def init_state(self, seed: int = 0) -> adamw.TrainState:
-        params = init_model(self.cfg,
-                            torch.Generator(self.device).manual_seed(seed))
+        gen = torch.Generator(self.device).manual_seed(seed)
+        params = (init_model(self.cfg, gen) if self.mesh is None
+                  else init_model_shard(self.cfg, gen, self.mesh))
         return adamw.init_state(params, self.cfg.policy.moment_dtype)
+
+    def global_state(self, state: adamw.TrainState) -> adamw.TrainState:
+        """The state's global tensors: itself off a mesh, else its params
+        and moments gathered from the mesh's shards (every rank calls
+        it)."""
+        if self.mesh is None:
+            return state
+        return state._replace(**{k: full_tree(getattr(state, k), self.specs,
+                                              self.mesh)
+                                 for k in ("params", "m", "v")})
 
     # ----------------------------------------------------------- loop
     def run(self, state: Optional[adamw.TrainState] = None,
@@ -130,7 +154,7 @@ class Trainer:
             step += 1
             if step % self.tcfg.ckpt_period == 0 or \
                     step == self.tcfg.total_steps:
-                self.ckpt.save(step, state)
+                self.ckpt.save(step, self.global_state(state))
                 # the checkpoint publish is a batched republish storm:
                 # every parameter block's version stamp goes out as ONE
                 # posted write_batch (the batched write pass) and the
@@ -158,6 +182,10 @@ class Trainer:
         ``device`` or over a ``torch.distributed`` ``group`` (elastic
         scaling after node loss): the step is rebuilt and the state
         restored onto the new placement."""
+        if self.mesh is not None and (device is not None
+                                      or group is not None):
+            raise NotImplementedError("re-meshing a mesh trainer on resume "
+                                      "is not ported")
         if device is not None or group is not None:
             if device is not None:
                 self.device = resolve_device(device)
@@ -165,6 +193,24 @@ class Trainer:
             self.events.append({"kind": "elastic_remesh", "devices": (
                 1 if group is None else dist.get_world_size(group))})
         step = self.ckpt.latest_step()
+        if self.mesh is not None:
+            # the checkpoint's global tensors, on the host, then this
+            # rank's shards of them
+            spec = model_spec(self.cfg)
+            pol = self.cfg.policy
+            meta = lambda dt: adamw.tree_map(lambda _: torch.empty(
+                0, dtype=dt, device="meta"), spec)
+            glob = self.ckpt.restore(step, adamw.TrainState(
+                meta(pol.param_dtype), meta(pol.moment_dtype),
+                meta(pol.moment_dtype), torch.empty(0, dtype=torch.int32)),
+                device="cpu")
+            state = adamw.TrainState(*(adamw.tree_map(
+                lambda t: t.to(self.device),
+                shard_model(self.cfg, getattr(glob, k), self.mesh))
+                for k in ("params", "m", "v")),
+                step=glob.step.to(self.device))
+            self.events.append({"kind": "restore", "step": step})
+            return self.run(state=state, start_step=step, **kw)
         if template is None:
             template = self.init_state()
         state = self.ckpt.restore(step, template, device=self.device)

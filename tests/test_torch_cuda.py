@@ -2359,3 +2359,161 @@ def test_cuda_moe_trainer_steps_repeat_bit_for_bit(cuda_device, tmp_path,
         assert torch.isfinite(la) and float(aa) > 0
         assert torch.equal(la, lb) and torch.equal(aa, ab)
         assert all(torch.equal(a, b) for a, b in zip(sa, sb))
+
+
+# ------------------------------------------------- expert parallelism
+_MESH_WORLD = {}
+EP_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+EP_MESHES = ((1, 2), (2, 1))
+EP_TOL = 2e-2                 # card vs CPU in bf16, relative L2
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().float().numpy()
+
+
+def _mesh_tasks(ckpt_dir):
+    """The same tasks on CUDA tensors and on CPU tensors: the MoE layer,
+    the loss, gradients and 3 train steps (the configs' own bf16 compute;
+    deepseek's at MLA's own head dims, the pair the flash kernels build),
+    each collective, and a mesh ``Trainer``'s failure and resume."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.params import materialize
+    tasks = []
+    rng = np.random.default_rng(40)
+    for arch in EP_ARCHS:
+        cfg = configs.SMOKE[arch]
+        if cfg.is_mla:
+            full = configs.ARCHS[arch]
+            cfg = dataclasses.replace(cfg, nope_head_dim=full.nope_head_dim,
+                                      rope_head_dim=full.rope_head_dim,
+                                      v_head_dim=full.v_head_dim)
+        w = _np_tree(materialize(moe.moe_spec(cfg),
+                                   torch.Generator().manual_seed(1)))
+        h = rng.standard_normal((4, 8, cfg.d_model)).astype(np.float32)
+        params = _np_tree(M.init_model(cfg, torch.Generator().manual_seed(2)))
+        batches = [{"tokens": rng.integers(0, cfg.vocab, (4, 64)).astype(
+            np.int32)} for _ in range(3)]
+        for dev in ("cuda", "cpu"):
+            for shape in EP_MESHES:
+                common = {"mesh": shape, "arch": arch, "policy": "own",
+                          "device": dev, "mla_heads": cfg.is_mla}
+                tasks.append({"kind": "moe", "params": w, "h": h,
+                              "name": ("moe", arch, shape, dev), **common})
+                tasks.append({"kind": "grads", "params": params,
+                              "batch": batches[0], "steps": batches,
+                              "opt": dict(lr=1e-3, warmup_steps=1,
+                                          total_steps=20),
+                              "name": ("grads", arch, shape, dev), **common})
+    for dev in ("cuda", "cpu"):
+        tasks.append({"kind": "collectives", "mesh": (1, 2),
+                      "arch": EP_ARCHS[1], "device": dev,
+                      "name": ("collectives", dev)})
+    tasks.append({"kind": "trainer", "name": "trainer", "mesh": (1, 2),
+                  "arch": EP_ARCHS[1], "policy": "own", "device": "cuda",
+                  "seed": 3, "batch": 2, "seq": 64, "total": 5, "fail": 3,
+                  "ckpt_dir": ckpt_dir})
+    return tasks
+
+
+def _mesh_world(tmp_path):
+    """One gloo world of two ranks sharing the card
+    (``tests/torch_mesh_worker.py``), run once for the tests below."""
+    import os
+    import pathlib
+    import pickle
+    import subprocess
+    import sys
+    if "res" in _MESH_WORLD:
+        return _MESH_WORLD["res"]
+    root = pathlib.Path(__file__).resolve().parent.parent
+    (tmp_path / "job.pkl").write_bytes(pickle.dumps(
+        {"tasks": _mesh_tasks(str(tmp_path / "ckpt")), "threads": 2}))
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(root / "tests" / "torch_mesh_worker.py"),
+         str(r), "2", str(tmp_path / "rdzv"), str(tmp_path / "job.pkl"),
+         str(tmp_path / f"out{r}.pkl")], env=env, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    errs = []
+    for p in procs:
+        try:
+            errs.append(p.communicate(timeout=600)[1])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("a rank did not finish in 600 s")
+    assert all(p.returncode == 0 for p in procs), "\n".join(
+        e[-3000:] for e in errs)
+    _MESH_WORLD["res"] = [pickle.loads((tmp_path / f"out{r}.pkl")
+                                       .read_bytes()) for r in range(2)]
+    return _MESH_WORLD["res"]
+
+
+def _rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [np.asarray(tree).ravel()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", EP_ARCHS)
+@pytest.mark.parametrize("shape", EP_MESHES)
+def test_cuda_mesh_moe_and_train_step_equal_cpu(cuda_device, tmp_path, arch,
+                                                shape):
+    """The expert-parallel MoE layer and the mesh train step in a gloo
+    world of two ranks sharing the card equal the same world on CPU
+    tensors within a relative L2 of 2e-2 (bf16 compute): the layer's
+    output and aux, the loss and the whole gradient, three steps'
+    losses; each replicated leaf equal bit for bit on both ranks after
+    the steps."""
+    ranks = _mesh_world(tmp_path)
+    for res in ranks:
+        c, h = (res[("moe", arch, shape, d)] for d in ("cuda", "cpu"))
+        assert _rel_l2(c["out"], h["out"]) <= EP_TOL
+        assert abs(c["aux"] - h["aux"]) <= EP_TOL * abs(h["aux"])
+        c, h = (res[("grads", arch, shape, d)] for d in ("cuda", "cpu"))
+        assert abs(c["loss"] - h["loss"]) <= EP_TOL * abs(h["loss"])
+        assert _rel_l2(np.concatenate(_tree_leaves(c["grads"])),
+                       np.concatenate(_tree_leaves(h["grads"]))) <= EP_TOL
+        np.testing.assert_allclose(c["losses"], h["losses"], rtol=EP_TOL)
+    for d in ("cuda", "cpu"):
+        a, b = (res[("grads", arch, shape, d)]["digests"] for res in ranks)
+        assert a == b
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_collectives_on_gloo(cuda_device, tmp_path):
+    """Every collective the mesh path issues runs on gloo with CUDA
+    tensors (none moved to the CPU by the caller) and gives the CPU's
+    results exactly."""
+    for res in _mesh_world(tmp_path):
+        c, h = res[("collectives", "cuda")], res[("collectives", "cpu")]
+        assert c["devices"] == ["cuda:0"] and h["devices"] == ["cpu"]
+        for k in c:
+            if k != "devices":
+                assert np.array_equal(c[k], h[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_trainer_resume_repeats_losses(cuda_device, tmp_path):
+    """``Trainer(mesh=)`` on the card: a failure at step 3 and a resume
+    from the step-2 checkpoint (global tensors gathered from the shards)
+    repeat the losses and the params bit for bit."""
+    for res in _mesh_world(tmp_path):
+        got = res["trainer"]
+        assert got["resumed"] == got["losses"][2:]
+        for a, b in zip(_tree_leaves(got["params"]),
+                        _tree_leaves(got["resumed_params"])):
+            assert np.array_equal(a, b)

@@ -126,8 +126,10 @@ def test_one_all_reduce_per_window(ranks, W):
 
 def test_data_parallel_trainer_equals_mean_of_row_gradients(ranks,
                                                            tmp_path):
-    """A ``Trainer`` over the group (each rank its row, gradients and
-    metrics averaged by one ``allreduce_`` a step) equals, step by step,
+    """A ``Trainer`` over the group (each rank its row; two ``allreduce_``
+    a step: the CE's summed loss and count, whose ratio is the global
+    batch's CE, then the gradients and metrics averaged) equals, step by
+    step,
     ``apply_updates`` with the mean of the rows' gradients computed in one
     process (the same arithmetic: Adam normalises each gradient element,
     so a run on the whole batch, summed in another order, would move
@@ -152,7 +154,7 @@ def test_data_parallel_trainer_equals_mean_of_row_gradients(ranks,
     want = dict((k, v.numpy()) for k, v in _flat(state.params))
     for res in ranks:
         dp = res["dp"]
-        assert dp["counts"] == {"total": 1, "by_op": {"allreduce_": 1}}
+        assert dp["counts"] == {"total": 2, "by_op": {"allreduce_": 2}}
         _close(np.array(dp["losses"]), np.array(out["losses"]), "losses")
         for k in want:
             _close(dp["params"][k], want[k], k)
