@@ -258,6 +258,21 @@ Phases (any failure raises and the script exits non-zero):
      ``{"ok": true, "device": ...}`` last.  Each phase's start time is
      printed as ``[N s]``.
 
+The roofline (``repro_torch.launch.roofline``, ``launch.opanalysis``):
+every kernel bound of phase 2 comes from the package's cost rule for
+that kernel (``repro_torch.kernels.cost``).  Phase 4's smollm-360m prefill and decode step, phase 8's
+smollm-360m training step and phase 10's deepseek-v2 prefill and decode
+step are each run again under the operator analyser on meta tensors of
+the same inputs: FLOPs by dtype, HBM bytes and the least time they take
+on the card, printed beside the step's busy time; the share (least time
+over busy time) must be at most ``SHARE_MAX``.  Phase 8 also holds the
+analyser's peak memory of a step to the card's.  TF32 is checked off (the
+f32 peak is the CUDA cores').  After phase 12, when no phase is timed,
+the dry run's command line (``python -m repro_torch.launch.dryrun``)
+runs one cell, ``DRYRUN_CELL``, in a subprocess without the card (a fake
+world of 256 ranks on this torch) and its record is printed; it runs
+alone, so no wall clock of phases 1-12 is taken beside it.
+
 ``--profile`` adds one closed-loop replay under ``torch.profiler`` after
 phase 3: the device's busy and idle share of the wall clock, device time
 by kernel and the host's top operators (in ``chip_smoke.json``).  Phase
@@ -269,6 +284,7 @@ to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import atexit
 import collections
 import concurrent.futures
 import contextlib
@@ -278,17 +294,13 @@ import json
 import multiprocessing
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
-# compare/select ops are int32 and run outside the tensor cores; the table
-# of peaks lists 67 TFLOP/s for float32 there, used as the (generous)
-# operation rate, so the operation bound never overstates the least time
-OPS_PER_S = 67e12
 N_KEYS = 8192
 N_REQUESTS = 6000
 MAX_BATCH = 64
@@ -305,9 +317,20 @@ FABRIC_RANK_TIMEOUT_S = 300
 # (64 since phase 11 joined the script; 128 since phase 10 did, 256 and
 # 512 before)
 FABRIC_PROFILE_REQUESTS = 64
-# tensor-core peak in bf16 (data sheet, dense); f32 math runs on the
-# CUDA cores at the 67 TFLOP/s above
-BF16_FLOPS_PER_S = 989e12
+# a step's roofline share: the least time of the work the step does
+# (``repro_torch.launch.roofline`` over the counts ``launch.opanalysis``
+# takes on fakes of the step's inputs) over the card's busy time in it;
+# above 1 the count would overstate the work
+SHARE_MAX = 1.05
+# the analyser's peak of a training step against the card's (its
+# ``max_memory_allocated`` less what the card held besides the step's
+# inputs): the allocator rounds each block to 512 bytes and the kernels
+# allocate small scratch the plain versions do not
+PEAK_TOL = 0.15
+# the dry-run cell run through its command line (``launch.dryrun``) on
+# the card's torch: the fake world of 256 ranks there
+DRYRUN_CELL = ("smollm-360m", "train_4k", "single")
+DRYRUN_TIMEOUT_S = 120
 KERNELS = (("lease_probe", "src/repro_torch/kernels/csrc/lease_probe.cu",
             "src/repro/kernels/lease_probe.py:81"),
            ("miss_round", "src/repro_torch/kernels/csrc/tier_pass.cu",
@@ -627,26 +650,6 @@ def probe_case(rng, K, N, W):
     return tag, rts, row, cts, addr
 
 
-def _scanned(tags, addr):
-    """Ways read up to each lane's first match (all of them on a miss) in
-    ``[N, W]`` rows, and the number of lanes that match."""
-    f = _first(tags, addr)
-    return int((f + 1).sum() + (f < 0).sum() * tags.shape[1]), \
-        int((f >= 0).sum())
-
-
-def probe_bound(tags, addr, lane_words=0):
-    """The indexed form: per lane its set's tags up to the first match,
-    the rts of a hit, its address and row and the outputs (5 int32 + 2
-    bool), and the one clock (``lane_words`` more int32 a lane where each
-    lane has its own clock and grant); operations, the compares and 8 a
-    lane."""
-    N = len(addr)
-    scanned, hits = _scanned(tags, addr)
-    return (4 * scanned + 4 * hits + (30 + 4 * lane_words) * N + 4,
-            scanned + 8 * N)
-
-
 def engine_probe_case(rng, tier, N, W):
     """lease_probe as the figure engine's round calls it, N = E*NC lanes of
     E cells of 4 GPUs: ``tier`` "l1", each lane on its own CU's 64 sets of
@@ -713,30 +716,6 @@ def miss_case(rng, M, C, K1=1024, K2=2048, KT=8, W=8, match_at=None):
                                      addr, act]
 
 
-def miss_bound(tables, rows, addr, indexed):
-    """Bytes: each distinct TSU row named once (its C tags), per lane its
-    replica and shared set's tags up to the first match, the clocks of
-    the matched ways, the memts of a TSU hit, its address, act and row
-    indexes (indexed) or five int32 vectors (gathered), the two clocks
-    once (indexed) and the 16 outputs (10 int32 + 6 bool).  Operations:
-    a compare a way of each distinct row, the compares of the set scans
-    and 30 a lane."""
-    import numpy as np
-    rp_tag, sh_tag, ts_tag = tables[0], tables[2], tables[5]
-    s1, s2, shard = rows
-    N, C = len(addr), ts_tag.shape[2] - 1
-    distinct = len(np.unique(shard)) if indexed else N
-    nbytes, ops = 4 * C * distinct, C * distinct + 30 * N
-    for tags, s, vals in ((rp_tag[1, :, :-1], s1, 1),
-                          (sh_tag[1, :, :-1], s2, 2)):
-        scanned, hits = _scanned(tags[s], addr)
-        nbytes += 4 * scanned + 4 * vals * hits
-        ops += scanned
-    nbytes += 4 * _scanned(ts_tag[shard, 0, :-1], addr)[1]
-    nbytes += (17 * N + 8) if indexed else 20 * N
-    return nbytes + 46 * N, ops
-
-
 def grant_case(rng, K, C):
     """write_grant's TSU side: ``[K, 1, C+1]`` tag, memts and seq tables
     (set 0 with its trash way, as the fabric holds them)."""
@@ -758,42 +737,29 @@ def grant_lanes(rng, tables, N, row):
     return [addr, rng.integers(1, 9, N).astype(np.int32)]
 
 
-def grant_bound(tables, row, addr, indexed):
-    """Bytes: each distinct row named once (its tags, the memts of its
-    live ways and the seq of its ways tied at the minimum), then per lane
-    addr, wl, the row index when ``indexed``, one memts on a hit and the
-    outputs (4 int32 + 3 bool).  Operations: three per way of each
-    distinct row, one compare per way a lane scans to its first match
-    (all C on a miss) and ten per lane."""
-    import numpy as np
-    tag, mem, seq = (a[:, 0, :-1] for a in tables)
-    C = tag.shape[1]
-    nbytes, ops = 0, 0
-    for r in np.unique(row):
-        valid = tag[r] != -1
-        p = np.where(valid, mem[r], -2 ** 30)
-        nbytes += 4 * (C + int(valid.sum()) + int((p == p.min()).sum()))
-        ops += 3 * C
-    f = _first(tag[row], addr)
-    N = len(row)
-    nbytes += (12 if indexed else 8) * N + 4 * int((f >= 0).sum()) + 19 * N
-    ops += int((f + 1).sum() + (f < 0).sum() * C) + 10 * N
-    return nbytes, ops
-
-
 # ------------------------------------------------------------- phase 2
+def bound_ms(cost):
+    """(ms, "bytes" or "operations"): the least time of a kernel call by
+    its cost rule (``repro_torch.launch.roofline``), the larger of its
+    bytes over the HBM rate and its operations over their peak rates."""
+    s, by = cost.bound()
+    return s * 1e3, by
+
+
 def check_kernels(torch, np, dev, report):
     from repro_torch.kernels import ref
     from repro_torch.kernels.lease_probe import lease_probe
     from repro_torch.kernels.tier_pass import miss_round, write_grant
+    from repro_torch.kernels.cost import grant_cost, miss_cost, probe_cost
 
     rng = np.random.default_rng(2026)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def compare(name, kern, plain, args, bound, shape, gathered=None):
-        """``gathered``, when given, is the call path the kernel's caller
-        made before (the gathers plus the gathered launch): it must give
-        the same outputs, and is timed beside."""
+    def compare(name, kern, plain, args, cost, shape, gathered=None):
+        """``cost`` is the call's cost rule; ``gathered``, when given, is
+        the call path the kernel's caller made before (the gathers plus
+        the gathered launch): it must give the same outputs, and is timed
+        beside."""
         got = kern(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -810,12 +776,10 @@ def check_kernels(torch, np, dev, report):
                                  "differs")
         ms = device_ms(torch, lambda: kern(*args))
         plain_ms = device_ms(torch, lambda: plain(*args))
-        nbytes, ops = bound
-        bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+        bms, by = bound_ms(cost)
         row = {"shape": shape, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": max(bt, ot),
-               "bound_by": "bytes" if bt >= ot else "operations",
-               "bytes": nbytes, "ops": ops}
+               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+               "bytes": cost.nbytes, "ops": sum(cost.flops.values())}
         more = ""
         if gathered is not None:
             row["gathered_ms"] = device_ms(torch, gathered)
@@ -845,7 +809,7 @@ def check_kernels(torch, np, dev, report):
             compare("lease_probe", functools.partial(lease_probe, row=rowt),
                     functools.partial(ref.lease_probe_ref, row=rowt),
                     (tt[1][:, :-1], rt[1][:, :-1], ct[1:2], at),
-                    probe_bound(tag[1, row, :-1], addr), [N, W], old)
+                    probe_cost(tag[1, row, :-1], addr), [N, W], old)
     # lease_probe as the figure engine's round calls it: the L1 (W = 4)
     # and the L2 (W = 16) tables of Fig. 7's 11 cells of 4 x 32 CUs (1408
     # lanes) and of Fig. 8's 16-GPU point (5632 lanes), read in place at
@@ -859,7 +823,7 @@ def check_kernels(torch, np, dev, report):
             compare("lease_probe", functools.partial(lease_probe, row=rowt),
                     functools.partial(ref.lease_probe_ref, row=rowt),
                     (tt, rt, *map(T, (cts, addr, mwts, mrts))),
-                    probe_bound(tag[row, :-1], addr, lane_words=3),
+                    probe_cost(tag[row, :-1], addr, lane_words=3),
                     [N, W, tier])
     # miss_round as the miss pass calls it: replica 1's and node 1's sets
     # and the 8 TSU rows read in place, M lanes naming them (the lane
@@ -891,7 +855,7 @@ def check_kernels(torch, np, dev, report):
         compare("miss_round", functools.partial(miss_round, rows=rowt),
                 functools.partial(ref.miss_round_ref, rows=rowt),
                 views + [c1[1:2], c2[1:2], at, act, rd],
-                miss_bound(tables, rows, vecs[2], True), [8, M, C], old)
+                miss_cost(tables, rows, vecs[2], True), [8, M, C], old)
     tables, rows, vecs = miss_case(rng, 256, 1024)
     g = [t[1, s, :-1] for t, s in zip(tables[:5], rows[:1] * 2 + rows[1:2] * 3)]
     g += [t[rows[2], 0, :-1] for t in tables[5:]]
@@ -901,14 +865,14 @@ def check_kernels(torch, np, dev, report):
                                  T(np.full(N, vecs[1][1], np.int32)),
                                  T(vecs[2]), T(vecs[3].astype(np.int32)),
                                  T(np.full(N, rd, np.int32))],
-            miss_bound(tables, rows, vecs[2], False), [N, 8, 8, 1024])
+            miss_cost(tables, rows, vecs[2], False), [N, 8, 8, 1024])
     # gathered form: 256 lanes, each on its own row (lane i reads row i)
     tables = grant_case(rng, 256, 1024)
     lanes = np.arange(256, dtype=np.int32)
     vecs = grant_lanes(rng, tables, 256, lanes)
     compare("write_grant", write_grant, ref.write_grant_ref,
             [T(a)[:, 0, :-1] for a in tables] + [T(v) for v in vecs],
-            grant_bound(tables, lanes, vecs[0], False), [256, 1024])
+            grant_cost(tables, lanes, vecs[0], False), [256, 1024])
     # a TSU of more ways than the kernel holds in registers: walked in
     # tiles of 16384
     tables = grant_case(rng, 16, 20000)
@@ -916,7 +880,7 @@ def check_kernels(torch, np, dev, report):
     vecs = grant_lanes(rng, tables, 16, lanes)
     compare("write_grant", write_grant, ref.write_grant_ref,
             [T(a)[:, 0, :-1] for a in tables] + [T(v) for v in vecs],
-            grant_bound(tables, lanes, vecs[0], False), [16, 20000])
+            grant_cost(tables, lanes, vecs[0], False), [16, 20000])
     # the write pass's form: the 8 shard rows read in place, 16 (a storm)
     # or 64 (a warm-up chunk) lanes naming them, half at shard 0 as the
     # pass pads; beside it the three [N, C+1] gathers the pass made
@@ -930,22 +894,13 @@ def check_kernels(torch, np, dev, report):
         rowt = T(row)
         compare("write_grant", write_grant, ref.write_grant_ref,
                 [t[:, 0, :-1] for t in full] + vecs + [rowt],
-                grant_bound(tables, row, np.asarray(vecs[0].cpu()), True),
+                grant_cost(tables, row, np.asarray(vecs[0].cpu()), True),
                 [8, N, 1024],
                 lambda: write_grant(*(t[rowt, 0][..., :-1] for t in full),
                                     *vecs))
 
 
 # ------------------------------------------------ phase 2, float kernels
-def _visible_pairs(Sq, Sk, causal, window=0):
-    """(query, key) pairs the causal mask and the window leave visible."""
-    def keys(i):
-        hi = min(i + 1, Sk) if causal else Sk
-        lo = max(0, i - window + 1) if window else 0
-        return max(0, hi - lo)
-    return sum(keys(i) for i in range(Sq))
-
-
 def check_float_kernels(torch, np, dev, report):
     """rmsnorm, flash and decode attention against their plain versions on
     the card at the serving path's shapes and odd ones, bf16 and f32;
@@ -956,12 +911,14 @@ def check_float_kernels(torch, np, dev, report):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention, route
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.cost import (decode_cost, flash_cost,
+                                             rmsnorm_cost)
 
     def randn(shape, dtype, seed):
         a = np.random.default_rng(seed).standard_normal(shape)
         return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
 
-    def compare(name, kern, plain, library, nbytes, flops, dtype, shape,
+    def compare(name, kern, plain, library, cost, dtype, shape,
                 route="cuda", old=None):
         got = kern()
         want = plain()
@@ -975,16 +932,14 @@ def check_float_kernels(torch, np, dev, report):
         if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
             raise AssertionError(f"{name}{shape} {dtype}: max |err| {err} "
                                  f"beyond rtol=atol={tol}")
-        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
-        bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        bms, by = bound_ms(cost)
         row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
                "route": route, "max_abs_err": err, "tol": tol,
                "ms": device_ms(torch, kern),
                "plain_ms": device_ms(torch, plain, n=5, trials=3),
                "library_ms": device_ms(torch, library),
-               "bound_ms": max(bt, ot),
-               "bound_by": "bytes" if bt >= ot else "operations",
-               "bytes": nbytes, "flops": flops}
+               "bound_ms": bms, "bound_by": by,
+               "bytes": cost.nbytes, "flops": sum(cost.flops.values())}
         if old is not None:
             o = old()
             torch.cuda.synchronize()
@@ -1007,7 +962,6 @@ def check_float_kernels(torch, np, dev, report):
         "math summed in another order, bf16 rounds the f32 result once")
     eps = 1e-6
     for dtype in (torch.bfloat16, torch.float32):
-        el = torch.finfo(dtype).bits // 8
         for R, D in RMSNORM_SHAPES:
             x = randn((R, D), dtype, R + D)
             w = randn((D,), torch.float32, D) * 0.1
@@ -1015,7 +969,7 @@ def check_float_kernels(torch, np, dev, report):
             compare("rmsnorm", lambda: rmsnorm(x, w, eps=eps),
                     lambda: ref.rmsnorm_ref(x, w, eps),
                     lambda: F.rms_norm(x, (D,), weight=w1, eps=eps),
-                    2 * R * D * el + 4 * D, 4 * R * D, dtype, [R, D])
+                    rmsnorm_cost(R, D, dtype), dtype, [R, D])
         # smollm-360m's prefill, a ragged tail, zamba2-1.2b's prefill
         for S, Hq, Hkv in ((PROMPT_LEN, 15, 5), (100, 15, 5),
                            (PROMPT_LEN, 32, 32)):
@@ -1029,8 +983,7 @@ def check_float_kernels(torch, np, dev, report):
                     lambda: ref.attention_ref(q, k, v, causal=True),
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True),
-                    (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * el,
-                    4 * D * B * Hq * _visible_pairs(S, S, True), dtype,
+                    flash_cost(B, S, S, Hq, Hkv, D, D, dtype, True), dtype,
                     [B, S, Hq, Hkv, D], route(dtype, D))
         # phase 9's prefills: gemma3-4b (D = 256) local and global, hubert-
         # xlarge (D = 80, non-causal), llava-next-34b (D = 128, GQA 7)
@@ -1056,8 +1009,8 @@ def check_float_kernels(torch, np, dev, report):
                         qt, kt, vt, attn_mask=mask, enable_gqa=True)
                     if window else F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal, enable_gqa=True),
-                    (2 * B * S * Hq * D + 2 * B * S * Hkv * D) * el,
-                    4 * D * B * Hq * _visible_pairs(S, S, causal, window),
+                    flash_cost(B, S, S, Hq, Hkv, D, D, dtype, causal,
+                               window),
                     dtype, [B, S, Hq, Hkv, D, int(causal), window],
                     route(dtype, D), old)
         # phase 10's prefills: deepseek-v2's MLA (q and k 192 wide with v
@@ -1077,8 +1030,7 @@ def check_float_kernels(torch, np, dev, report):
             compare("flash_attention",
                     lambda: flash_attention(q, k, v, causal=causal),
                     lambda: ref.attention_ref(q, k, v, causal=causal), sdpa,
-                    (B * S * Hq * (D + Dv) + B * S * Hkv * (D + Dv)) * el,
-                    2 * (D + Dv) * B * Hq * _visible_pairs(S, S, causal),
+                    flash_cost(B, S, S, Hq, Hkv, D, Dv, dtype, causal),
                     dtype, [B, S, Hq, Hkv, D, Dv, int(causal)],
                     route(dtype, D, Dv))
             row = report["flash_attention"][-1]
@@ -1104,8 +1056,7 @@ def check_float_kernels(torch, np, dev, report):
                                               kv_len=kv_len),
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, enable_gqa=True),
-                    (2 * B * Hq * D + 2 * B * kv_len * Hkv * D) * el,
-                    4 * D * B * Hq * kv_len, dtype,
+                    decode_cost(B, Hq, Hkv, D, D, kv_len, dtype), dtype,
                     [B, Sk, Hq, Hkv, D, kv_len])
         # phase 9's decode steps: gemma3-4b past its window (D = 256),
         # llava-next-34b (7 query heads a kv head); phase 10's:
@@ -1125,8 +1076,7 @@ def check_float_kernels(torch, np, dev, report):
                                               kv_len=kv_len),
                     lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, enable_gqa=True),
-                    (2 * B * Hq * D + 2 * B * kv_len * Hkv * D) * el,
-                    4 * D * B * Hq * kv_len, dtype,
+                    decode_cost(B, Hq, Hkv, D, D, kv_len, dtype), dtype,
                     [B, Sk, Hq, Hkv, D, kv_len])
 
 
@@ -1160,22 +1110,6 @@ def log_rmsnorm_vs_library(report) -> None:
         f"{tuple(r['shape'])} {r['ms'] / r['library_ms']:.2f}" for r in rows))
 
 
-def ssd_bound(B, nc, Q, H, P, N, el, stride0, out_el, split):
-    """Bytes (x in the storage type, y in its output type, B and C once
-    per group when they are a stride-0 broadcast, dt, cum and the f32
-    state) and flops over the visible causal pairs: 2N for the score and
-    2P for y a pair, 2NP a row for the state; with ``split`` (the
-    tensor-core route) y's and the state's products count twice, as the
-    tensor cores do them on the hi and lo halves."""
-    bc = B * nc * Q * N * (1 if stride0 else H)
-    nbytes = B * nc * Q * H * P * (el + out_el) + 2 * bc * el \
-        + 2 * 4 * B * nc * Q * H + 4 * B * nc * H * N * P + 4 * H
-    k = 2 if split else 1
-    flops = B * nc * H * (Q * (Q + 1) // 2 * (2 * N + k * 2 * P)
-                          + k * 2 * Q * N * P)
-    return nbytes, flops
-
-
 def ssd_inputs(torch, np, dev, B, nc, Q, H, P, N, dtype, stride0, seed):
     """x, dt, A, B, C for ``ssd_chunk``: dt = SSD_DT_SCALE * softplus of a
     normal, A = -exp(U(0, 1.5)); B and C a group's [.., 1, N] broadcast to
@@ -1205,6 +1139,7 @@ def check_ssd_kernel(torch, np, dev, report):
     (no PyTorch call computes this function)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import route, ssd_chunk
+    from repro_torch.kernels.cost import ssd_cost
 
     shapes = ((SERVE_B, 2, 256, 24, 64, 128, True),   # mamba2-130m prefill
               (SERVE_B, 2, 256, 24, 64, 128, False),  # B/C copied per head
@@ -1215,7 +1150,6 @@ def check_ssd_kernel(torch, np, dev, report):
               (2, 3, 64, 4, 32, 16, False))
     for dtype in (torch.bfloat16, torch.float32):
         tol = FLOAT_TOL[str(dtype).split(".")[-1]]
-        el = torch.finfo(dtype).bits // 8
         for B, nc, Q, H, P, N, stride0 in shapes:
             shape = [B, nc, Q, H, P, N]
             path = route(dtype, P, N)
@@ -1242,10 +1176,8 @@ def check_ssd_kernel(torch, np, dev, report):
                     raise AssertionError(f"ssd_chunk{shape} {dtype}: {name} "
                                          f"max |err| {e} beyond {t}")
                 err = max(err, e)
-            nbytes, flops = ssd_bound(B, nc, Q, H, P, N, el, stride0, 4,
-                                      path == "wgmma")
-            rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
-            bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+            cost = ssd_cost(B, nc, Q, H, P, N, dtype, stride0, torch.float32)
+            bms, by = bound_ms(cost)
             ms = device_ms(torch, lambda: ssd_chunk(
                 *args, out_dtype=torch.float32))
             row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
@@ -1257,9 +1189,8 @@ def check_ssd_kernel(torch, np, dev, report):
                    "plain_ms": device_ms(
                        torch, lambda: ref.ssd_chunk_ref(*args, torch.float32),
                        n=5, trials=3),
-                   "library_ms": None, "bound_ms": max(bt, ot),
-                   "bound_by": "bytes" if bt >= ot else "operations",
-                   "bytes": nbytes, "flops": flops}
+                   "library_ms": None, "bound_ms": bms, "bound_by": by,
+                   "bytes": cost.nbytes, "flops": sum(cost.flops.values())}
             report.setdefault("ssd_chunk", []).append(row)
             log(f"  ssd_chunk{shape} {row['dtype']}"
                 f"{' stride-0 B/C' if stride0 else ''} ({path}, y in f32): "
@@ -1295,6 +1226,7 @@ def check_backward_kernels(torch, np, dev, report):
                                                      flash_attention_bwd,
                                                      route)
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels.cost import flash_bwd_cost, rmsnorm_bwd_cost
 
     def randn(shape, dtype, seed):
         a = np.random.default_rng(seed).standard_normal(shape)
@@ -1305,7 +1237,7 @@ def check_backward_kernels(torch, np, dev, report):
         return lambda: torch.autograd.grad(out, inputs, grad,
                                            retain_graph=True)
 
-    def compare(name, kern, plain, library, nbytes, flops, dtype, shape,
+    def compare(name, kern, plain, library, cost, dtype, shape,
                 path="cuda", old=None):
         got, want = kern(), plain()
         if old is not None:
@@ -1331,17 +1263,15 @@ def check_backward_kernels(torch, np, dev, report):
         again = kern()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{name}{shape}: differs from run to run")
-        rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
-        bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+        bms, by = bound_ms(cost)
         row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
                "route": path, "max_abs_err": err, "tol": tol,
                "ms": device_ms(torch, kern),
                "plain_ms": device_ms(torch, plain, n=5, trials=3),
                "library_ms": None if library is None
                else device_ms(torch, library),
-               "bound_ms": max(bt, ot),
-               "bound_by": "bytes" if bt >= ot else "operations",
-               "bytes": nbytes, "flops": flops}
+               "bound_ms": bms, "bound_by": by,
+               "bytes": cost.nbytes, "flops": sum(cost.flops.values())}
         if old is not None:
             row["old_ms"] = device_ms(torch, old, n=5, trials=3)
         report.setdefault(name, []).append(row)
@@ -1359,7 +1289,6 @@ def check_backward_kernels(torch, np, dev, report):
     log(f"  backward tolerances (rtol = atol): {GRAD_TOL}")
     eps = 1e-6
     for dtype in (torch.bfloat16, torch.float32):
-        el = torch.finfo(dtype).bits // 8
         for R, D in ((TRAIN_B * TRAIN_S, 960), (8, 960), (7, 80)):
             x = randn((R, D), dtype, R + D)
             dy = randn((R, D), dtype, R + D + 1)
@@ -1372,7 +1301,7 @@ def check_backward_kernels(torch, np, dev, report):
             compare("rmsnorm_bwd", lambda: rmsnorm_bwd(x, w, dy, eps=eps),
                     backward_of(plain_out, (xp, wp), dy),
                     backward_of(lib, (xl, wl), dy),
-                    3 * R * D * el + 8 * D, 12 * R * D, dtype, [R, D])
+                    rmsnorm_bwd_cost(R, D, dtype), dtype, [R, D])
         if dtype == torch.bfloat16:
             log("  rmsnorm_bwd's first-round kernel (rewritten in place): "
                 "21.41 us at [4096, 960] bf16, 26.44 us in f32, 9.64 us at "
@@ -1423,7 +1352,6 @@ def check_backward_kernels(torch, np, dev, report):
             except RuntimeError as e:        # no SDPA backend takes it
                 log(f"    SDPA's backward at {D}/{Dv}: {str(e)[:120]}")
                 library = None
-            pairs = _visible_pairs(Sq, Sk, causal, window)
             old = None
             if path == "wgmma" and ((B == TRAIN_B and Hq == 15)
                                     or (B, Sq, Sk, Hq, Hkv, D, Dv, causal,
@@ -1432,17 +1360,13 @@ def check_backward_kernels(torch, np, dev, report):
                     return flash_attention_bwd(q, k, v, o, do, causal=causal,
                                                window=window, _route="simt")
             # the tensor-core route also reads the forward's m and 1 / l
-            stat_bytes = 8 * B * Hq * Sq if path == "wgmma" else 0
-            # q, k, o, dO, v read and dq, dk, dv written; S, dQ and dK
-            # over D, dP and dV over Dv
             compare("flash_attention_bwd",
                     lambda: flash_attention_bwd(q, k, v, o, do,
                                                 causal=causal, window=window,
                                                 stats=stats),
                     backward_of(plain_out, (qp, kp, vp), do), library,
-                    (2 * B * Sq * Hq * (D + Dv) + 2 * B * Sk * Hkv * (D + Dv))
-                    * el + stat_bytes,
-                    (6 * D + 4 * Dv) * B * Hq * pairs, dtype,
+                    flash_bwd_cost(B, Sq, Sk, Hq, Hkv, D, Dv, dtype, causal,
+                                   window, stats=path == "wgmma"), dtype,
                     [B, Sq, Sk, Hq, Hkv, D, Dv, int(causal), window], path,
                     old)
             if Dv != D:
@@ -1450,22 +1374,6 @@ def check_backward_kernels(torch, np, dev, report):
                 row["library_kernel"] = "none" if library is None \
                     else sdpa_backend(torch, library, sdpa)
                 log(f"    SDPA's backward ran {row['library_kernel'][:90]}")
-
-
-def ssd_bwd_bound(B, nc, Q, H, P, N, el, stride0):
-    """Bytes (x, B and C once per group when they are a stride-0
-    broadcast, dt, cum, dy, dstate and dcum read; dx, the per-head dB and
-    dC, ddt and dA written) and flops over the visible causal pairs (C.B
-    and dy.x, 2N + 2P; dx, dB and dC, 2P + 4N) and 4NP a row for the
-    state terms (B . dstate and dstate x)."""
-    bc = B * nc * Q * N * (1 if stride0 else H)
-    rows = B * nc * Q * H
-    nbytes = (rows * P * el + 2 * bc * el + 3 * 4 * rows + 4 * rows * P
-              + 4 * B * nc * H * N * P + 4 * H
-              + rows * P * el + 2 * rows * N * el + 4 * rows + 4 * H)
-    flops = B * nc * H * (Q * (Q + 1) // 2 * (6 * N + 4 * P)
-                          + 4 * Q * N * P)
-    return nbytes, flops
 
 
 def check_ssd_bwd_kernel(torch, np, dev, report):
@@ -1485,6 +1393,7 @@ def check_ssd_bwd_kernel(torch, np, dev, report):
     computes this function."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_chunk import route, ssd_chunk, ssd_chunk_bwd
+    from repro_torch.kernels.cost import ssd_bwd_cost
 
     shapes = ((TRAIN_B, 2, 256, 24, 64, 128, True),   # mamba2-130m
               (TRAIN_B, 2, 256, 64, 64, 64, True),    # zamba2-1.2b
@@ -1494,7 +1403,6 @@ def check_ssd_bwd_kernel(torch, np, dev, report):
               (2, 3, 64, 4, 32, 16, False))
     for dtype in (torch.bfloat16, torch.float32):
         tol = GRAD_TOL[str(dtype).split(".")[-1]]
-        el = torch.finfo(dtype).bits // 8
         for B, nc, Q, H, P, N, stride0 in shapes:
             shape = [B, nc, Q, H, P, N]
             args = ssd_inputs(torch, np, dev, B, nc, Q, H, P, N, dtype,
@@ -1555,18 +1463,16 @@ def check_ssd_bwd_kernel(torch, np, dev, report):
             def timed(p):
                 return device_ms(torch, lambda: ssd_chunk_bwd(
                     *args, cums[p], dy, dstate, dcum, path=p))
-            nbytes, flops = ssd_bwd_bound(B, nc, Q, H, P, N, el, stride0)
-            rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else OPS_PER_S
-            bt, ot = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+            cost = ssd_bwd_cost(B, nc, Q, H, P, N, dtype, stride0)
+            bms, by = bound_ms(cost)
             row = {"shape": shape, "dtype": str(dtype).split(".")[-1],
                    "stride0": stride0, "route": path,
                    "max_abs_err": max(errs.values()), "errs": errs,
                    "tol": tol, "ms": timed(path),
                    "simt_ms": None if path == "simt" else timed("simt"),
                    "plain_ms": device_ms(torch, plain, n=3, trials=3),
-                   "library_ms": None, "bound_ms": max(bt, ot),
-                   "bound_by": "bytes" if bt >= ot else "operations",
-                   "bytes": nbytes, "flops": flops}
+                   "library_ms": None, "bound_ms": bms, "bound_by": by,
+                   "bytes": cost.nbytes, "flops": sum(cost.flops.values())}
             if row["simt_ms"] is None:
                 row["simt_ms"] = row["ms"]
             del outs, ins
@@ -2137,12 +2043,48 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def serve_timings(torch, np, cfg, srv, tokens, max_new):
+def step_roofline(torch, what, fn, args, busy_ms, parts=None):
+    """``fn(*args)``'s counted work (``launch.opanalysis`` on fakes of
+    ``args``; ``parts(fakes)`` tags the params and optimizer state), its
+    roofline terms on the card and its share: the least time over
+    ``busy_ms``, the card's busy time in one call.  Raises above
+    ``SHARE_MAX``."""
+    from repro_torch.launch import opanalysis, roofline
+    t0 = time.perf_counter()
+    fake = opanalysis.meta_like(args)
+    cost = opanalysis.analyze(fn, *fake,
+                              parts=None if parts is None else parts(fake))
+    rl = roofline.roofline_terms(cost.flops_by_dtype, cost.hbm_bytes,
+                                 cost.wire_bytes)
+    row = {"flops_by_dtype": cost.flops_by_dtype,
+           "hbm_bytes": cost.hbm_bytes, "t_compute_ms": rl.t_compute * 1e3,
+           "t_memory_ms": rl.t_memory * 1e3, "bound_ms": rl.bound * 1e3,
+           "bottleneck": rl.bottleneck, "device_busy_ms": busy_ms,
+           "share": rl.bound * 1e3 / busy_ms, "peak_bytes": cost.peak_bytes,
+           "peak_parts": cost.peak_parts, "kernels": cost.kernels,
+           "n_ops": cost.n_ops, "analyse_s": time.perf_counter() - t0}
+    log(f"  roofline of a {what}: "
+        + ", ".join(f"{k} {v / 1e9:.2f} GFLOP" for k, v in
+                    sorted(row["flops_by_dtype"].items()))
+        + f", {row['hbm_bytes'] / 1e9:.3f} GB; compute "
+        f"{row['t_compute_ms']:.3f} ms, memory {row['t_memory_ms']:.3f} ms: "
+        f"bound {row['bound_ms']:.3f} ms ({rl.bottleneck}) of "
+        f"{busy_ms:.3f} ms busy, share {row['share']:.3f} <= {SHARE_MAX} "
+        f"({cost.n_ops} operators counted in {row['analyse_s']:.1f} s)")
+    if row["share"] > SHARE_MAX:
+        raise AssertionError(f"{what}: roofline share {row['share']:.3f} "
+                             f"above {SHARE_MAX}: the count overstates the "
+                             "work")
+    return row
+
+
+def serve_timings(torch, np, cfg, srv, tokens, max_new, roofline=False):
     """Prefill and decode-step times at the serving shapes: wall clock
     with the server's per-step host sync and the host's enqueue time per
     step, then the device's busy time per prefill and per decode step
     from ``torch.profiler`` (the union of its kernel and copy
-    intervals)."""
+    intervals); with ``roofline``, each step's roofline share
+    (``step_roofline``)."""
     from repro_torch.models import decode_step, init_cache, prefill
     S = tokens.shape[1]
 
@@ -2173,7 +2115,19 @@ def serve_timings(torch, np, cfg, srv, tokens, max_new):
         torch, lambda: decode_step(cfg, srv.params, cache0, ids0[:, None],
                                    S)[0].cpu(), 8, counter=decode_attention)
     prof_decode["decode_attention_calls"] = prof_decode["launches"]
-    return {"prefill_ms": statistics.median(walls) * 1e3,
+    shares = {}
+    if roofline:
+        shares["prefill"] = step_roofline(
+            torch, f"{cfg.name} prefill", lambda p, t: prefill(
+                cfg, p, t, init_cache(cfg, srv.B, srv.max_len, t.device)),
+            (srv.params, tokens), prof_prefill["device_ms_per_call"])
+        shares["decode"] = step_roofline(
+            torch, f"{cfg.name} decode step",
+            lambda p, c, i: decode_step(cfg, p, c, i, S),
+            (srv.params, cache0, ids0[:, None]),
+            prof_decode["device_ms_per_call"])
+    return {"roofline": shares,
+            "prefill_ms": statistics.median(walls) * 1e3,
             "prefill_device_ms": prof_prefill["device_ms_per_call"],
             "decode_step_ms": statistics.mean(steps) * 1e3,
             "decode_host_ms": statistics.mean(host) * 1e3,
@@ -2346,14 +2300,16 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
                   max_new=MAX_NEW, model_layers=CPU_MODEL_LAYERS,
                   full=True, batch=SERVE_B, prompt_len=PROMPT_LEN,
                   max_len=MAX_LEN, model_batch=CPU_MODEL_BATCH,
-                  decode_check=0, layers=None):
+                  decode_check=0, layers=None, roofline=False):
     """A serving path at full width on the card (phases 4, 5, 9 and 10):
     every launch count set to 0 just before the waves and read just
     after; the kernels in ``need`` must have launched.  ``full`` adds the
     ``serve_stream`` and CPU-server comparisons; ``decode_check`` > 0
     also holds that many decode steps' hidden states, card vs CPU, in
     the model check (both sides decode the card's tokens); ``layers``
-    cuts the served model's depth.  A MoE model's layers are each held to
+    cuts the served model's depth; ``roofline`` holds the timed prefill
+    and decode step to their counted work (``step_roofline``).  A MoE
+    model's layers are each held to
     ``moe_by_token`` on the card, and its card-vs-CPU check leaves out
     the tokens whose experts split at a near-tie (``RouteLog``)."""
     import dataclasses
@@ -2582,7 +2538,7 @@ def check_serving(torch, np, dev, arch, *, need, n_waves=N_WAVES,
             log(f"    {row}: " + ", ".join(f"{k} {v:.5f}"
                                           for k, v in errs_s.items()))
 
-    tm = serve_timings(torch, np, cfg, srv, tok.to(dev), max_new)
+    tm = serve_timings(torch, np, cfg, srv, tok.to(dev), max_new, roofline)
     tm["decode_device_idle_share"] = \
         1.0 - tm["decode_device_ms"] / tm["decode_step_ms"]
     rep.update(tm)
@@ -2823,7 +2779,8 @@ def check_phase10(torch, np, dev):
             max_new=new, model_layers=model_layers, full=False,
             batch=PHASE10_B, prompt_len=PHASE10_PROMPT,
             max_len=PHASE10_PROMPT + new + 8, model_batch=1,
-            decode_check=decode_check, layers=layers)
+            decode_check=decode_check, layers=layers,
+            roofline=arch == MLA_ARCH)
         rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         for what in ("prefill", "decode"):
             prof = rep[f"profile_{what}"]
@@ -3675,24 +3632,6 @@ def check_sharded(torch, np, fab_h, serv_h, rounds_h):
 
 # ------------------------------------------------------------------ main
 # ------------------------------------------------------------- phase 8
-def train_flops(cfg, params, B: int, S: int) -> float:
-    """Model flops of one training step: 6 N a token for the weights
-    (forward and backward, the tied unembedding included, a shared block
-    once per use; the remat forward not counted), and 3x the forward's 4
-    D flops a visible causal (query, key) pair per query head and
-    attention layer; the SSD scan's own flops are not counted."""
-    n_params = sum(t.numel() for t in leaves(params))
-    uses = sum(1 for i in range(cfg.n_layers)
-               if cfg.attn_every and (i + 1) % cfg.attn_every == 0)
-    shared = sum(t.numel() for t in leaves(params.get("shared_attn", {})))
-    if cfg.family == "hybrid":
-        n_params += (uses - 1) * shared
-    attn_layers = uses if cfg.family == "hybrid" else (
-        0 if cfg.family == "ssm" else cfg.n_layers)
-    attn = 12 * cfg.d_head * cfg.n_heads * B * _visible_pairs(S, S, True)
-    return 6.0 * n_params * B * S + attn * attn_layers
-
-
 def run_trainer(c, opt, tcfg, B, S, ckpt_dir, fail, device):
     """``c``'s ``Trainer`` on ``device`` with a failure at step ``fail``
     and a resume: (trainer, first run's losses by step, resumed losses by
@@ -3969,6 +3908,10 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
     # a step's times at full width, from the trained state
     batch = tr.data.batch(steps)
     torch.cuda.synchronize()
+    # what the card holds besides the step's inputs (the state; the batch
+    # is on the host)
+    other = torch.cuda.memory_allocated() - sum(
+        t.untyped_storage().nbytes() for t in leaves(res["state"]))
     torch.cuda.reset_peak_memory_stats()
     state, wall_ms, host_ms, prof = step_times(torch, tr.step_fn,
                                                res["state"], batch)
@@ -3991,7 +3934,16 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
     bwd_names = [n for n in ("rmsnorm_bwd", "flash_attention_bwd",
                              "ssd_chunk_bwd") if n in need]
     bwd = sum(ported[k]["us"] for k in bwd_names)
-    flops = train_flops(cfg, state.params, TRAIN_B, TRAIN_S)
+    from repro_torch.launch.dryrun import active_params
+    from repro_torch.kernels.cost import BF16_FLOPS_PER_S
+    from repro_torch.launch.roofline import model_flops_for
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.models.model import model_spec
+    from repro_torch.models.params import count_params
+    # 6 N D over the active parameters (the reference's accounting)
+    flops = model_flops_for(cfg, ShapeCell("phase8", "train", TRAIN_S,
+                                           TRAIN_B),
+                            count_params(model_spec(cfg)), active_params(cfg))
     n_params = sum(t.numel() for t in leaves(state.params))
     rep["step"] = {
         "wall_ms": wall_ms, "host_enqueue_ms": host_ms,
@@ -4009,6 +3961,28 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
         "device_by_name": prof["device_by_name"],
         "host_by_op": prof["host_by_op"]}
     st = rep["step"]
+    if arch == ARCH:
+        # the step's counted work and peak (one step on fakes of the
+        # state and batch), against its busy time and the card's peak
+        rf = step_roofline(
+            torch, f"{arch} training step", tr.step_fn, (state, batch),
+            prof["device_ms_per_call"],
+            parts=lambda f: {"params": f[0].params,
+                             "optimizer": (f[0].m, f[0].v, f[0].step)})
+        card_peak = peak - other
+        rf["card_peak_bytes"] = card_peak
+        rf["peak_rel_err"] = abs(rf["peak_bytes"] - card_peak) / card_peak
+        rep["roofline"] = rf
+        log(f"  peak memory of a step: analyser {rf['peak_bytes'] / 1e9:.3f}"
+            f" GB (" + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in
+                                 rf["peak_parts"].items())
+            + f"), card {card_peak / 1e9:.3f} GB (max_memory_allocated "
+            f"{peak / 1e9:.3f} GB less {other / 1e9:.3f} GB held besides "
+            f"the state): {rf['peak_rel_err']:.3f} apart <= {PEAK_TOL}")
+        if rf["peak_rel_err"] > PEAK_TOL:
+            raise AssertionError(f"{arch}: the analyser's peak "
+                                 f"{rf['peak_bytes']} B vs the card's "
+                                 f"{card_peak} B")
     log(f"  a training step ({n_params / 1e6:.1f} M parameters, {tokens} "
         f"tokens): wall {st['wall_ms']:.1f} ms, host enqueue "
         f"{st['host_enqueue_ms']:.1f} ms, device busy "
@@ -4020,7 +3994,8 @@ def check_training(torch, np, dev, arch=ARCH, steps=TRAIN_STEPS,
                     f"({ported[k]['count'] // 2})"
                     for k in need if k in ported and ported[k]["count"])
         + f" a step; peak memory {st['peak_memory_gb']:.2f} GB; model "
-        f"flops {flops / 1e12:.2f} T a step, {st['mfu']:.3f} of 989 TF/s; "
+        f"flops (6 N D) {flops / 1e12:.2f} T a step, {st['mfu']:.3f} of "
+        f"989 TF/s; "
         f"{st['device_events']:.0f} device events a step; {len(syncs)} host "
         f"syncs in a step {syncs[:3]}")
 
@@ -4987,6 +4962,15 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     report = {}
+    # the roofline's f32 peak is the CUDA cores' (67 TFLOP/s): no f32
+    # product may take the tensor cores' TF32 path
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32,
+            "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    log(f"TF32: {tf32}")
+    if tf32["matmul"] or tf32["cudnn"] \
+            or tf32["float32_matmul_precision"] != "highest":
+        raise AssertionError(f"TF32 is on: {tf32}")
 
     # ---- 1. card and build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5095,7 +5079,8 @@ def main() -> None:
     log(f"phase 4: LLM serving path, {ARCH} at full width {elapsed()}")
     served, report["serving"] = check_serving(
         torch, np, dev, ARCH,
-        need=("rmsnorm", "flash_attention", "decode_attention"))
+        need=("rmsnorm", "flash_attention", "decode_attention"),
+        roofline=True)
     launches.update({k: v for k, v in served.items() if k not in launches})
 
     # ---- 5. the SSM serving path
@@ -5181,6 +5166,54 @@ def main() -> None:
     p11_counts, report["phase11"] = check_phase11(torch, np, dev,
                                                   beside=phase12)
     report["phase12"] = p12["report"]
+
+    # the dry run's command line on the card's torch (its fake world of
+    # 256 ranks, CPU only: no card), after the timed phases, alone
+    dry_arch, dry_shape, dry_mesh = DRYRUN_CELL
+    dry_dir = ROOT / "build" / "dryrun_chip"
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         dry_arch, "--shape", dry_shape, "--mesh", dry_mesh, "--force",
+         "--out", str(dry_dir)],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: dry.poll() is None and (dry.kill(), dry.wait()))
+    try:
+        dry_log = dry.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+    except subprocess.TimeoutExpired:
+        dry.kill()
+        dry.wait()
+        raise
+    if dry.returncode:
+        raise AssertionError(f"the dry run's cell {DRYRUN_CELL} failed:\n"
+                             + dry_log[-3000:])
+    rec = json.loads((dry_dir / dry_mesh / f"{dry_arch}__{dry_shape}.json")
+                     .read_text())
+    report["dryrun_cell"] = rec
+    rl = rec["roofline"]
+    log(f"dry run, {dry_arch} {dry_shape} on the {dry_mesh} mesh "
+        f"({rec['n_devices']} fake ranks, torch {torch.__version__}): "
+        f"{rl['flops_per_dev'] / 1e12:.2f} TFLOP, "
+        f"{rl['hbm_bytes_per_dev'] / 1e9:.1f} GB, wire "
+        f"{rl['wire_bytes_per_dev'] / 1e9:.2f} GB a rank, bound "
+        f"{rl['bound_s'] * 1e3:.1f} ms ({rl['bottleneck']}), peak "
+        f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB, fits "
+        f"{rec['memory']['fits']}; traced in {rec['trace_s']} s, "
+        f"{time.perf_counter() - t_dry:.1f} s with its start {elapsed()}")
+    shares = {"smollm prefill": report["serving"]["roofline"]["prefill"],
+              "smollm decode": report["serving"]["roofline"]["decode"],
+              "smollm train": report["training"]["roofline"],
+              "deepseek prefill":
+                  report["phase10"][MLA_ARCH]["roofline"]["prefill"],
+              "deepseek decode":
+                  report["phase10"][MLA_ARCH]["roofline"]["decode"]}
+    log("roofline shares (bound / busy, <= " + f"{SHARE_MAX}): "
+        + ", ".join(f"{k} {v['share']:.3f} ({v['bound_ms']:.2f} of "
+                    f"{v['device_busy_ms']:.2f} ms)"
+                    for k, v in shares.items()))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda
+from repro_torch.kernels import cost, cuda, ref
 from repro_torch.kernels.flash_attention import check_qkv
 
 MAX_Q_PER_KV = 16             # csrc/decode_attention.cu kMaxQpk
@@ -32,7 +32,15 @@ def decode_attention(q, k, v, kv_len):
     """q: [B, 1, Hq, D]; k, v: [B, Sk, Hkv, D]; kv_len: int in [1, Sk].
     Returns [B, 1, Hq, D] in q's dtype.  Allocates its output (and
     nothing else), launches on the current stream and does not
-    synchronise."""
+    synchronise.  Under ``launch.opanalysis`` it is charged its cost rule;
+    on a fake its plain version gives the output."""
+    if cost.current() is not None:
+        cost.charge("decode_attention", cost.decode_cost, q.shape[0],
+                    q.shape[2], k.shape[2], q.shape[3], v.shape[3],
+                    kv_len, q.dtype)
+    if cost.is_fake(q):
+        return cost.plain(ref.attention_ref, q, k, v, causal=False,
+                          kv_len=kv_len)
     dt = check_qkv(q, k, v, "decode_attention", HEAD_DIMS,
                    " (D = 80 is ROADMAP Queue 1 item 23)")
     if isinstance(kv_len, torch.Tensor):

@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda
+from repro_torch.kernels import cost, cuda, ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
@@ -155,7 +155,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, stats=None,
 
     ``_route="simt"`` forces the CUDA-core kernel at any pair it takes
     (bf16 at D = 80 and f32 everywhere), to time the routes against each
-    other on the card."""
+    other on the card.
+
+    Under ``launch.opanalysis`` it is charged its cost rule; on a fake its
+    plain version gives the output (and ``stats`` is not written)."""
+    if cost.current() is not None:
+        cost.charge("flash_attention", cost.flash_cost,
+                    *q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], v.shape[3], q.dtype, causal, window,
+                    stats is not None)
+    if cost.is_fake(q):
+        return cost.plain(ref.attention_ref, q, k, v, causal=causal,
+                          window=window)
     dt = check_qkv(q, k, v, "flash_attention", pairs=PAIRS)
     B, Sq, Hq, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
@@ -235,7 +246,17 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal=True, window=0,
     ``_route="simt"`` forces the CUDA-core kernel at any shape it takes,
     to time the two routes against each other on the card; nothing on the
     training path passes it.  Allocates its outputs, launches on the
-    current stream and does not synchronise."""
+    current stream and does not synchronise.  Under ``launch.opanalysis``
+    it is charged its cost rule; on a fake its plain version gives the
+    gradients."""
+    if cost.current() is not None:
+        cost.charge("flash_attention_bwd", cost.flash_bwd_cost,
+                    *q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], v.shape[3], q.dtype, causal, window,
+                    stats is not None)
+    if cost.is_fake(q):
+        return cost.plain(ref.attention_bwd_ref, q, k, v, dout,
+                          causal=causal, window=window)
     dt = check_qkv(q, k, v, "flash_attention_bwd", pairs=PAIRS)
     dev = q.device
     want = (*q.shape[:3], v.shape[3])
@@ -313,7 +334,10 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         q, k, v = (t.contiguous() for t in (q, k, v))
         stats = None
-        if route(q.dtype, q.shape[-1], v.shape[-1]) == "wgmma":
+        # the tensor-core route (``route``), without raising on a pair no
+        # kernel is built for: the wrapper raises on those, a fake has none
+        if q.dtype == torch.bfloat16 \
+                and (q.shape[-1], v.shape[-1]) in WGMMA_PAIRS:
             B, Sq, Hq, _ = q.shape
             stats = torch.empty((2, B, Hq, Sq), dtype=torch.float32,
                                 device=q.device)

@@ -7,6 +7,13 @@ the port's counterpart of the reference's interpret mode.  The device is
 read from the lane vector of the coherence kernels (``addr``) and from
 the activations of the float kernels (``x``, ``q``).
 
+A meta tensor (the dry run's fake: shapes, no data) goes to the float
+kernel's wrapper like a CUDA one; there, under ``launch.opanalysis``,
+the call is charged its rule (``kernels.cost``), and the plain version
+gives the outputs' shapes, none of its operators counted.  A meta tensor
+never reaches a launch, and a CUDA tensor launches under the analyser
+as everywhere else.
+
 Gradients: on the CPU, autograd differentiates the plain versions.  On
 the card, ``rmsnorm``, ``flash_attention`` and ``ssd_chunk`` go through
 their ``autograd.Function`` (the forward kernel, and a backward kernel

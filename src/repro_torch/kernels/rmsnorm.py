@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import cuda
+from repro_torch.kernels import cost, cuda, ref
 
 _ARGS = [cuda.P, cuda.P, cuda.P, cuda.I, cuda.I, cuda.F, cuda.I, cuda.I,
          cuda.I, cuda.I, cuda.P]
@@ -61,7 +61,14 @@ def rmsnorm(x, w, *, eps=1e-6):
     """x: [..., D] contiguous, f32 or bf16; w: [D] f32.  Returns
     ``x * rsqrt(mean(x^2) + eps) * (1 + w)`` computed in f32, in x's dtype
     and shape.  Allocates its output, launches on the current stream and
-    does not synchronise."""
+    does not synchronise.  Under ``launch.opanalysis`` it is charged its
+    cost rule; on a fake its plain version gives the output."""
+    if cost.current() is not None:
+        D = x.shape[-1]
+        cost.charge("rmsnorm", cost.rmsnorm_cost,
+                    x.numel() // max(1, D), D, x.dtype)
+    if cost.is_fake(x):
+        return cost.plain(ref.rmsnorm_ref, x, w, eps)
     dev = x.device
     dt = cuda.check_float("x", x, None)
     cuda.check_float("w", w, dev, torch.float32)
@@ -124,7 +131,14 @@ def rmsnorm_bwd(x, w, dy, *, eps=1e-6):
     over the rows in a fixed order (per-block partial rows, then a second
     launch), so it is the same from run to run.  Allocates its outputs and
     an f32 scratch of ``G x D`` partial rows, launches on the current
-    stream and does not synchronise."""
+    stream and does not synchronise.  Under ``launch.opanalysis`` it is
+    charged its cost rule; on a fake its plain version gives the output."""
+    if cost.current() is not None:
+        D = x.shape[-1]
+        cost.charge("rmsnorm_bwd", cost.rmsnorm_bwd_cost,
+                    x.numel() // max(1, D), D, x.dtype)
+    if cost.is_fake(x):
+        return cost.plain(ref.rmsnorm_bwd_ref, x, w, dy, eps)
     dev = x.device
     dt = cuda.check_float("x", x, None)
     cuda.check_float("dy", dy, dev, x.dtype)

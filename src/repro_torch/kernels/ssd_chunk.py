@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import cuda
+from repro_torch.kernels import cost, cuda, ref
 
 HEAD_DIMS = (16, 32, 64, 128)   # P: csrc/ssd_chunk.cu's instantiations
 WGMMA_DIMS = (64, 128)          # P and N: csrc/ssd_chunk_wgmma.cu's
@@ -154,7 +154,14 @@ def ssd_chunk(x, dt, A, Bc, Cc, *, out_dtype=None, path=None):
     N)`` names, or ``path="simt"``, the CUDA-core kernels at any shape
     they take (to hold the two routes against each other on the card);
     allocates its outputs, launches on the current stream and does not
-    synchronise."""
+    synchronise.  Under ``launch.opanalysis`` it is charged its cost rule;
+    on a fake its plain version gives the outputs."""
+    if cost.current() is not None:
+        cost.charge("ssd_chunk", cost.ssd_cost, *x.shape,
+                    Bc.shape[-1], x.dtype, Bc.stride(3) == 0, out_dtype)
+    if cost.is_fake(x):
+        return cost.plain(ref.ssd_chunk_ref, x, dt, A, Bc, Cc,
+                          out_dtype)
     code = _check_inputs("ssd_chunk", x, dt, A, Bc, Cc)
     dev = x.device
     Bsz, nc, Q, H, P = x.shape
@@ -206,7 +213,15 @@ def ssd_chunk_bwd(x, dt, A, Bc, Cc, cum, dy, dstate, dcum, *, path=None):
     in f32.  Takes the forward's route, ``route(x.dtype, P, N)``, or
     ``path="simt"``, the CUDA-core kernel at any shape it takes (to hold
     the two routes against each other on the card); launches on the
-    current stream and does not synchronise."""
+    current stream and does not synchronise.  Under ``launch.opanalysis``
+    it is charged its cost rule; on a fake its plain version gives the
+    gradients."""
+    if cost.current() is not None:
+        cost.charge("ssd_chunk_bwd", cost.ssd_bwd_cost, *x.shape,
+                    Bc.shape[-1], x.dtype, Bc.stride(3) == 0)
+    if cost.is_fake(x):
+        return cost.plain(ref.ssd_chunk_bwd_ref, x, dt, A, Bc, Cc, dy,
+                          dstate, dcum, dy.dtype)
     code = _check_inputs("ssd_chunk_bwd", x, dt, A, Bc, Cc)
     dev = x.device
     Bsz, nc, Q, H, P = x.shape

@@ -1,12 +1,14 @@
 """Process groups: the coherence fabric's (the counterpart of
 ``repro.launch.mesh.make_fabric_mesh``) and the model's (data, model)
-mesh (``make_production_mesh`` / ``make_host_mesh``).
+mesh (``make_model_mesh``, and ``make_production_mesh`` over a fake
+world of 256 or 512 ranks for the dry run: ``fake_world``).
 
 Functions, never module-level constants, so importing this module never
 touches ``torch.distributed`` state.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -138,3 +140,36 @@ def _lines(shape, dims) -> List[List[int]]:
     moved = np.moveaxis(ranks, others + dims, range(len(shape)))
     n = math.prod(shape[d] for d in dims)
     return [sorted(int(r) for r in row) for row in moved.reshape(-1, n)]
+
+
+# the production meshes: one pod of 16 x 16, two pods of 16 x 16
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """A ``torch.distributed`` world of ``world_size`` ranks in which this
+    process is ``rank`` and every collective returns at once, leaving its
+    outputs as they were (the "fake" backend, ``torch.testing._internal.
+    distributed.fake_pg``): the dry run counts a rank's collectives
+    without the other ranks.  Torn down on exit, whatever happens."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a torch.distributed world is "
+                           "already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """Single pod: 16x16 = 256 ranks ("data","model").  Multi-pod: 2x16x16
+    = 512 ranks ("pod","data","model").  Over the initialised world (a
+    ``fake_world`` of that size), its groups on the fake backend."""
+    shape, axes = PRODUCTION[multi_pod]
+    return make_model_mesh(shape, axes, backend="fake")

@@ -1,10 +1,12 @@
 """Model configuration for the 10-arch pool (+ reduced smoke variants).
 
 The port's copy of ``repro.models.config``'s ``ModelConfig`` and
-``Policy``, with torch dtypes in the policy."""
+``Policy``, with torch dtypes in the policy, and of its dry-run cells
+(``ShapeCell``, ``SHAPES``, ``applicable_shapes``)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -87,6 +89,11 @@ class ModelConfig:
     def is_mla(self) -> bool:
         return self.kv_lora > 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k per assignment: SSM / hybrid / windowed."""
+        return self.family in ("ssm", "hybrid") or self.window > 0
+
     def layer_kind(self, i: int) -> str:
         """Return block kind for layer index i."""
         if self.family == "ssm":
@@ -110,3 +117,32 @@ class ModelConfig:
         if self.global_every and (i + 1) % self.global_every == 0:
             return 0
         return self.window
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (arch x input-shape) dry-run cell."""
+    name: str                       # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                       # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = (
+    ShapeCell("train_4k", "train", 4096, 256),
+    ShapeCell("prefill_32k", "prefill", 32768, 32),
+    ShapeCell("decode_32k", "decode", 32768, 128),
+    ShapeCell("long_500k", "decode", 524288, 1),
+)
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[ShapeCell, ...]:
+    """Shape applicability per assignment (skips documented in DESIGN.md)."""
+    out = []
+    for s in SHAPES:
+        if s.kind == "decode" and not cfg.causal:
+            continue                          # encoder-only: no decode step
+        if s.name == "long_500k" and not cfg.sub_quadratic:
+            continue                          # pure full-attention archs skip
+        out.append(s)
+    return tuple(out)

@@ -1,6 +1,7 @@
 """Parameter spec trees: one declaration drives real init and the cache
 layout — the port's copy of ``repro.models.params`` (``P``,
-``tree_paths``, ``stack_specs``, ``materialize``, ``pspecs``), with
+``tree_paths``, ``stack_specs``, ``materialize``, ``pspecs``,
+``count_params``, and ``abstract`` as meta tensors), with
 ``shard_params`` and ``materialize_shard`` for a rank of a mesh.
 
 ``materialize`` seeds each leaf from the caller's generator and a stable
@@ -80,6 +81,24 @@ def materialize(spec, gen: torch.Generator, dtype=torch.float32):
     base, dev = gen.initial_seed(), gen.device
     return map_with_path(spec, lambda path, p: _draw(path, p, base, dev,
                                                      dtype))
+
+
+def abstract(spec, dtype=torch.float32, shapes=None):
+    """The tree as meta tensors, with shapes and dtypes and no memory (the
+    dry run's inputs).  ``shapes`` (a tree of shapes over the same keys)
+    overrides each leaf's global shape, e.g. with a rank's shard's."""
+
+    def walk(sp, sh):
+        if isinstance(sp, P):
+            return torch.empty(sp.shape if sh is None else sh, dtype=dtype,
+                               device="meta")
+        return {k: walk(sp[k], None if sh is None else sh[k]) for k in sp}
+
+    return walk(spec, shapes)
+
+
+def count_params(spec) -> int:
+    return sum(math.prod(p.shape) for _, p in tree_paths(spec))
 
 
 def pspecs(spec, mesh, rules=None):

@@ -11,6 +11,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.coherence.fabric.backend import to_device
+from repro_torch.kernels import cost
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -31,13 +32,15 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch: dict,
     gradient as a tree of ``params``' structure (``M.loss_fn`` under
     ``ctx``: on a mesh or a data group, this rank's share, which
     ``reduce_mesh_grads`` or ``all_reduce_mean`` completes).  ``params``
-    are not written; an unused leaf's gradient is zeros."""
+    are not written; an unused leaf's gradient is zeros.  Under
+    ``launch.opanalysis`` the gradients are tagged "grads"."""
     p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = list(adamw.tree_leaves(p))
     loss, metrics = M.loss_fn(cfg, p, batch, ctx)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
+    cost.mark("grads", grads)
     return loss.detach(), metrics, adamw.tree_unflatten(params, grads)
 
 
@@ -61,7 +64,8 @@ def reduce_mesh_grads(grads, specs, ctx: ShardCtx):
     their size; every other leaf is averaged over the data group (one
     flattened ``all_reduce``).  Nothing is reduced over "model": its
     ranks' gradients of a replicated leaf are equal already, and a
-    model-split leaf's are its own."""
+    model-split leaf's are its own.  Under ``launch.opanalysis`` the
+    results are tagged "grads"."""
     dp = set(ctx.dp_axes)
     n_dp = ctx.mesh.axis_size(ctx.dp_axes)
     leaves = list(adamw.tree_leaves(grads))
@@ -73,4 +77,5 @@ def reduce_mesh_grads(grads, specs, ctx: ShardCtx):
         for i, g in zip(rest, all_reduce_mean([leaves[i] for i in rest],
                                               ctx.data_group)):
             out[i] = g
+    cost.mark("grads", out)
     return adamw.tree_unflatten(grads, out)

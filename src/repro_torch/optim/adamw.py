@@ -24,6 +24,8 @@ from typing import Any, Iterator, NamedTuple
 
 import torch
 
+from repro_torch.kernels import cost
+
 
 # elements of a leaf updated at a time: the chunk's f32 temporaries (at
 # most about ten, 256 MB each) against the host's launches, ~20 a chunk
@@ -141,6 +143,12 @@ def _bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
     return 1 - torch.pow(b, step.to(torch.float32))
 
 
+def _address(t: torch.Tensor) -> int:
+    """Where ``t``'s data starts; a fake (the dry run's) has no data, so
+    its storage stands for it."""
+    return t.untyped_storage()._cdata if cost.is_fake(t) else t.data_ptr()
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, state: TrainState, grads,
                   gnorm=None) -> TrainState:
@@ -164,7 +172,7 @@ def apply_updates(cfg: AdamWConfig, state: TrainState, grads,
     shards, as the reference's ``state_shardings`` place them."""
     trees = (state.params, state.m, state.v)
     owned = [t for tree in trees for t in tree_leaves(tree) if t.numel()]
-    if len({t.data_ptr() for t in owned}) != len(owned) \
+    if len({_address(t) for t in owned}) != len(owned) \
             or not all(t.is_contiguous() for t in owned):
         raise ValueError("apply_updates: params, m and v must be "
                          "contiguous tensors that share no memory")

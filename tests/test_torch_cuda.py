@@ -658,6 +658,53 @@ def test_cuda_rmsnorm_equals_plain(exact_f32, R, D, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True])
+def test_cuda_kernels_launch_under_the_analyser(exact_f32, grad):
+    """Under ``launch.opanalysis`` a real CUDA tensor still launches each
+    float kernel (its count moves, its output equals the plain version's
+    within ``FLOAT_TOL``); the analyser charges each call its rule, and
+    under grad the backward kernels launch and are charged too."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.launch import opanalysis
+    dev, bf = exact_f32, torch.bfloat16
+    x = _randn(dev, (64, 960), bf, 1).requires_grad_(grad)
+    w = (_randn(dev, (960,), torch.float32, 2) * 0.1).requires_grad_(grad)
+    q, k, v = (_randn(dev, (2, 128, 4, 64), bf, 3 + i).requires_grad_(grad)
+               for i in range(3))
+    kq = _randn(dev, (2, 1, 4, 64), bf, 6)
+    kc = _randn(dev, (2, 100, 2, 64), bf, 7)
+    wrappers = (rmsnorm, flash_attention, decode_attention, rmsnorm_bwd,
+                flash_attention_bwd)
+    before = [f.launches for f in wrappers]
+
+    def step():
+        y = ops.rmsnorm(x, w)
+        o = ops.flash_attention(q, k, v, causal=True)
+        d = ops.decode_attention(kq, kc, kc, 77)
+        if grad:
+            torch.autograd.grad((y.float().sum() + o.float().sum()),
+                                (x, w, q, k, v))
+        return y.detach(), o.detach(), d
+
+    cost = opanalysis.analyze(step)
+    launched = [f.launches - b for f, b in zip(wrappers, before)]
+    assert launched == [1, 1, 1, int(grad), int(grad)]
+    want = {"rmsnorm": 1, "flash_attention": 1, "decode_attention": 1}
+    if grad:
+        want.update(rmsnorm_bwd=1, flash_attention_bwd=1)
+    assert {n: c["calls"] for n, c in cost.kernels.items()} == want
+    y, o, d = cost.result
+    _close(y, ref.rmsnorm_ref(x.detach(), w.detach()))
+    _close(o, ref.attention_ref(q.detach(), k.detach(), v.detach(),
+                                causal=True))
+    _close(d, ref.attention_ref(kq, kc, kc, causal=False, kv_len=77))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R,D", [(8, 960), (4096, 960), (8, 100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_rmsnorm_weight_off_16_bytes(exact_f32, R, D, dtype):
