@@ -227,34 +227,46 @@ Phases (any failure raises and the script exits non-zero):
      and peak memory.  Phase 2 holds the backward at the three training
      shapes on both routes against autograd of the plain version, beside
      SDPA's backward;
- 12. expert parallelism (run inside phase 11, once its card work is done
-     and while its last CPU check's worker, deepseek's, runs on): two
-     ranks sharing the card over gloo with CUDA
-     tensors (``--model-rank`` starts one) form a (1, 2) mesh
-     (``launch.mesh.make_model_mesh``) and serve deepseek-v2-236b at
-     full width and 2 of 60 layers (the dense layer 0 and one MoE layer
-     of 160 experts, 80 a rank, MLA; each rank's shards built leaf by
-     leaf from the seeded global weights): a prefill of 2 x 512 tokens
-     through ``make_prefill_step`` (the expert-parallel route: two
-     ``all_to_all`` and one all-gather along the sequence a MoE layer,
-     no expert weight gathered) and 8 ``make_decode_step`` steps (the
-     global route: one all-gather of the expert rows), every MoE call
-     against ``moe_by_token`` in f32 (per-rank capacity for the prefill,
-     global for the decode steps; every expert drawn whole from the
-     seed), both ranks' ids equal, the kernels'
-     launches (counts zeroed just before, read just after) and the
-     collectives by kind; prefill and decode wall and device ms, the
-     all-to-all's host and device ms, peak memory; at capacity factor 8
-     the mesh prefill's final hidden state against rank 0's one-device
-     prefill of the seeded global weights (relative L2 2e-2, ids equal
-     outside near-ties).  Then the
-     mesh train step at the deepseek-v2 (MLA's own head dims) and llama4
-     smoke configs on (1, 2) and (2, 1) meshes, 3 steps on CUDA tensors
-     and on CPU tensors in the same ranks: loss and gradients card vs CPU
-     within 2e-2, replicated leaves equal bit for bit across the ranks,
-     ``flash_attention_bwd`` and ``rmsnorm_bwd`` launched;
+ 12. the (data, model) mesh (run inside phase 11, once its card work is
+     done and while its last CPU check's worker, deepseek's, runs on):
+     two ranks sharing the card over gloo with CUDA tensors
+     (``--model-rank`` starts one) form a (1, 2) mesh
+     (``launch.mesh.make_model_mesh``), every weight a rank's shard by the
+     reference's partition spec (``param_placement``; each rank's bytes
+     held to the sum of its shards), gathered where it is used, and the
+     residual carry split over the sequence between blocks.  It serves
+     deepseek-v2-236b at full width and 2 of 60 layers (the dense layer
+     0 and one MoE layer of 160 experts, 80 a rank, MLA; each rank's
+     shards built leaf by leaf from the seeded global weights): a prefill
+     of 2 x 512 tokens through ``make_prefill_step`` (the expert-parallel
+     route: two ``all_to_all`` and one all-gather along the sequence a
+     MoE layer) and 3 ``make_decode_step`` steps (the global route: one
+     all-gather of the expert rows), the all-gathers of the weights and
+     the carry counted against the placement's (``mesh_gathers``), every
+     MoE call against ``moe_by_token`` in f32 (per-rank capacity for the
+     prefill, global for the decode steps; every expert drawn whole from
+     the seed), both ranks' ids equal, the kernels' launches (counts
+     zeroed just before, read just after); prefill and decode wall and
+     device ms, the all-to-all's host and device ms, peak memory; at
+     capacity factor 8 the mesh prefill's final hidden state against
+     rank 0's one-device prefill of the seeded global weights (relative
+     L2 2e-2, ids equal outside near-ties).  Then qwen2.5-14b at full
+     width, 4 of 48 layers in bf16: a prefill of 2 x 512 tokens and 4
+     decode steps, the same checks of its launches, collectives and
+     bytes, each all-gather's host and device ms in a prefill, and the
+     final hidden state and every step's ids against rank 0's one device
+     (``dense_serving``).  Then the mesh train step at the deepseek-v2
+     (MLA's own head dims) and llama4 smoke configs on (1, 2) and (2, 1)
+     meshes, 3 steps on CUDA tensors and on CPU tensors in the same
+     ranks: loss and gradients card vs CPU within 2e-2, replicated
+     leaves equal bit for bit across the ranks, ``flash_attention_bwd``
+     and ``rmsnorm_bwd`` launched; and at the smollm-360m, gemma3-4b and
+     zamba2-1.2b smoke configs in their bf16 and the f32 policy, each
+     mesh's losses against the one-rank card step's (1e-4 f32, 2e-2
+     bf16; ``dense_training``);
  13. the kernel summary line (with rows for the head dims phase 9 adds,
-     the shapes phase 10 adds and phase 11's backward), then
+     the shapes phase 10 adds, phase 11's backward and qwen2.5-14b's
+     kernels on phase 12's mesh), then
      ``{"ok": true, "device": ...}`` last.  Each phase's start time is
      printed as ``[N s]``.
 
@@ -291,6 +303,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import multiprocessing
 import os
 import pathlib
@@ -543,15 +556,17 @@ WIDE_TRAIN_LR = 1e-5
 PHASE11_FLASH_BWD = ((8, 512, 16, 16, 80, 80, False, 0),
                      (4, 1536, 8, 4, 256, 256, True, 1024),
                      (2, 512, 128, 128, 192, 128, True, 0))
-# phase 12: expert parallelism.  deepseek-v2-236b at full width, 2 of 60
-# layers (the dense layer 0, then one MoE layer of 160 routed experts,
+# phase 12: the (data, model) mesh.  deepseek-v2-236b at full width, 2 of
+# 60 layers (the dense layer 0, then one MoE layer of 160 routed experts,
 # top-6, 2 shared, MLA) in its bf16-param policy, on a (1, 2) mesh of two
 # ranks sharing the card over gloo with CUDA tensors (NCCL refuses two
-# ranks on one device): 80 experts a rank, each rank's shard built leaf by
-# leaf from the seeded global weights (1.58 B replicated and 1.89 B
-# expert-shard parameters, ~7 GB a rank).  A prefill of B = 2 x 512
-# tokens (the expert-parallel route), then 8 decode steps (S = 1: the
-# global route); at capacity factor 8 (nothing dropped) the mesh
+# ranks on one device): 80 experts a rank, every weight a shard by its
+# partition spec, built leaf by leaf from the seeded global weights (2.69
+# B parameters, 5.4 GB a rank; 1.58 B whole and 1.89 B split before the
+# dense weights were placed), each gathered where it is used (3.2 GB a
+# forward through the host).  A prefill of B = 2 x 512 tokens (the
+# expert-parallel route), then 3 decode steps (S = 1: the global route);
+# at capacity factor 8 (nothing dropped) the mesh
 # prefill's final hidden state against rank 0's one-device prefill.  Then
 # the mesh train step at the deepseek-v2 (MLA's own head dims) and llama4
 # smoke configs on (1, 2) and (2, 1) meshes, B = 4 x S = 64, 3 steps, on
@@ -561,8 +576,11 @@ PHASE11_FLASH_BWD = ((8, 512, 16, 16, 80, 80, False, 0),
 EP_ARCH = "deepseek-v2-236b"
 EP_LAYERS = 2
 EP_MESH = (1, 2)
-EP_B, EP_PROMPT, EP_DECODE = 2, 512, 8
-EP_TIMED = 3                 # timed prefills and decode steps a rank
+# 3 decode steps and one timed prefill and decode step since every
+# forward gathers its weights through the host (2.3-2.9 s a deepseek
+# forward on an NVIDIA H100 80GB HBM3 at 700 W; 8 and 3 before)
+EP_B, EP_PROMPT, EP_DECODE = 2, 512, 3
+EP_TIMED = 1                 # timed prefills and decode steps a rank
 EP_EQUAL_CF = 8.0
 EP_SEED = 12
 EP_TRAIN_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
@@ -570,6 +588,24 @@ EP_TRAIN_MESHES = ((1, 2), (2, 1))
 EP_TRAIN_B, EP_TRAIN_S, EP_TRAIN_STEPS = 4, 64, 3
 EP_TRAIN_TOL = 2e-2
 EP_RANK_TIMEOUT_S = 400
+# phase 12's dense mesh path: qwen2.5-14b at full width (d_model 5120, 40
+# query and 8 kv heads of 128, d_ff 13824, vocab 152064, QKV bias), 4 of
+# its 48 layers in bf16 (2.66 B parameters, 5.3 GB whole, ~2.7 GB a rank
+# under the placement: heads, kv heads, mlp and vocab over "model") on
+# the (1, 2) mesh: a prefill of B = 2 x 512 tokens, then 4 decode steps
+# (a cache of 536 rows, phase 10's llama4 decode shape, G = 5); the mesh
+# prefill's final hidden state against rank 0's one-device forward of the
+# whole weights within MODEL_REL_L2, greedy ids equal outside near-ties
+# (the one device fed the mesh's ids)
+TP_ARCH = "qwen2.5-14b"
+TP_LAYERS = 4
+TP_B, TP_PROMPT, TP_DECODE = 2, 512, 4
+TP_MAX_LEN = PHASE10_PROMPT + 16 + 8
+# then the mesh train step at the dense smoke configs (``ep_train_cfg``) on
+# (1, 2) and (2, 1), 3 steps on CUDA tensors, each loss against the one-rank
+# card step: 1e-4 relative under the f32 policy, EP_TRAIN_TOL in bf16
+EP_DENSE_ARCHS = ("smollm-360m", "gemma3-4b", "zamba2-1.2b")
+EP_DENSE_F32_TOL = 1e-4
 # ssd_chunk vs its plain version: dt = 0.1 softplus(normal) and
 # A = -exp(U(0, 1.5)), so cum falls to about -50 over a chunk of 256 on an
 # average head (to -100 on the steepest)
@@ -586,7 +622,7 @@ def log(*a) -> None:
 # 1536 and its and llama4's d_model 5120), then an odd one
 RMSNORM_SHAPES = tuple((R, D) for R in (SERVE_B, SERVE_B * PROMPT_LEN)
                        for D in (512, 768, 960, 1536, 2048, 4096, 5120)
-                       ) + ((7, 80),)
+                       ) + ((7, 80), (PHASE10_B * PHASE10_PROMPT, 5120))
 
 
 # ------------------------------------------------------------------ timing
@@ -4570,12 +4606,7 @@ def ep_serving(torch, np, mesh, rank):
         cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED), mesh)
     torch.cuda.synchronize()
     rep["build_s"] = time.perf_counter() - t0
-    specs = M.param_placement(cfg, mesh)
-    n_all = sum(t.numel() for _, t in named_leaves(params))
-    n_split = sum(t.numel() for (_, t), s in zip(named_leaves(params),
-                                                  leaves_of(specs)) if s)
-    rep["params_rank"] = {"replicated": n_all - n_split,
-                          "expert_shard": n_split}
+    rep["params_rank"] = held_params(torch, cfg, mesh, params)
     params = M.cast_params(cfg, params)
     rng = np.random.default_rng(EP_SEED)
     tokens = torch.from_numpy(rng.integers(
@@ -4623,9 +4654,13 @@ def ep_serving(torch, np, mesh, rank):
     rep["launches"], rep["routes"] = read_counts()
     rep["collectives"] = {k: v["by_op"] for k, v in coll.items()}
     rep["ids"] = ids.cpu().numpy()
+    # a MoE layer's sequence blocks (prefill) or expert rows (decode),
+    # and the weights and the carry gathered as the placement says
     want = {"prefill": {"alltoall_base_": 2 * n_moe,
-                        "_allgather_base_": n_moe},
-            "decode": {"_allgather_base_": n_moe}}
+                        "_allgather_base_": n_moe + mesh_gathers(
+                            cfg, mesh, EP_PROMPT)},
+            "decode": {"_allgather_base_": n_moe + mesh_gathers(cfg, mesh,
+                                                                1)}}
     if rep["collectives"] != want:
         raise AssertionError(f"phase 12: collectives {rep['collectives']}, "
                              f"expected {want}")
@@ -4667,21 +4702,23 @@ def ep_serving(torch, np, mesh, rank):
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3, e0.elapsed_time(e1), out
 
+    # the all-to-alls timed inside the timed prefills (gloo's wait for
+    # the stream anyway)
     with torch.no_grad():
         cache0 = M.init_cache(cfg, EP_B, max_len, device=dev)
         pre, dec = [], []
         for _ in range(EP_TIMED):
-            wall, devms, (ids1, cache) = wall_and_device(
-                lambda: prefill(params, cache0, {"tokens": tokens}))
+            a2a.clear()
+            comm._a2a = timed_a2a
+            try:
+                wall, devms, (ids1, cache) = wall_and_device(
+                    lambda: prefill(params, cache0, {"tokens": tokens}))
+            finally:
+                comm._a2a = orig
             pre.append((wall, devms))
             wall, devms, _ = wall_and_device(
                 lambda: decode(params, cache, ids1[:, None], EP_PROMPT))
             dec.append((wall, devms))
-        comm._a2a = timed_a2a
-        try:
-            prefill(params, cache0, {"tokens": tokens})
-        finally:
-            comm._a2a = orig
     rep["prefill_ms"] = pre
     rep["decode_ms"] = dec
     rep["a2a_ms"] = [(h * 1e3, d) for h, d in a2a]
@@ -4697,7 +4734,7 @@ def ep_serving(torch, np, mesh, rank):
         cache = M.init_cache(cfg, EP_B, max_len, device=dev)
         h_mesh, _ = M.forward(cfg8, params, tokens, cache=cache,
                               ctx=ShardCtx(mesh))
-        W = M.unembed_matrix(cfg, params).to(h_mesh.dtype)
+        W = M.unembed_matrix(cfg, params, ShardCtx(mesh)).to(h_mesh.dtype)
         rep["equal"] = None
         if rank == 0:
             h_one, _ = M.forward(cfg8, full, tokens, cache=cache)
@@ -4713,6 +4750,228 @@ def ep_serving(torch, np, mesh, rank):
     del params
     torch.cuda.empty_cache()
     return rep
+
+
+def dense_serving(torch, np, mesh, rank):
+    """qwen2.5-14b at full width and TP_LAYERS layers in bf16 on the (1, 2)
+    mesh, every weight a shard by its partition spec (each rank's bytes
+    held to the sum of its shards), served through ``make_prefill_step``
+    and ``make_decode_step``: a counted prefill and TP_DECODE decode
+    steps (the kernels' launches, counts zeroed just before and read just
+    after; the collectives against the placement's), each step timed and
+    each of the prefill's all-gathers with its host and device time; then the
+    mesh prefill's final hidden state against rank 0's one-device forward
+    of the whole weights, and every step's greedy ids against the one
+    device's fed the same ids (near-ties excepted)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import comm
+    from repro_torch.models import model as M
+    from repro_torch.obs.xprof import collective_counts
+    from repro_torch.sharding import ShardCtx
+    dev = torch.device("cuda")
+    base = configs.ARCHS[TP_ARCH]
+    cfg = dataclasses.replace(base, n_layers=TP_LAYERS,
+                              policy=dataclasses.replace(
+                                  base.policy, param_dtype=torch.bfloat16))
+    ctx = ShardCtx(mesh)
+    rep = {}
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = M.init_model_shard(
+        cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED), mesh)
+    torch.cuda.synchronize()
+    rep["build_s"] = time.perf_counter() - t0
+    rep["params_rank"] = held_params(torch, cfg, mesh, params)
+    rep["allocated_gb"] = (torch.cuda.memory_allocated() - before) / 1e9
+    params = M.cast_params(cfg, params)
+    rng = np.random.default_rng(EP_SEED + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (TP_B, TP_PROMPT)).astype(np.int32)).to(dev)
+    prefill, decode = make_prefill_step(cfg, mesh), make_decode_step(cfg,
+                                                                     mesh)
+    # the counted run, timed: each step's wall and device ms, the
+    # prefill's all-gathers each between syncs (gloo's all-gather waits
+    # for the stream anyway), each step's final hidden state kept for the
+    # comparison with one device (a forward gathers every weight, 5.3 GB,
+    # through the host, so the run is not repeated for its times)
+    coll, finals, next_ids = {}, [], M._next_ids
+    gathers, orig = [], comm._all_gather0
+
+    def record(cfg_, p, h, ctx_=None):
+        finals.append(h)
+        return next_ids(cfg_, p, h, ctx_)
+
+    def timed_gather(x, group):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        y = orig(x, group)
+        e1.record()
+        torch.cuda.synchronize()
+        gathers.append(((time.perf_counter() - t) * 1e3,
+                        e0.elapsed_time(e1), y.numel() * y.element_size()))
+        return y
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t) * 1e3, e0.elapsed_time(e1)), out
+
+    zero_counts()
+    M._next_ids = record
+    try:
+        with torch.no_grad():
+            cache = M.init_cache(cfg, TP_B, TP_MAX_LEN, device=dev)
+            comm._all_gather0 = timed_gather
+            try:
+                pre, ((ids, cache), coll["prefill"]) = timed(
+                    lambda: collective_counts(prefill, params, cache,
+                                              {"tokens": tokens}))
+            finally:
+                comm._all_gather0 = orig
+            seq, dec = [ids], []
+            for t in range(TP_DECODE):
+                ms, ((ids, cache), c) = timed(
+                    lambda: collective_counts(decode, params, cache,
+                                              ids[:, None], TP_PROMPT + t))
+                coll.setdefault("decode", c)
+                seq.append(ids)
+                dec.append(ms)
+    finally:
+        M._next_ids = next_ids
+    rep["launches"], rep["routes"] = read_counts()
+    ids = torch.stack(seq, 1)
+    rep["ids"] = ids.cpu().numpy()
+    rep["collectives"] = {k: v["by_op"] for k, v in coll.items()}
+    want = {"prefill": {"_allgather_base_": mesh_gathers(cfg, mesh,
+                                                         TP_PROMPT)},
+            "decode": {"_allgather_base_": mesh_gathers(cfg, mesh, 1)}}
+    if rep["collectives"] != want:
+        raise AssertionError(f"phase 12: {TP_ARCH} collectives "
+                             f"{rep['collectives']}, expected {want}")
+    rep["prefill_ms"], rep["decode_ms"] = [pre], dec
+    rep["gathers"] = {"n": len(gathers),
+                      "host_ms": sum(g[0] for g in gathers),
+                      "device_ms": sum(g[1] for g in gathers),
+                      "bytes": sum(g[2] for g in gathers)}
+
+    # the one device: rank 0's forward of the whole weights, fed the
+    # mesh's ids
+    rep["equal"] = None
+    with torch.no_grad():
+        if rank == 0:
+            full = M.cast_params(cfg, M.init_model(
+                cfg, torch.Generator(dev).manual_seed(WEIGHT_SEED)))
+            Wf = M.unembed_matrix(cfg, full).to(finals[0].dtype)
+            # the mesh's logits as ``_next_ids`` takes them
+            logits_mesh = [(h[:, -1:] @ Wf)[:, 0] for h in finals]
+            if not torch.equal(torch.stack(logits_mesh, 1).float()
+                               .argmax(-1).to(ids.dtype), ids):
+                raise AssertionError("phase 12: the served ids are not the "
+                                     "argmax of the mesh's logits")
+            cache = M.init_cache(cfg, TP_B, TP_MAX_LEN, device=dev)
+            h_one, cache = M.forward(cfg, full, tokens, cache=cache)
+            rep["equal"] = {"rel_l2": rel_l2(finals[0], h_one)}
+            kept = [near_tie_ids(torch, logits_mesh[0], h_one[:, -1] @ Wf)]
+            for t in range(TP_DECODE):
+                h, cache = M.forward(cfg, full, ids[:, t:t + 1],
+                                     cache=cache, pos=TP_PROMPT + t)
+                kept.append(near_tie_ids(torch, logits_mesh[t + 1],
+                                         h[:, -1] @ Wf))
+            kept = torch.stack(kept)
+            rep["equal"].update(ids_kept=int(kept.sum()),
+                                ids=int(kept.numel()))
+            del full, h_one, logits_mesh
+    del finals
+    rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, cache
+    torch.cuda.empty_cache()
+    return rep
+
+
+def spec_paths(tree, path=""):
+    """(path, spec) for each leaf of a spec tree, in sorted-key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in spec_paths(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
+
+
+def mesh_gathers(cfg, mesh, S) -> int:
+    """The all-gathers of one forward's weights and residual carry on
+    ``mesh`` at sequence length S, derived from the placement, not read
+    from a run: one for each dim split over more than one rank of each
+    weight, in every use (a stacked leaf in each layer, a tied embedding
+    twice, zamba2's shared block at each position), a MoE block's router
+    and expert stacks only over the data axes; the carry one a block and
+    one before ``ln_f`` where the "model" ranks divide S."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_paths
+    from repro_torch.sharding import DP_AXES, spec_axes
+    place = dict(spec_paths(M.param_placement(cfg, mesh)))
+    n_shared = sum(cfg.layer_kind(i) == "attn_shared"
+                   for i in range(cfg.n_layers))
+    total = 0
+    for path, p in tree_paths(M.model_spec(cfg)):
+        parts = path.split("/")
+        uses = p.shape[0] if p.axes[:1] == ("stack",) else 1
+        if path == "/embed" and cfg.tie_embeddings:
+            uses = 2
+        if parts[1] == "shared_attn":
+            uses = n_shared
+        stack = parts[-2] == "moe" and parts[-1] in moe.SHARDED
+        spec = place[path]
+        for d in range(len(spec)):
+            axes = spec_axes(spec, d)
+            if stack and not all(a in DP_AXES for a in axes):
+                continue
+            total += uses * (mesh.axis_size(axes) > 1)
+    M_ = mesh.axis_size(("model",))
+    if M_ > 1 and S % M_ == 0:
+        total += cfg.n_layers + 1
+    return total
+
+
+def held_params(torch, cfg, mesh, params) -> dict:
+    """A rank's parameters: the bytes its tensors hold, which must be the
+    sum of its shards' under the placement (each leaf's global shape over
+    the ranks of its split axes), and how many of them are split."""
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_paths
+    from repro_torch.sharding import spec_axes
+    place = dict(spec_paths(M.param_placement(cfg, mesh)))
+    got = dict(named_leaves(params))
+    want_bytes = held = split = 0
+    for path, p in tree_paths(M.model_spec(cfg)):
+        spec, t = place[path], got[path]
+        shape = list(p.shape)
+        for d in range(len(spec)):
+            shape[d] //= mesh.axis_size(spec_axes(spec, d))
+        if list(t.shape) != shape:
+            raise AssertionError(f"phase 12: {path} held as "
+                                 f"{tuple(t.shape)}, its shard is {shape}")
+        want_bytes += math.prod(shape) * t.element_size()
+        held += t.numel() * t.element_size()
+        split += t.numel() if any(spec_axes(spec, d)
+                                  for d in range(len(spec))) else 0
+    if held != want_bytes:
+        raise AssertionError(f"phase 12: {held} bytes held, the shards "
+                             f"are {want_bytes}")
+    n = sum(t.numel() for t in got.values())
+    return {"bytes": held, "whole": n - split, "split": split}
 
 
 def leaves_of(tree):
@@ -4797,6 +5056,83 @@ def ep_training(torch, np, meshes, rank):
     return out
 
 
+def dense_training(torch, np, meshes, rank):
+    """The mesh train step at the dense smoke configs (EP_DENSE_ARCHS,
+    ``ep_train_cfg``) in their own (bf16) and the f32 policy, on each mesh
+    on CUDA tensors, every weight a shard by its partition spec: the
+    kernels' launches, EP_TRAIN_STEPS steps' losses against the one-rank
+    card step's on the same global batches, and a digest of every
+    replicated leaf after the steps (the ranks compare theirs)."""
+    import dataclasses
+    import hashlib
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import shard_index
+    dev = torch.device("cuda")
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=20)
+    out = {}
+    for arch in EP_DENSE_ARCHS:
+        for policy in ("own", "f32"):
+            cfg = ep_train_cfg(arch)
+            if policy == "f32":
+                cfg = dataclasses.replace(cfg, policy=dataclasses.replace(
+                    cfg.policy, compute_dtype=torch.float32,
+                    cache_dtype=torch.float32))
+            tol = EP_DENSE_F32_TOL if policy == "f32" else EP_TRAIN_TOL
+            glob = M.init_model(cfg, torch.Generator().manual_seed(
+                WEIGHT_SEED))
+            rng = np.random.default_rng(EP_SEED + 3)
+            batches = [{"tokens": rng.integers(0, cfg.vocab, (
+                EP_TRAIN_B, EP_TRAIN_S)).astype(np.int32)}
+                for _ in range(EP_TRAIN_STEPS)]
+            # the steps update their state in place: copies of glob
+            step = make_train_step(cfg, opt)
+            state = adamw.init_state(adamw.tree_map(
+                lambda t: t.to(dev, copy=True), glob),
+                cfg.policy.moment_dtype)
+            one = []
+            for bt in batches:
+                state, m = step(state, bt)
+                one.append(float(m["loss"]))
+            del state
+            for shape, mesh in meshes.items():
+                specs = M.param_placement(cfg, mesh)
+                i, n = shard_index(mesh, ("data",))
+                b = EP_TRAIN_B // n
+                step = make_train_step(cfg, opt, mesh=mesh)
+                state = adamw.init_state(adamw.tree_map(
+                    lambda t: t.to(dev, copy=True),
+                    M.shard_model(cfg, glob, mesh)),
+                    cfg.policy.moment_dtype)
+                zero_counts()
+                losses = []
+                for bt in batches:
+                    state, m = step(state, {k: v[i * b:(i + 1) * b]
+                                            for k, v in bt.items()})
+                    losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                launches, routes = read_counts()
+                err = max(abs(a - c) / abs(c) for a, c in zip(losses, one))
+                if not err <= tol:
+                    raise AssertionError(
+                        f"phase 12: {arch} ({policy} policy) on {shape}: "
+                        f"mesh losses {losses} against one rank's {one}: "
+                        f"{err} > {tol}")
+                out[(arch, policy, shape)] = {
+                    "losses": losses, "one_rank": one, "loss_err": err,
+                    "launches": launches, "routes": routes,
+                    "digests": {k: hashlib.sha256(
+                        t.detach().cpu().contiguous().view(torch.uint8)
+                        .numpy().tobytes()).hexdigest()
+                        for (k, t), sp in zip(named_leaves(state.params),
+                                              leaves_of(specs))
+                        if sp == ()}}
+                del state
+    return out
+
+
 def model_rank(rank: int, world: int, rdzv: str, out_path: str) -> None:
     """One rank of phase 12 (``chip_smoke.py --model-rank``): a gloo world
     of ``world`` ranks sharing the card (NCCL refuses two ranks on one
@@ -4826,8 +5162,12 @@ def model_rank(rank: int, world: int, rdzv: str, out_path: str) -> None:
     stage["start"] = time.perf_counter()
     out = {"serve": ep_serving(torch, np, meshes[EP_MESH], rank)}
     stage["serve"] = time.perf_counter()
+    out["dense_serve"] = dense_serving(torch, np, meshes[EP_MESH], rank)
+    stage["dense_serve"] = time.perf_counter()
     out["train"] = ep_training(torch, np, meshes, rank)
     stage["train"] = time.perf_counter()
+    out["dense_train"] = dense_training(torch, np, meshes, rank)
+    stage["dense_train"] = time.perf_counter()
     names = list(stage)
     out["stage_s"] = {b: stage[b] - stage[a] for a, b in zip(names, names[1:])}
     dist.barrier()
@@ -4882,9 +5222,10 @@ def check_phase12(torch, np):
                 or x["routes"].get("simt", 0):
             raise AssertionError(f"phase 12: rank {r} serving launches "
                                  f"{x['launches']}, routes {x['routes']}")
-        log(f"  rank {r}: {x['params_rank']['replicated'] / 1e9:.2f} B "
-            f"replicated + {x['params_rank']['expert_shard'] / 1e9:.2f} B "
-            f"expert-shard parameters built in {x['build_s']:.1f} s; "
+        log(f"  rank {r}: {x['params_rank']['whole'] / 1e9:.2f} B whole "
+            f"+ {x['params_rank']['split'] / 1e9:.2f} B split parameters "
+            f"({x['params_rank']['bytes'] / 1e9:.2f} GB, the sum of its "
+            f"shards) built in {x['build_s']:.1f} s; "
             f"collectives {x['collectives']}; peak memory "
             f"{x['peak_memory_gb']:.2f} GB")
         log(f"  rank {r}: prefill {EP_B} x {EP_PROMPT} wall/device ms "
@@ -4905,6 +5246,39 @@ def check_phase12(torch, np):
     log(f"  mesh prefill at capacity factor {EP_EQUAL_CF} vs rank 0's one "
         f"device: final hidden state relative L2 {eq['rel_l2']:.5f}, ids "
         f"equal on {eq['ids_kept']} of {eq['rows']} rows (others near-ties)")
+    d = [x["dense_serve"] for x in res]
+    if any(not np.array_equal(x["ids"], d[0]["ids"]) for x in d):
+        raise AssertionError(f"phase 12: the ranks' {TP_ARCH} ids differ")
+    eq = d[0]["equal"]
+    if not (eq["rel_l2"] <= MODEL_REL_L2 and eq["ids_kept"] >= 1):
+        raise AssertionError(f"phase 12: {TP_ARCH} mesh prefill vs one "
+                             f"device {eq}")
+    for r, x in enumerate(d):
+        need = ("rmsnorm", "flash_attention", "decode_attention")
+        if min(x["launches"][k] for k in need) < 1 \
+                or x["routes"].get("simt", 0):
+            raise AssertionError(f"phase 12: rank {r} {TP_ARCH} launches "
+                                 f"{x['launches']}, routes {x['routes']}")
+        g = x["gathers"]
+        log(f"  rank {r}: {TP_ARCH} ({TP_LAYERS} layers): "
+            f"{x['params_rank']['whole'] / 1e9:.3f} B whole + "
+            f"{x['params_rank']['split'] / 1e9:.3f} B split parameters, "
+            f"{x['params_rank']['bytes'] / 1e9:.3f} GB = the sum of its "
+            f"shards ({x['allocated_gb']:.3f} GB allocated); collectives "
+            f"{x['collectives']}; peak memory {x['peak_memory_gb']:.2f} GB")
+        log(f"  rank {r}: {TP_ARCH} prefill {TP_B} x {TP_PROMPT} "
+            f"wall/device ms "
+            f"{[(round(a, 3), round(b, 3)) for a, b in x['prefill_ms']]}; "
+            f"decode step "
+            f"{[(round(a, 3), round(b, 3)) for a, b in x['decode_ms']]}; "
+            f"a prefill's {g['n']} all-gathers {g['host_ms']:.2f} ms host, "
+            f"{g['device_ms']:.2f} ms device, {g['bytes'] / 1e9:.2f} GB "
+            f"gathered (through the host: gloo); launches "
+            f"{ {k: x['launches'][k] for k in need} }")
+        counts[f"dense_serve{r}"] = x["launches"]
+    log(f"  {TP_ARCH} mesh prefill vs rank 0's one device: final hidden "
+        f"state relative L2 {eq['rel_l2']:.5f}, ids equal at "
+        f"{eq['ids_kept']} of {eq['ids']} (rows x steps; others near-ties)")
     t0, t1 = (x["train"] for x in res)
     for key, a in t0.items():
         b = t1[key]
@@ -4929,7 +5303,28 @@ def check_phase12(torch, np):
             f"bit for bit on both ranks; flash_attention_bwd "
             f"{a['launches']['flash_attention_bwd']}, rmsnorm_bwd "
             f"{a['launches']['rmsnorm_bwd']} launches")
+    d0, d1 = (x["dense_train"] for x in res)
+    for key, a in d0.items():
+        if a["digests"] != d1[key]["digests"]:
+            raise AssertionError(f"phase 12: {key}: replicated leaves "
+                                 "differ across the ranks")
+        for x in (a, d1[key]):
+            need = ("flash_attention_bwd", "rmsnorm_bwd") + (
+                ("ssd_chunk_bwd",) if key[0] == "zamba2-1.2b" else ())
+            if min(x["launches"][k] for k in need) < 1:
+                raise AssertionError(f"phase 12: {key} training launches "
+                                     f"{x['launches']}")
+        counts[key] = a["launches"]
+        log(f"  train {key[0]} ({key[1]} policy) on {key[2]}: "
+            f"{EP_TRAIN_STEPS} steps' losses {a['losses']} against one "
+            f"rank's {a['one_rank']}: {a['loss_err']:.2e}; replicated "
+            f"leaves equal on both ranks")
     rep = {"serve": [{k: v for k, v in x.items() if k != "ids"} for x in s],
+           "dense_serve": [{k: v for k, v in x.items() if k != "ids"}
+                           for x in d],
+           "dense_train": {f"{k[0]} {k[1]} {k[2]}": {
+               kk: vv for kk, vv in v.items() if kk != "digests"}
+               for k, v in d0.items()},
            "train": {f"{k[0]} {k[1]}": {kk: vv for kk, vv in v.items()
                                         if kk != "digests"}
                      for k, v in t0.items()},
@@ -5156,11 +5551,13 @@ def main() -> None:
     p12 = {}
 
     def phase12():
-        log(f"phase 12: expert parallelism, {EP_ARCH} ({EP_LAYERS} layers) "
-            f"served at full width on a {EP_MESH} mesh of gloo ranks sharing "
-            f"the card, then the mesh train step at the smoke configs, "
-            f"beside phase 11's last CPU check {elapsed()}")
-        _, p12["report"] = check_phase12(torch, np)
+        log(f"phase 12: the (data, model) mesh, every weight a shard by its "
+            f"partition spec: {EP_ARCH} ({EP_LAYERS} layers, expert "
+            f"parallel) and {TP_ARCH} ({TP_LAYERS} layers) served at full "
+            f"width on a {EP_MESH} mesh of gloo ranks sharing the card, "
+            f"then the mesh train step at the smoke configs, beside phase "
+            f"11's last CPU check {elapsed()}")
+        p12["counts"], p12["report"] = check_phase12(torch, np)
         log(f"  (phase 12 ends, phase 11's last check follows) {elapsed()}")
 
     p11_counts, report["phase11"] = check_phase11(torch, np, dev,
@@ -5310,6 +5707,30 @@ def main() -> None:
                      "replaces": next(r for n, _, r in KERNELS
                                       if n == "flash_attention_bwd"),
                      "launches": p11_counts[arch]["flash_attention_bwd"],
+                     "max_abs_err": max(r["max_abs_err"] for r in rows),
+                     "ms": row["ms"], "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row.get("library_ms")})
+    # qwen2.5-14b's kernels on phase 12's mesh, each at its shape there
+    # (phase 2's rows: llama4's prefill and first decode step have qwen's
+    # heads, B, S and cache), its launches from rank 0's counted run
+    qwen = p12["counts"]["dense_serve0"]
+    for name, kernel, source, shape in (
+            ("flash_attention_qwen", "flash_attention",
+             "flash_attention_wgmma.cu", PHASE10_FLASH[1]),
+            ("decode_attention_qwen", "decode_attention",
+             "decode_attention.cu", PHASE10_DECODE[0]),
+            ("rmsnorm_qwen", "rmsnorm", "rmsnorm.cu",
+             (TP_B * TP_PROMPT, 5120))):
+        shape = [int(x) for x in shape]
+        rows = [r for r in kreport[kernel] if r["shape"] == shape]
+        row = next(r for r in rows
+                   if r.get("dtype", "bfloat16") == "bfloat16")
+        line.append({"name": name, "route": "cuda", "source": csrc + source,
+                     "replaces": next(r for n, _, r in KERNELS
+                                      if n == kernel),
+                     "launches": qwen[kernel],
                      "max_abs_err": max(r["max_abs_err"] for r in rows),
                      "ms": row["ms"], "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],

@@ -8,14 +8,16 @@ cell's step on the production mesh, counted without a card — the port of
         --shape all --mesh both
 
 Each cell builds this rank's inputs as meta tensors
-(``launch.steps.build_cell``: its rows of the batch, its experts, every
-dense weight whole, as the port places them), opens a fake world of 256
+(``launch.steps.build_cell``: its rows of the batch and its shard of
+every parameter, gradient and moment under the reference's partition
+specs), opens a fake world of 256
 ("single", a (16, 16) (data, model) mesh) or 512 ranks ("multi", (2,
 16, 16) with "pod"; ``launch.mesh.fake_world``) and runs the step under
 ``launch.opanalysis``: FLOPs by dtype, HBM bytes, collective wire bytes
 and peak live bytes by part, then the roofline terms on the H100
-(``launch.roofline``).  The ranks are symmetric, so the counts are rank
-0's.
+(``launch.roofline``).  The weights' all-gathers where they are used
+count as wire bytes, and a gathered layer as a transient in the peak.
+The ranks are symmetric, so the counts are rank 0's.
 
 Records land in ``build/dryrun/<mesh>/<arch>__<shape>.json`` (git
 ignores ``build/``); an existing record is kept unless ``--force``.

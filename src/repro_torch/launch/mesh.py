@@ -94,16 +94,19 @@ def axis_subsets(axis_names: Sequence[str]) -> List[Tuple[str, ...]]:
 
 def make_model_mesh(shape: Sequence[int],
                     axis_names: Sequence[str] = ("data", "model"),
-                    backend: Optional[str] = None) -> Mesh:
+                    backend: Optional[str] = None,
+                    ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
     """The counterpart of ``repro.launch.mesh.make_production_mesh`` and
-    ``make_host_mesh`` over the initialised default group, whose world
-    size must be the product of ``shape``.  Makes one process group for
-    every line of every subset of the axes; every rank creates all of
-    them in one fixed order, as ``torch.distributed.new_group`` requires,
-    and keeps those through itself.  ``backend`` follows
-    ``make_fabric_group``'s rule: NCCL with CUDA, gloo on the CPU, an
-    explicit ``"gloo"`` for ranks that share one card; it never switches
-    on an error."""
+    ``make_host_mesh`` over the initialised default group: a mesh of
+    ``ranks`` (ascending world ranks; default the whole world), whose
+    count must be the product of ``shape``.  Makes one process group for
+    every line of every subset of the axes; every rank of the world
+    creates all of them in one fixed order, as
+    ``torch.distributed.new_group`` requires, and keeps those through
+    itself; a rank outside ``ranks`` gets None (a resume onto a smaller
+    mesh).  ``backend`` follows ``make_fabric_group``'s rule: NCCL with
+    CUDA, gloo on the CPU, an explicit ``"gloo"`` for ranks that share
+    one card; it never switches on an error."""
     if not dist.is_initialized():
         raise RuntimeError("make_model_mesh needs an initialised "
                            "torch.distributed default group")
@@ -112,16 +115,21 @@ def make_model_mesh(shape: Sequence[int],
         raise ValueError(f"shape {shape} and axes {axis_names} differ in "
                          "length")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if math.prod(shape) != world:
+    members_all = list(range(world)) if ranks is None else \
+        [int(r) for r in ranks]
+    if members_all != sorted(set(members_all)) or members_all[-1] >= world:
+        raise ValueError(f"ranks {members_all} are not ascending ranks of "
+                         f"a world of {world}")
+    if math.prod(shape) != len(members_all):
         raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks, "
-                         f"the world has {world}")
+                         f"{len(members_all)} are given")
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
-    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
     groups: Dict[Tuple[str, ...], Any] = {}
     for axes in axis_subsets(axis_names):
         dims = [axis_names.index(a) for a in axes]
-        for members in _lines(shape, dims):
+        for line in _lines(shape, dims):
+            members = [members_all[i] for i in line]
             if members == list(range(world)) \
                     and backend == dist.get_backend():
                 g = dist.group.WORLD
@@ -129,6 +137,10 @@ def make_model_mesh(shape: Sequence[int],
                 g = dist.new_group(members, backend=backend)
             if rank in members:
                 groups[axes] = g
+    if rank not in members_all:
+        return None
+    coords = tuple(int(c) for c in np.unravel_index(
+        members_all.index(rank), shape))
     return Mesh(axis_names, shape, coords, groups, backend)
 
 

@@ -7,12 +7,13 @@ steps (``make_train_step``, ``make_prefill_step``,
 A step runs on a ``torch.distributed`` data-parallel ``group`` or on a
 (data, model) ``mesh`` (``launch.mesh.make_model_mesh``), whose ranks
 each hold their data rank's rows of the batch and their shards of the
-parameters (``models.model.param_placement``): the MoE layers run
-expert-parallel over the model axis.  The dry run's inputs are this
-rank's, as meta tensors (``models.params.abstract``): its rows of the
-batch over the data axes, its experts over "model" and every dense
-weight whole, as the port places them; the reference's shardings have
-no counterpart.
+parameters by the reference's partition specs
+(``models.model.param_placement``), each gathered where it is used; the
+MoE layers run expert-parallel over the model axis.  The dry run's
+inputs are this rank's, as meta tensors (``models.params.abstract``): its
+rows of the batch over the data axes and its shard of every parameter
+(and so of every gradient and AdamW moment), the reference's
+per-device shards.
 """
 from __future__ import annotations
 
@@ -129,9 +130,8 @@ def batch_rows(n: int, mesh=None) -> int:
 
 
 def param_shapes(cfg: ModelConfig, mesh=None) -> Optional[dict]:
-    """Every leaf's shape as this rank of ``mesh`` holds it
-    (``param_placement``: the experts split, the rest whole); None on
-    one device."""
+    """Every leaf's shape as this rank of ``mesh`` holds it (its shard
+    under ``param_placement``); None on one device."""
     if mesh is None:
         return None
     place = M.param_placement(cfg, mesh)

@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.sharding import spec_axes
+from repro_torch.sharding import DP_AXES, spec_axes
 
 
 def group_size(group) -> int:
@@ -50,12 +50,12 @@ def _all_gather0(x, group):
 
 
 def all_gather(x, dim: int, group):
-    """The group's blocks of ``x`` concatenated along ``dim`` (no
-    autograd)."""
+    """The group's blocks of ``x`` concatenated along ``dim``, contiguous
+    (the kernels take contiguous rows), with no autograd."""
     if group_size(group) == 1:
         return x
     out = _all_gather0(x.movedim(dim, 0), group)
-    return out.movedim(0, dim)
+    return out.movedim(0, dim).contiguous()
 
 
 def _block(x, dim: int, group):
@@ -203,6 +203,28 @@ def ratio(num, cnt, group: Optional[object]):
     if group_size(group) == 1:
         return num / torch.clamp(cnt, min=1.0)
     return _Ratio.apply(num, cnt, group)
+
+
+def whole(x, spec: tuple, mesh):
+    """The global tensor of this rank's shard ``x`` under ``spec``, for a
+    use on this rank: each split dim all-gathered over the group of its
+    axes.  A dim split over data axes (FSDP) gathers with ``grad="sum"``:
+    every data rank uses the whole weight on its own rows, so the backward
+    sums the gradient over them and keeps this rank's block (a
+    reduce-scatter, which ``training.reduce_mesh_grads`` divides by the
+    data size).  A dim split over "model" gathers with ``grad="slice"``:
+    the model ranks compute redundantly, so their gradients of the whole
+    weight are equal."""
+    for dim in range(len(spec)):
+        axes = spec_axes(spec, dim)
+        if not axes:
+            continue
+        data = [a in DP_AXES for a in axes]
+        if any(data) and not all(data):
+            raise ValueError(f"dim {dim} of spec {spec} mixes data and "
+                             "other axes")
+        x = gather(x, dim, mesh.group(axes), "sum" if all(data) else "slice")
+    return x
 
 
 def full_tree(tree, specs, mesh):

@@ -59,9 +59,9 @@ def params_shard_from_numpy(cfg: ModelConfig, tree: dict, mesh,
                             device=None) -> dict:
     """The reference's parameter tree (numpy leaves, global) as this
     rank's shards of the port's on ``mesh`` (``models.model.shard_model``:
-    the MoE layers' router and expert stacks sliced by their specs, every
-    other leaf whole), each leaf checked and converted on the host before
-    it is sliced and moved to ``device`` (None = the CUDA card)."""
+    every leaf sliced by its partition spec), each leaf checked and
+    converted on the host before it is sliced and moved to ``device``
+    (None = the CUDA card)."""
     from repro_torch.models.model import param_placement
     from repro_torch.models.params import shard_params
     host = _convert(model_spec(cfg), tree, cfg.policy.param_dtype, "cpu")

@@ -23,13 +23,23 @@ reference's does (``layers.attention``; ROADMAP Queue 3 R1).
 
 On a mesh (``ctx = sharding.ShardCtx(mesh)``, the reference's ``ctx``)
 a rank holds its data rank's rows of the batch, replicated over its
-model ranks, and the parameters as ``param_placement`` places them: the
-MoE layers' router and expert stacks as their specs' shards, every other
-leaf whole.  Attention, the norms and the dense FFN compute replicated
-over the model ranks (tensor parallelism and FSDP of the dense weights
-change the layout, not the values, and are not ported); the MoE layers
-run expert-parallel (``moe.moe_apply``); ``loss_fn``'s CE is the ratio
-of the data group's summed loss and count.
+model ranks, and every parameter as ``param_placement`` places it, the
+reference's partition spec: d_model dims over the data axes (FSDP),
+heads, mlp, vocab and experts over "model", each where it divides.  A
+weight is gathered where it is used (``_held``: cast to the compute
+dtype first, as the reference's ``_constrain_params``, then each split
+dim all-gathered, ``comm.whole``), one block at a time inside the layer,
+so under remat the backward gathers it again and only one layer's whole
+weights are live; the MoE layers gather their own (``moe.moe_apply``:
+the router and expert stacks over the data axes only, the expert dim
+staying split for the expert-parallel dispatch).  Between blocks a rank
+keeps its block of the residual carry's sequence (the reference's
+``("batch", "seq_shard", None)``: "model", where it divides S), so remat
+saves 1/M of each layer's input; each block gathers it whole first.
+Attention, the norms and the FFNs then compute replicated over the model
+ranks (tensor parallelism of the products is not ported: the layout
+changes, the values do not); ``loss_fn``'s CE is the ratio of the data
+group's summed loss and count.
 
 The MoE layers' load-balance losses are summed only for ``loss_fn``
 (``ce + 0.01 * aux``, as the reference's); ``forward``, ``prefill`` and
@@ -54,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.coherence.fabric.backend import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import comm
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -61,7 +72,7 @@ from repro_torch.models.layers import chunked_xent, rmsnorm, swiglu
 from repro_torch.models.params import (P, map_with_path, materialize,
                                        materialize_shard, pspecs,
                                        shard_params, stack_specs)
-from repro_torch.sharding import NOSHARD, ShardCtx
+from repro_torch.sharding import NOSHARD, ShardCtx, spec_axes
 
 @dataclasses.dataclass(frozen=True)
 class LayerDesc:
@@ -218,17 +229,18 @@ def cast_params(cfg: ModelConfig, params: dict) -> dict:
 
 
 # ------------------------------------------------------------------ forward
-def _apply_block(cfg: ModelConfig, desc: LayerDesc, bp: dict, h, *,
-                 positions, cache, pos, shared_attn, want_aux=False,
+def _apply_block(cfg: ModelConfig, desc: LayerDesc, p: dict, h, *,
+                 positions, cache, pos, want_aux=False,
                  ctx: ShardCtx = NOSHARD):
-    """One block: (h, new_cache, aux), aux the MoE layer's load-balance
-    loss when ``want_aux``, else None."""
+    """One block on the whole sequence: (h, new_cache, aux), aux the MoE
+    layer's load-balance loss when ``want_aux``, else None.  ``p`` is the
+    block's weights as the block uses them (``_held``; zamba2's shared
+    block's at an ``attn_shared`` position)."""
     if desc.kind == "ssm":
-        y, nc = ssm_mod.ssm_apply(cfg, bp["ssm"],
-                                  rmsnorm(h, bp["ln"], cfg.rms_eps),
+        y, nc = ssm_mod.ssm_apply(cfg, p["ssm"],
+                                  rmsnorm(h, p["ln"], cfg.rms_eps),
                                   cache=cache)
         return h + y, nc, None
-    p = shared_attn if desc.kind == "attn_shared" else bp
     apply_fn = attn_mod.mla_apply if cfg.is_mla else attn_mod.gqa_apply
     a, nc = apply_fn(cfg, p["attn"], rmsnorm(h, p["ln1"], cfg.rms_eps),
                      positions=positions, cache=cache, pos=pos,
@@ -237,7 +249,7 @@ def _apply_block(cfg: ModelConfig, desc: LayerDesc, bp: dict, h, *,
     hn = rmsnorm(h, p["ln2"], cfg.rms_eps)
     aux = None
     if desc.kind == "moe":
-        m, aux = moe_mod.moe_apply(cfg, bp["moe"], hn, want_aux=want_aux,
+        m, aux = moe_mod.moe_apply(cfg, p["moe"], hn, want_aux=want_aux,
                                    ctx=ctx)
     else:
         m = swiglu(hn, p["mlp"]["wg"], p["mlp"]["wi"], p["mlp"]["wo"],
@@ -272,15 +284,19 @@ def _forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
     (an f32 scalar, 0 without MoE layers) when ``want_aux``, else None:
     (h_final, new_cache, aux)."""
     cd = cfg.policy.compute_dtype
+    place = _placement(cfg, ctx.mesh)
+    held = lambda name: _held(params[name], place.get(name), ctx, cd)
     if frames is not None:
-        h = frames.to(cd) @ params["frontend"].to(cd)
+        h = frames.to(cd) @ held("frontend").to(cd)
         S = frames.shape[1]
     else:
         S = tokens.shape[1]
-        h = params["embed"].to(cd)[tokens]
+        h = held("embed").to(cd)[tokens]
     if patches is not None:
         h = torch.cat([patches.to(cd), h[:, patches.shape[1]:]], 1)
-    shared_attn = params.get("shared_attn")
+    # between blocks a rank keeps its block of the sequence
+    sg = _carry_group(ctx, S)
+    h = comm.scatter(h, 1, sg)
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     if pos is not None:
         positions = positions + pos
@@ -288,6 +304,9 @@ def _forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
     aux_total = None
     for si, seg in enumerate(build_plan(cfg)):
         sp = params["segments"][f"seg{si}"]
+        specs = place.get("segments", {}).get(f"seg{si}")
+        if specs is not None and seg.mode == "scan":
+            specs = tree_map(lambda s: s[1:], specs)   # one layer's
         sc = None if cache is None else cache[f"seg{si}"]
         if seg.mode == "loop":
             layers, views = [sp], [sc]
@@ -296,13 +315,21 @@ def _forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
             views = ([None] * seg.repeats if sc is None
                      else layer_trees(sc, seg.repeats))
 
-        def run_layer(h, bp, bc, pattern=seg.pattern):
+        def run_layer(h, bp, bc, pattern=seg.pattern, specs=specs):
+            # each block's weights gathered where they are used, inside
+            # the checkpoint: the backward gathers them again
             ncs, aux = {}, None
             for j, desc in enumerate(pattern):
+                if desc.kind == "attn_shared":
+                    p = held("shared_attn")
+                else:
+                    p = _held(bp[str(j)], None if specs is None
+                              else specs[str(j)], ctx, cd)
                 h, nc, a = _apply_block(
-                    cfg, desc, bp[str(j)], h, positions=positions,
+                    cfg, desc, p, comm.gather(h, 1, sg), positions=positions,
                     cache=None if bc is None else bc[str(j)], pos=pos,
-                    shared_attn=shared_attn, want_aux=want_aux, ctx=ctx)
+                    want_aux=want_aux, ctx=ctx)
+                h = comm.scatter(h, 1, sg)
                 ncs[str(j)] = {} if nc is None else nc
                 aux = _add(aux, a)
             return h, ncs, aux
@@ -326,16 +353,31 @@ def _forward(cfg: ModelConfig, params: dict, tokens, *, patches=None,
         if cache is not None:
             new_cache[f"seg{si}"] = outs[0] if seg.mode == "loop" \
                 else _stack(outs)
-    h = rmsnorm(h, params["ln_f"], cfg.rms_eps)
+    h = rmsnorm(comm.gather(h, 1, sg), held("ln_f"), cfg.rms_eps)
     if want_aux and aux_total is None:
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, (new_cache if cache is not None else None), aux_total
 
 
-def unembed_matrix(cfg: ModelConfig, params: dict):
-    if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["unembed"]
+def _carry_group(ctx: ShardCtx, S: int):
+    """The group the residual carry's sequence is split over between
+    blocks: the reference's ``("batch", "seq_shard", None)`` constraint
+    ("seq_shard" over "model", dropped where it does not divide S, as at
+    a decode step's S = 1); None off a mesh."""
+    if ctx.mesh is None:
+        return None
+    axes = spec_axes(ctx.spec((S,), ("seq_shard",)), 0)
+    return ctx.mesh.group(axes) if axes else None
+
+
+def unembed_matrix(cfg: ModelConfig, params: dict,
+                   ctx: ShardCtx = NOSHARD):
+    """The [D, V] unembedding (the embedding's transpose when tied); on a
+    mesh gathered from this rank's shard (``_held``)."""
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    w = _held(params[name], _placement(cfg, ctx.mesh).get(name), ctx,
+              cfg.policy.compute_dtype)
+    return w.T if cfg.tie_embeddings else w
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
@@ -354,7 +396,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     tokens = batch.get("tokens")
     h, _, aux = _forward(cfg, params, tokens, patches=batch.get("patches"),
                          frames=batch.get("frames"), want_aux=True, ctx=ctx)
-    W = unembed_matrix(cfg, params)
+    W = unembed_matrix(cfg, params, ctx)
     if cfg.causal and "labels" not in batch:
         ll = torch.roll(tokens, -1, dims=1)       # h[t] predicts tokens[t+1]
         mask = torch.ones(ll.shape, dtype=torch.float32, device=h.device)
@@ -366,10 +408,10 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
-def _next_ids(cfg: ModelConfig, params: dict, h):
+def _next_ids(cfg: ModelConfig, params: dict, h, ctx: ShardCtx = NOSHARD):
     """Greedy ids from the last position: f32 argmax, first index on
     ties, int32 as the reference's."""
-    logits = h[:, -1:] @ unembed_matrix(cfg, params).to(h.dtype)
+    logits = h[:, -1:] @ unembed_matrix(cfg, params, ctx).to(h.dtype)
     return torch.argmax(logits.float(), dim=-1)[:, 0].to(torch.int32)
 
 
@@ -381,7 +423,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens, cache, *, patches=None,
     (next_token_ids [B], cache), on a mesh this rank's rows."""
     h, new_cache = forward(cfg, params, tokens, patches=patches,
                            frames=frames, cache=cache, ctx=ctx)
-    return _next_ids(cfg, params, h), new_cache
+    return _next_ids(cfg, params, h, ctx), new_cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache, tokens, pos: int,
@@ -390,7 +432,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache, tokens, pos: int,
     level).  Returns (next_token_ids [B], new_cache)."""
     h, new_cache = forward(cfg, params, tokens, cache=cache, pos=pos,
                            ctx=ctx)
-    return _next_ids(cfg, params, h), new_cache
+    return _next_ids(cfg, params, h, ctx), new_cache
 
 
 # ------------------------------------------------------------------ builders
@@ -410,22 +452,38 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 # ------------------------------------------------------------------ meshes
 def param_placement(cfg: ModelConfig, mesh) -> dict:
-    """Every leaf's spec as a rank of ``mesh`` holds it: the MoE layers'
-    router and expert stacks (``moe/router``, ``moe/wg``, ``moe/wi``,
-    ``moe/wo``) under their ``pspecs``, every other leaf () (whole,
-    replicated)."""
-    spec = model_spec(cfg)
-    full = pspecs(spec, mesh)
+    """Every leaf's partition spec as a rank of ``mesh`` holds it: the
+    reference's (``pspecs`` of ``model_spec``; d_model dims over the data
+    axes, heads, mlp, vocab and experts over "model", each where it
+    divides)."""
+    return pspecs(model_spec(cfg), mesh)
 
-    def walk(sp, fs, path):
-        if isinstance(sp, P):
-            parts = path.split("/")
-            held = len(parts) >= 2 and parts[-2] == "moe" \
-                and parts[-1] in moe_mod.SHARDED
-            return fs if held else ()
-        return {k: walk(sp[k], fs[k], f"{path}/{k}") for k in sp}
 
-    return walk(spec, full, "")
+def _placement(cfg: ModelConfig, mesh) -> dict:
+    """``param_placement``; {} off a mesh."""
+    return {} if mesh is None else param_placement(cfg, mesh)
+
+
+def _held(tree, specs, ctx: ShardCtx, cd):
+    """A tree of this rank's shards (under ``specs``) as a use on this
+    rank needs it: each float weight of two or more dims cast to the
+    compute dtype first, as the reference's ``_constrain_params`` casts
+    before it pins the sharding (so the gathers move compute-dtype
+    bytes); norm scales and 1-D biases stay in the param dtype; then each
+    split dim gathered (``comm.whole``).  A MoE block's leaves are left
+    to ``moe_apply``, which gathers its own.  Off a mesh ``tree``
+    itself."""
+    if ctx.mesh is None:
+        return tree
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: t[k] if k == "moe" else walk(t[k], s[k]) for k in t}
+        if t.dim() >= 2 and t.is_floating_point():
+            t = t.to(cd)
+        return comm.whole(t, s, ctx.mesh)
+
+    return walk(tree, specs)
 
 
 def init_model_shard(cfg: ModelConfig, gen: torch.Generator, mesh):

@@ -17,9 +17,11 @@ the reference's rule (``repro/models/moe.py:59-63``): the expert-parallel
 path when the mesh has a "model" axis, ``cfg.moe_shard_map`` is set and
 the M model ranks divide the E experts.  A rank holds its data rank's
 rows ``[B / n_dp, S, D]``, replicated over its model ranks, and the
-router and expert stacks as their specs' shards (experts over "model",
-D over the data axes where it divides).  It takes sequence block m of
-its rows (t_loc = T / (n_dp M) tokens, the reference's device block),
+block's leaves as their specs' shards (experts over "model", D over the
+data axes where it divides; the shared experts' hidden dim over "model"
+too, gathered whole where they are used, ``_shared``).  It takes
+sequence block m of its rows (t_loc = T / (n_dp M) tokens, the
+reference's device block),
 gathers the weights' data shards, routes and dispatches into an
 ``[E * C, D]`` buffer at the per-rank capacity C, exchanges it with ONE
 ``all_to_all`` over the model group each way around the local experts'
@@ -44,8 +46,8 @@ import torch.nn.functional as F
 from repro_torch.models import comm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import swiglu
-from repro_torch.models.params import P
-from repro_torch.sharding import NOSHARD, partition_spec, spec_axes
+from repro_torch.models.params import P, pspecs
+from repro_torch.sharding import NOSHARD, spec_axes
 
 
 def moe_spec(cfg: ModelConfig) -> dict:
@@ -67,21 +69,15 @@ def moe_spec(cfg: ModelConfig) -> dict:
     return s
 
 
-# the leaves a rank holds as their specs' shards (the shared experts are
-# dense weights, held whole)
+# the router and the expert stacks: gathered over the data axes only
+# (``_weights``), the expert dim staying split for the dispatch
 SHARDED = ("router", "wg", "wi", "wo")
 
 
 def placement(cfg: ModelConfig, mesh) -> dict:
-    """One MoE block's leaves as a rank of ``mesh`` holds them: the
-    router and the expert stacks under their partition specs, the shared
-    experts () (whole, replicated)."""
-    spec = moe_spec(cfg)
-    out = {k: partition_spec(mesh, spec[k].shape, spec[k].axes)
-           for k in SHARDED}
-    if "shared" in spec:
-        out["shared"] = {k: () for k in spec["shared"]}
-    return out
+    """One MoE block's leaves as a rank of ``mesh`` holds them: each
+    under its partition spec, the shared experts' too."""
+    return pspecs(moe_spec(cfg), mesh)
 
 
 def capacity_for(cfg: ModelConfig, n_tokens: int) -> int:
@@ -183,8 +179,14 @@ def _combine(ye_rows, dest, keep, topv, k: int):
     return y_tok.reshape(n // k, k, D).sum(dim=1)
 
 
-def _shared(cfg: ModelConfig, p: dict, x, cd):
+def _shared(cfg: ModelConfig, p: dict, x, cd, ctx=NOSHARD):
+    """The shared experts' SwiGLU on x [T, D]; on a mesh their weights
+    cast to ``cd`` and gathered from this rank's shards where they are
+    used, as every dense weight (``comm.whole``)."""
     sp = p["shared"]
+    if ctx.mesh is not None:
+        specs = placement(cfg, ctx.mesh)["shared"]
+        sp = {k: comm.whole(sp[k].to(cd), specs[k], ctx.mesh) for k in sp}
     return swiglu(x, sp["wg"], sp["wi"], sp["wo"], cd)
 
 
@@ -263,7 +265,8 @@ def _moe_expert_parallel(cfg: ModelConfig, p: dict, h, ctx, want_aux):
     out = _combine(mine.reshape(E * C, D), dest, keep, topv, k)
     out = comm.gather(out.reshape(xb.shape), 1, mg)  # [B_loc, S, D]
     if cfg.n_shared_experts:
-        out = out + _shared(cfg, p, h.reshape(-1, D), cd).reshape(h.shape)
+        out = out + _shared(cfg, p, h.reshape(-1, D), cd,
+                            ctx).reshape(h.shape)
     return out, aux
 
 
@@ -295,5 +298,5 @@ def _moe_global(cfg: ModelConfig, p: dict, h, ctx, want_aux):
     out = _combine(ye.reshape(E * C, D), dest[own], keep[own],
                    topv.reshape(-1)[own], k)
     if cfg.n_shared_experts:
-        out = out + _shared(cfg, p, x_loc, cd)
+        out = out + _shared(cfg, p, x_loc, cd, ctx)
     return out.reshape(B_loc, S, D), aux

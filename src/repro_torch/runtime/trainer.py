@@ -10,9 +10,10 @@ failures and resume, optionally on another device or over a
 mesh step, the state this rank's shards of the seeded global init
 (``models.model.init_model_shard``), and a checkpoint holds the global
 tensors, gathered from the shards as the reference's holds its global
-arrays; a resume on the same mesh restores them and takes its shards
-again.  Re-meshing on resume under a mesh is not ported (ROADMAP item
-25).  The
+arrays; a resume restores them on the host and takes its shards again,
+on the same mesh or on another one (``resume(mesh=)``, the reference's
+elastic re-mesh: the step and the specs are rebuilt for the new mesh,
+and the data pipeline's rows follow its data ranks).  The
 trainer owns the state it trains: ``step_fn`` (and so ``run``) writes
 each step's weights and moments into the tensors of the state it is
 given (``adamw.apply_updates`` is in place), the memory plan that lets a
@@ -29,6 +30,7 @@ otherwise.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import tempfile
 import time
@@ -50,6 +52,7 @@ from repro_torch.models.model import (init_model_shard, model_spec,
                                       param_placement, shard_model)
 from repro_torch.models.params import P
 from repro_torch.optim import adamw
+from repro_torch.sharding import ShardCtx, shard_index
 
 
 @dataclasses.dataclass
@@ -111,6 +114,16 @@ class Trainer:
         # re-stamps the SAME keys (a republish storm — eval readers
         # self-invalidate on lease expiry, never via invalidations)
         self._param_keys = param_keys(self.cfg)
+
+    def _slice_data(self):
+        """The data pipeline's rows: this rank's data rank's block of the
+        global batch on the mesh (a batch is a function of the step and
+        the global row, so the rows of a new mesh continue the run)."""
+        if self.data is None:
+            return
+        i, n = shard_index(self.mesh, ShardCtx(self.mesh).dp_axes)
+        self.data = type(self.data)(self.cfg, dataclasses.replace(
+            self.data.dcfg, host_index=i, host_count=n))
 
     def init_state(self, seed: int = 0) -> adamw.TrainState:
         gen = torch.Generator(self.device).manual_seed(seed)
@@ -175,23 +188,28 @@ class Trainer:
                 "final_step": step,
                 "fabric_stats": self.fabric.stats()}
 
-    def resume(self, device=None, group=None,
+    def resume(self, device=None, group=None, mesh=None,
                template: Optional[adamw.TrainState] = None,
                **kw) -> Dict[str, Any]:
         """Restart from the latest checkpoint — optionally on another
-        ``device`` or over a ``torch.distributed`` ``group`` (elastic
-        scaling after node loss): the step is rebuilt and the state
-        restored onto the new placement."""
-        if self.mesh is not None and (device is not None
-                                      or group is not None):
-            raise NotImplementedError("re-meshing a mesh trainer on resume "
-                                      "is not ported")
-        if device is not None or group is not None:
+        ``device``, over a ``torch.distributed`` ``group`` or on another
+        (data, model) ``mesh`` (elastic scaling after node loss): the step
+        and the specs are rebuilt and the state restored onto the new
+        placement, with an ``elastic_remesh`` event of the new world's
+        size.  Under a mesh every rank of the new mesh calls it."""
+        if group is not None and (mesh is not None or self.mesh is not None):
+            raise ValueError("a trainer steps over a group or a mesh, not "
+                             "both: a mesh trainer resumes with mesh=")
+        if device is not None or group is not None or mesh is not None:
             if device is not None:
                 self.device = resolve_device(device)
+            if mesh is not None:
+                self.mesh = mesh
+                self._slice_data()
             self._build(group)
             self.events.append({"kind": "elastic_remesh", "devices": (
-                1 if group is None else dist.get_world_size(group))})
+                math.prod(self.mesh.shape) if self.mesh is not None
+                else 1 if group is None else dist.get_world_size(group))})
         step = self.ckpt.latest_step()
         if self.mesh is not None:
             # the checkpoint's global tensors, on the host, then this

@@ -46,6 +46,8 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import moe as tmoe
 from repro_torch.sharding import local_shard
 
+from placement_counts import carry_gathers, shared_gathers, weight_gathers
+
 ROOT = Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_mesh_worker.py"
 ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
@@ -421,14 +423,16 @@ def test_moe_layer_equals_shard_map(runs, shape, arch, case):
 def test_moe_layer_collectives(runs, shape, arch):
     """The expert-parallel path's collectives: two ``all_to_all`` over
     the model group, one all-gather along the sequence, the aux's
-    ``all_reduce``, and the weights' data shards gathered (four leaves)
-    only where the data axis has more than one rank; the decode step's
-    global dispatch exchanges no ``all_to_all``."""
+    ``all_reduce``, the weights' data shards gathered (four leaves)
+    only where the data axis has more than one rank, and the shared
+    experts gathered by their placement (``placement_counts``); the
+    decode step's global dispatch exchanges no ``all_to_all``."""
     n_dp, M = shape
     for res in runs["port"][_world(shape)]:
         base = res[(shape, arch, "base")]["counts"]["by_op"]
         assert base.get("alltoall_base_", 0) == (2 if M > 1 else 0)
-        gathers = (1 if M > 1 else 0) + (4 if n_dp > 1 else 0)
+        gathers = (1 if M > 1 else 0) + (4 if n_dp > 1 else 0) \
+            + shared_gathers(_f32cfg(arch), shape)
         assert base.get("_allgather_base_", 0) == gathers, base
         dec = res[(shape, arch, "decode")]["counts"]["by_op"]
         assert dec.get("alltoall_base_", 0) == 0, dec
@@ -508,7 +512,10 @@ def test_mesh_serving_equals_one_device(runs):
     """``make_prefill_step`` and three ``make_decode_step`` steps on a
     (1, 2) mesh (capacity factor 8, nothing dropped) give the port's
     one-device ids; the prefill exchanges two ``all_to_all`` a MoE layer
-    and gathers no expert weight, the decode steps none."""
+    and gathers no expert weight, the decode steps none.  Besides a MoE
+    layer's own all-gather, a step gathers each split weight where it
+    is used, and the prefill the residual carry's sequence blocks
+    (``placement_counts``); the decode step's S = 1 does not split."""
     cfg = _f32cfg(ARCHS[0], cf=8.0)
     task = next(t for t in _tasks(2, runs["inp"]) if t["kind"] == "serve")
     params = tmodel.init_model(cfg, torch.Generator().manual_seed(
@@ -526,12 +533,16 @@ def test_mesh_serving_equals_one_device(runs):
         got = res["serve"]
         for a, b in zip(got["ids"], want):
             assert np.array_equal(a, b)
+        weights = weight_gathers(cfg, (1, 2))
         pre = got["prefill_counts"]["by_op"]
         assert pre.get("alltoall_base_", 0) == 2 * n_moe
-        assert pre.get("_allgather_base_", 0) == n_moe    # sequence blocks
+        # a MoE layer's sequence blocks
+        assert pre.get("_allgather_base_", 0) == n_moe + weights \
+            + carry_gathers(cfg, (1, 2), 16)
         dec = got["decode_counts"]["by_op"]
         assert dec.get("alltoall_base_", 0) == 0
-        assert dec.get("_allgather_base_", 0) == n_moe    # expert rows
+        # a MoE layer's expert rows
+        assert dec.get("_allgather_base_", 0) == n_moe + weights
 
 
 def test_mesh_trainer_resume_repeats_losses(runs):

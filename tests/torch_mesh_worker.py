@@ -1,6 +1,8 @@
 """One rank of a gloo world that runs the port's model on (data, model)
 meshes: the expert-parallel MoE layer, the loss and its gradients, train
-steps, the data-parallel step's CE, a mesh ``Trainer`` and serving.
+steps, the data-parallel step's CE, a mesh ``Trainer`` and its resume
+onto another mesh, serving, and the residual carry split over the
+sequence.
 
     python tests/torch_mesh_worker.py RANK WORLD RDZV_FILE JOB OUT
 
@@ -208,6 +210,12 @@ def main(argv) -> None:
                          "init": arrays(init.params),
                          "events": [e for e in tr.events
                                     if e["kind"] != "straggler"]}
+        elif kind == "vs_one":
+            res[name] = vs_one(torch, task, cfg, mesh, ctx, dev)
+        elif kind == "carry":
+            res[name] = carry(torch, task, cfg, mesh, ctx, dev)
+        elif kind == "remesh":
+            res[name] = remesh(torch, task, cfg, mesh, rank, dev)
         elif kind == "collectives":
             res[name] = collectives(torch, mesh, dev)
         elif kind == "serve":
@@ -236,6 +244,126 @@ def main(argv) -> None:
     dist.destroy_process_group()
     with open(out_path, "wb") as f:
         pickle.dump(res, f)
+
+
+def vs_one(torch, task, cfg, mesh, ctx, dev):
+    """The mesh's loss and gradients (this rank's shards), one train
+    step's replicated leaves (digests), and a served prompt's greedy ids
+    (a prefill, then ``decode`` steps) of this rank's rows."""
+    from repro_torch.launch.steps import (make_decode_step, make_grad_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import init_cache
+    from repro_torch.models.convert import params_shard_from_numpy
+    from repro_torch.models.model import cast_params, param_placement
+    from repro_torch.optim import adamw
+    shard = lambda: params_shard_from_numpy(cfg, task["params"], mesh, dev)
+    batch = {k: rows(v, mesh, ctx) for k, v in task["batch"].items()}
+    loss, _, grads = make_grad_step(cfg, mesh=mesh)(shard(), batch)
+    step = make_train_step(cfg, adamw.AdamWConfig(**task["opt"]), mesh=mesh)
+    state, _ = step(adamw.init_state(shard(), cfg.policy.moment_dtype),
+                    batch)
+    out = {"loss": float(loss), "grads": arrays(grads),
+           "digests": digests(state.params, param_placement(cfg, mesh))}
+    inputs = {k: tensors(rows(v, mesh, ctx), device=dev)
+              for k, v in task["prompt"].items()}
+    lead = next(iter(inputs.values()))
+    B, S = lead.shape[:2]
+    p = cast_params(cfg, shard())
+    cache = init_cache(cfg, B, S + task["decode"], device=dev)
+    ids, cache = make_prefill_step(cfg, mesh)(p, cache, inputs)
+    seq = [arrays(ids)]
+    decode = make_decode_step(cfg, mesh)
+    for t in range(task["decode"]):
+        ids, cache = decode(p, cache, ids[:, None], S + t)
+        seq.append(arrays(ids))
+    out["ids"] = seq
+    return out
+
+
+def carry(torch, task, cfg, mesh, ctx, dev):
+    """The loss and gradients with the residual carry split over the
+    sequence (the default rules) and whole (``seq_shard`` over no axis),
+    with the shapes of the tensors autograd saves at each checkpointed
+    layer's entry (``saved_tensors_hooks``: a checkpoint keeps its
+    inputs, the carry among them) in each run."""
+    from torch.utils.checkpoint import checkpoint as real
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.convert import params_shard_from_numpy
+    from repro_torch.models.training import loss_and_grads
+    from repro_torch.sharding import DEFAULT_RULES, ShardCtx
+    p = params_shard_from_numpy(cfg, task["params"], mesh, dev)
+    batch = {k: tensors(rows(v, mesh, ctx), device=dev)
+             for k, v in task["batch"].items()}
+    out = {}
+    for how, rules in (("split", None),
+                       ("whole", {**DEFAULT_RULES, "seq_shard": ()})):
+        saved = []
+
+        def layer(fn, h, *args, **kw):
+            with torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: saved.append(tuple(t.shape)) or t,
+                    lambda t: t):
+                return real(fn, h, *args, **kw)
+
+        model_mod.checkpoint = layer
+        try:
+            loss, _, grads = loss_and_grads(cfg, p, batch,
+                                            ShardCtx(mesh, rules=rules))
+        finally:
+            model_mod.checkpoint = real
+        out[how] = {"loss": float(loss), "grads": arrays(grads),
+                    "saved": saved}
+    # the carry gathered along the sequence is contiguous, as the kernels
+    # take it
+    from repro_torch.models import comm
+    h = torch.ones((2, 4, 8), device=dev)
+    out["gathered_contiguous"] = comm.gather(
+        h, 1, mesh.group(("model",))).is_contiguous()
+    return out
+
+
+def remesh(torch, task, cfg, mesh, rank, dev):
+    """A straight run of ``Trainer`` on ``mesh`` and, from the checkpoint
+    of a run that fails at ``fail``, a resume onto each of ``onto`` (a
+    (data, model) shape over the first ranks of the world; every rank
+    makes each mesh, its members resume).  Returns the straight run's
+    losses, each resume's losses and its events."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.sharding import ShardCtx, shard_index
+    onto = [(tuple(s), make_model_mesh(s, backend="gloo",
+                                       ranks=range(s[0] * s[1])))
+            for s in task["onto"]]
+    i, n = shard_index(mesh, ShardCtx(mesh).dp_axes)
+    data = SyntheticLM(cfg, DataConfig(
+        global_batch=task["batch"], seq_len=task["seq"], host_index=i,
+        host_count=n))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=20)
+
+    def trainer(tag):
+        tcfg = TrainerConfig(total_steps=task["total"], ckpt_period=2,
+                             ckpt_dir=f"{task['ckpt_dir']}/{tag}{rank}")
+        return Trainer(cfg, opt, tcfg, data=data, device=dev, mesh=mesh)
+
+    tr = trainer("straight")
+    out = {"straight": tr.run(state=tr.init_state(task["seed"]))["losses"]}
+    for shape, new in onto:
+        tr = trainer("x".join(map(str, shape)))
+        try:
+            tr.run(state=tr.init_state(task["seed"]), fail_at=task["fail"])
+        except RuntimeError:
+            pass
+        if new is not None:
+            got = tr.resume(mesh=new)
+            out[shape] = {"losses": got["losses"], "events": [
+                e for e in got["events"] if e["kind"] != "straggler"]}
+        dist.barrier()
+    return out
 
 
 def digests(params, specs):
